@@ -5,19 +5,30 @@ Run from the root of a checkout on a machine with an H100:
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. build the CUDA kernels from ``src/repro_torch/kernels/mttkrp/csrc``;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/mttkrp/csrc``
+     (one ``nvcc`` per source, started together);
   2. B1 (``fused_mttkrp_nmode_gather``) and B2 (``..._tiled``) against
      their plain PyTorch versions on random streams (K in {2,3}, R in
      {16,256}, blk=512, tile_rows=8): allclose, B1 == B2 bitwise, and a
      repeated launch bitwise equal;
-  3. the main path at nell-2 scale: ``cp_als_distributed`` (R=16, B1,
+  3. ``[stream-kernels]``: B6 (``fused_mttkrp_nmode_gather_stream``) on
+     random streams (K in {2,3}, R in {16,64}, blk=128, tile_rows=8):
+     against its plain version, B6 == B1 bitwise, a rerun bitwise equal,
+     and a chunked out-of-core run with mid-tile splits bitwise equal to
+     the single pass;
+  4. the main path at nell-2 scale: ``cp_als_distributed`` (R=16, B1,
      3 sweeps) on a synthetic stand-in of FROSTT nell-2 with its real
      shape and nonzero count, then the tiled path (R=256, B2, 1 sweep);
      launch counts, fits, and each mode's sweep-0 kernel output against
      the plain version on the same inputs, with times beside the bounds;
-  4. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
-  5. exact recovery of a dense rank-4 tensor (fit > 0.999);
-  6. one JSON line per kernel, the card's name and power limit, and the
+  5. ``[stream-main]``, the out-of-core path on the same tensor (R=16,
+     blk=64): per mode ``mttkrp_out_of_core`` with Morton order in >= 5 chunks,
+     bitwise equal to B1 on the same permuted stream, predicted traffic
+     equal to the counted; then ``cp_als_distributed`` with the stream
+     backend and with B1, Morton order, 2 sweeps each: equal fits;
+  6. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
+  7. exact recovery of a dense rank-4 tensor (fit > 0.999);
+  8. one JSON line per kernel, the card's name and power limit, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -45,11 +56,26 @@ FP32_FLOPS_PER_S = 67e12
 RTOL, ATOL_FRAC = 1e-5, 1e-5
 BLK, TILE_ROWS = 512, 8
 
-SOURCE = "src/repro_torch/kernels/mttkrp/csrc/gather_mttkrp.cu"
+# The stream path's geometry: 8-row output tiles, 8-row x 16-column factor
+# tiles (the port's defaults), 128-slot blocks on the random streams. The
+# nell-2 phase takes 64-slot blocks: its Morton windows (~64 tiles per
+# mode) then need ~74 KB of shared memory, so three CTAs share an SM
+# (measured against 128-slot blocks in PERF.md).
+STREAM_BLK, STREAM_TILE_ROWS = 128, 8
+MAIN_STREAM_BLK = 64
+
+CSRC = "src/repro_torch/kernels/mttkrp/csrc/"
+SOURCE = {
+    "fused_mttkrp_nmode_gather": CSRC + "gather_mttkrp.cu",
+    "fused_mttkrp_nmode_gather_tiled": CSRC + "gather_mttkrp.cu",
+    "fused_mttkrp_nmode_gather_stream": CSRC + "gather_stream_mttkrp.cu",
+}
 REPLACES = {
     "fused_mttkrp_nmode_gather": "src/repro/kernels/mttkrp/kernel.py:632",
     "fused_mttkrp_nmode_gather_tiled":
         "src/repro/kernels/mttkrp/kernel.py:728",
+    "fused_mttkrp_nmode_gather_stream":
+        "src/repro/kernels/mttkrp/kernel.py:868",
 }
 
 
@@ -88,21 +114,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_bound_ms(operands, *, rows_cap: int, tile_rows: int
-                    ) -> tuple[float, str]:
+def kernel_bound_ms(operands, *, rows_cap: int, tile_rows: int,
+                    scheds=()) -> tuple[float, str]:
     """Least time for one kernel call: max(bytes / HBM rate, flops / peak).
 
     Counts what this run's data needs. Bytes: for each nonzero slot
     (value != 0) its value, K indices and local row; the factors once;
-    the per-tile block starts; the output written once. Padding slots
-    need no index or row read. Operations: K multiplies and one add per
-    column of each nonzero slot.
+    the stream kernel's tile schedules once; the per-tile block starts;
+    the output written once. Padding slots need no index or row read.
+    Operations: K multiplies and one add per column of each nonzero slot.
     """
     vals, idx_stream, factors, _, _ = operands
     rank, k = factors[0].shape[1], len(factors)
     nnz = int((vals != 0).sum())
     nbytes = nnz * (4 + 4 * k + 4)
     nbytes += sum(f.numel() * f.element_size() for f in factors)
+    nbytes += sum(s.numel() * s.element_size() for s in scheds)
     nbytes += (rows_cap // tile_rows + 1) * 4 + rows_cap * rank * 4
     flops = nnz * rank * (k + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -122,20 +149,21 @@ def compare(out, plain, what: str) -> float:
 def phase_build():
     from repro_torch.kernels.mttkrp import build
     t0 = time.perf_counter()
-    path, report = build.build()
-    build.load()
+    built = build.build()
+    for name in built:
+        build.load(name)
     secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in report.splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.2f} s")
-    for ln in regs:
-        log(f"[build] ptxas: {ln}")
+    log(f"[build] {len(built)} libraries in {secs:.2f} s (one nvcc per "
+        "source, in parallel)")
+    for name, (path, report) in built.items():
+        log(f"[build] {os.path.relpath(path, ROOT)}")
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"[build]   ptxas: {ln.strip()}")
 
 
-def random_operands(rng, k: int, rank: int, cap: int, rows_cap: int,
-                    slab: int, dev):
-    """A row-sorted random stream through the port's own block layout."""
-    from repro_torch.kernels.mttkrp import ops
+def random_stream(rng, k: int, rank: int, cap: int, rows_cap: int, dev):
+    """A row-sorted random stream (mode 0 is the output) and its factors."""
     frows = [int(x) for x in rng.integers(5_000, 30_000, k)]
     rows = np.sort(rng.integers(0, rows_cap, cap)).astype(np.int32)
     cols = [rng.integers(0, f, cap) for f in frows]
@@ -147,9 +175,30 @@ def random_operands(rng, k: int, rank: int, cap: int, rows_cap: int,
     factors = [torch.zeros(rows_cap, rank, device=dev)] + [
         torch.tensor(rng.standard_normal((f, rank)).astype(np.float32),
                      device=dev) for f in frows]
-    return ops.gather_operands(idx, val, valid, factors, mode=0,
-                               rows_cap=rows_cap, row_offset=0, blk=BLK,
-                               tile_rows=TILE_ROWS, slab=slab)
+    return idx, val, valid, factors
+
+
+def random_operands(rng, k: int, rank: int, cap: int, rows_cap: int,
+                    slab: int, dev):
+    """A row-sorted random stream through the port's own block layout."""
+    from repro_torch.kernels.mttkrp import ops
+    return ops.gather_operands(
+        *random_stream(rng, k, rank, cap, rows_cap, dev), mode=0,
+        rows_cap=rows_cap, row_offset=0, blk=BLK, tile_rows=TILE_ROWS,
+        slab=slab)
+
+
+def stream_operands(operands, blk: int):
+    """B6's operands from B1's on the same aligned stream: factors padded
+    to whole tiles, schedules with windows tightened to the data (as the
+    stream backend's mode step builds them). Returns ``(operands,
+    windows)``."""
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    vals, idx_al, fmats, rows, tob = operands
+    fmats = tuple(ops._pad_factor_rows(f, K.FACTOR_ROW_TILE) for f in fmats)
+    scheds, windows, _ = ops.stream_schedules(
+        idx_al, blk, [f.shape[0] for f in fmats])
+    return (vals, idx_al, fmats, rows, tob, scheds), windows
 
 
 def phase_kernels(dev):
@@ -179,6 +228,66 @@ def phase_kernels(dev):
         log(f"[kernels] {what} nnz={cap} slab={slab}: max_abs_err={err:.3e} "
             f"B1==B2 bitwise, rerun bitwise; B1 {t_b1:.4f} ms, B2 {t_b2:.4f} "
             f"ms, plain {t_p:.4f} ms, bound {bound:.4f} ms ({by})")
+
+
+def mid_tile_splits(tile_of_block, chunk_block_counts) -> int:
+    """Chunk boundaries that fall inside an output tile's run of blocks."""
+    tob = tile_of_block.cpu().numpy()
+    return sum(int(tob[b] == tob[b - 1])
+               for b in np.cumsum(chunk_block_counts)[:-1])
+
+
+def phase_stream_kernels(dev):
+    """B6 on random streams: against plain, == B1, rerun, chunked."""
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    from repro_torch.oocore import executor, planner
+    rng = np.random.default_rng(1)
+    # 1024 output rows: 128 tiles of ~8192 nonzeros, 64 blocks each, so a
+    # chunk of 48 blocks ends inside a tile's run.
+    cap, rows_cap = 1 << 20, 1024
+    kw = dict(rows_cap=rows_cap, blk=STREAM_BLK, tile_rows=STREAM_TILE_ROWS)
+    for k, rank in itertools.product((2, 3), (16, 64)):
+        stream = random_stream(rng, k, rank, cap, rows_cap, dev)
+        b1_ops = ops.gather_operands(*stream, mode=0, row_offset=0,
+                                     slab=rank, **kw)
+        s_ops, windows = stream_operands(b1_ops, STREAM_BLK)
+        b6 = K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw)
+        b6_again = K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw)
+        b1 = K.fused_mttkrp_nmode_gather(*b1_ops, **kw)
+        plain = K.fused_mttkrp_nmode_gather_stream_plain(*s_ops, **kw)
+        torch.cuda.synchronize()
+        what = f"K={k} R={rank}"
+        err = compare(b6, plain, f"B6 {what}")
+        require(torch.equal(b6, b6_again), f"B6 {what}: rerun differs")
+        require(torch.equal(b6, b1), f"B6 {what}: differs from B1 bitwise")
+        single, st1 = executor.mttkrp_out_of_core(*stream, mode=0, **kw)
+        budget = 48 * planner.stream_chunk_bytes(STREAM_BLK, k,
+                                                 st1.window_tiles)
+        chunked, st2 = executor.mttkrp_out_of_core(
+            *stream, mode=0, max_chunk_bytes=budget, **kw)
+        torch.cuda.synchronize()
+        splits = mid_tile_splits(b1_ops[4], st2.chunk_block_counts)
+        require(st2.chunks >= 4 and splits > 0,
+                f"B6 {what}: {st2.chunks} chunks, {splits} mid-tile splits")
+        require(torch.equal(chunked, single),
+                f"B6 {what}: chunked run differs from the single pass")
+        require(torch.equal(single, b6),
+                f"B6 {what}: the executor differs from the direct launch")
+        t_b6 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *s_ops, **kw), 3)
+        t_b1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*b1_ops, **kw), 3)
+        t_p = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream_plain(
+            *s_ops, **kw), 1)
+        bound, by = kernel_bound_ms(b1_ops, rows_cap=rows_cap,
+                                    tile_rows=STREAM_TILE_ROWS,
+                                    scheds=s_ops[5])
+        log(f"[stream-kernels] {what} nnz={cap} blk={STREAM_BLK} windows="
+            f"{windows}: max_abs_err={err:.3e}, B6==B1 bitwise, rerun "
+            f"bitwise, {st2.chunks} chunks with {splits} mid-tile splits == "
+            f"single pass bitwise; B6 {t_b6:.4f} ms, B1 {t_b1:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {bound:.4f} ms ({by}); distinct tile bytes "
+            f"{st1.distinct_tile_bytes}")
+        del stream, b1_ops, s_ops, b6, b6_again, b1, plain, single, chunked
 
 
 def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
@@ -227,13 +336,14 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
     return rows, float(res.fit)
 
 
-def profile_sweep(ft, rank: int, backend: str, dev):
+def profile_sweep(ft, rank: int, backend: str, dev, **runtime_kw):
     """Device time by kernel over one later sweep (torch.profiler), and the
-    ops that launched the most of it, with their input shapes."""
+    ops that launched the most of it, with their input shapes.
+    ``runtime_kw`` (``blk``, ``ordering``) go to ``prepare_runtime``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import cpals, distributed as dist
-    rt, packed = dist.prepare_runtime(ft, rank)
+    rt, packed = dist.prepare_runtime(ft, rank, **runtime_kw)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   device=dev)
     del packed
@@ -251,7 +361,8 @@ def profile_sweep(ft, rank: int, backend: str, dev):
                for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA}
     busy = sum(kernels.values())
-    log(f"[profile] one sweep R={rank} {backend}: wall {wall_ms:.2f} ms, "
+    log(f"[profile] one sweep R={rank} {backend} {runtime_kw}: wall "
+        f"{wall_ms:.2f} ms, "
         f"kernels {busy:.2f} ms, device idle share {1 - busy / wall_ms:.3f}")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   kernel {ms:9.3f} ms  {name[:100]}")
@@ -332,8 +443,161 @@ def phase_main(dev, gpu: str):
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max_abs_err "
             f"{r['err']:.3e}  [{gpu}]")
-    return {"fused_mttkrp_nmode_gather": (b1_launches, b1_rows),
-            "fused_mttkrp_nmode_gather_tiled": (b2_launches, b2_rows)}
+    return ft, {"fused_mttkrp_nmode_gather": (b1_launches, b1_rows),
+                "fused_mttkrp_nmode_gather_tiled": (b2_launches, b2_rows)}
+
+
+def phase_stream_main(ft, dev, gpu: str):
+    """The out-of-core path on the nell-2 stand-in that phase_main built."""
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    from repro_torch.oocore import executor, planner
+    from repro_torch.reorder import reorder_stream
+    rank, blk, tile_rows = 16, MAIN_STREAM_BLK, STREAM_TILE_ROWS
+    rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows)
+    stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
+                                               device=dev)
+    del packed
+    nmodes, k = rt.nmodes, rt.nmodes - 1
+    for n in range(nmodes):
+        frows = [rt.i_pad[w] for w in range(nmodes) if w != n]
+        require(planner.stream_fits_smem(nmodes=nmodes, rank=rank, blk=blk,
+                                         tile_rows=tile_rows,
+                                         factor_rows=frows),
+                f"mode {n}: the data-blind window does not fit")
+    log(f"[stream-main] geometry: blk={blk} tile_rows={tile_rows} frow_tile="
+        f"{K.FACTOR_ROW_TILE} rank_slab={K.STREAM_RANK_SLAB}; the data-blind"
+        f" window min(blk, ceil(rows/{K.FACTOR_ROW_TILE})) per mode fits "
+        f"{K.SMEM_LIMIT_BYTES} B of shared memory")
+
+    # --- the driven path: counts zeroed just before, read just after ---
+    K.fused_mttkrp_nmode_gather_stream.launches = 0
+    K.fused_mttkrp_nmode_gather.launches = 0
+    runs, cur = [], stream
+    for n in range(nmodes):
+        rows_cap = rt.rows_cap[n]
+        num_blocks = ops.n_pad_for(cur[0].shape[0], rows_cap, blk,
+                                   tile_rows) // blk
+        # Windows are >= 1, so this budget makes >= 5 chunks.
+        budget = num_blocks * planner.stream_chunk_bytes(blk, k,
+                                                         (1,) * k) // 5
+        t0 = time.perf_counter()
+        out, stats = executor.mttkrp_out_of_core(
+            *cur, factors, mode=n, rows_cap=rows_cap, blk=blk,
+            tile_rows=tile_rows, max_chunk_bytes=budget, ordering="morton")
+        torch.cuda.synchronize()
+        runs.append((n, cur, budget, out, stats, time.perf_counter() - t0))
+        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+    del cur, stream
+    kw = dict(iters=2, tol=0.0, ordering="morton", blk=blk,
+              tile_rows=tile_rows)
+    res_s = cpals.cp_als_distributed(
+        ft, rank, backend="pallas_fused_gather_stream", **kw)
+    b6_launches = K.fused_mttkrp_nmode_gather_stream.launches
+    require(K.fused_mttkrp_nmode_gather.launches == 0,
+            "the stream path launched B1")
+    want = sum(r[4].chunks for r in runs) + 2 * nmodes
+    require(b6_launches == want,
+            f"B6 launched {b6_launches} times, expected {want}")
+
+    # --- comparisons (launches here are not counted) ---
+    res_b1 = cpals.cp_als_distributed(ft, rank, backend="pallas_fused_gather",
+                                      **kw)
+    log(f"[stream-main] cp_als_distributed R={rank} morton, 2 sweeps: "
+        f"stream fits {res_s.fits}, ms per sweep "
+        f"{[round(x * 1e3, 2) for x in res_s.sweep_seconds]}; B1 fits "
+        f"{res_b1.fits}, ms per sweep "
+        f"{[round(x * 1e3, 2) for x in res_b1.sweep_seconds]}; B6 launches "
+        f"{b6_launches} (executor chunks + 2 sweeps x {nmodes} modes)")
+    require(res_s.fits == res_b1.fits,
+            f"stream fits {res_s.fits} != B1 fits {res_b1.fits}")
+    require(all(np.isfinite(res_s.fits)), f"fits {res_s.fits}")
+    del res_s, res_b1
+
+    rows = []
+    kkw = dict(blk=blk, tile_rows=tile_rows)
+    for n, (idx, val, valid), budget, out, stats, secs in runs:
+        rows_cap = rt.rows_cap[n]
+        frows = tuple(factors[w].shape[0] for w in range(nmodes) if w != n)
+        ridx, rval, rvalid, _ = reorder_stream(
+            idx, val, valid, mode=n, ordering="morton", tile_rows=tile_rows,
+            max_rows=max(frows))
+        b1_ops = ops.gather_operands(
+            ridx, rval, rvalid, factors, mode=n, rows_cap=rows_cap,
+            row_offset=0, slab=ops.padded_rank(rank), **kkw)
+        b1 = K.fused_mttkrp_nmode_gather(*b1_ops, rows_cap=rows_cap, **kkw)
+        require(torch.equal(out, b1[:, :rank]),
+                f"mode {n}: out-of-core output differs from B1 on the same "
+                "permuted stream")
+        tkw = dict(mode=n, rows_cap=rows_cap, rank=rank, factor_rows=frows,
+                   max_chunk_bytes=budget, **kkw)
+        post = planner.predict_stream_traffic(ridx, rvalid,
+                                              ordering="morton", **tkw)
+        pre = planner.predict_stream_traffic(idx, valid, ordering="none",
+                                             **tkw)
+        del ridx, rval, rvalid
+        require((post.scheduled_tile_bytes, post.distinct_tile_bytes,
+                 post.window_tiles, post.chunks)
+                == (stats.scheduled_tile_bytes, stats.distinct_tile_bytes,
+                    stats.window_tiles, stats.chunks)
+                and (pre.scheduled_tile_bytes, pre.distinct_tile_bytes)
+                == (stats.presort_scheduled_tile_bytes,
+                    stats.presort_distinct_tile_bytes),
+                f"mode {n}: predicted traffic differs from the counted")
+        # One single-pass launch at the stream backend's own inputs.
+        s_ops, windows = stream_operands(b1_ops, blk)
+        skw = dict(rows_cap=rows_cap, **kkw)
+        b6 = K.fused_mttkrp_nmode_gather_stream(*s_ops, **skw)
+        require(torch.equal(b6, b1), f"mode {n}: B6 differs from B1")
+        plain = K.fused_mttkrp_nmode_gather_stream_plain(*s_ops, **skw)
+        err = compare(b6, plain, f"B6 mode {n}")
+        t_k = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *s_ops, **skw), 3)
+        t_b1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(
+            *b1_ops, rows_cap=rows_cap, **kkw), 3)
+        t_p = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream_plain(
+            *s_ops, **skw), 1)
+        bound, by = kernel_bound_ms(b1_ops, rows_cap=rows_cap,
+                                    tile_rows=tile_rows, scheds=s_ops[5])
+        smem = K.gather_stream_smem_bytes(k, ops.padded_rank(rank), blk,
+                                          tile_rows, windows)
+        log(f"[stream-main] mode {n}: {stats.nnz} nnz, {stats.num_blocks} "
+            f"blocks; out-of-core {secs:.2f} s in {stats.chunks} chunks "
+            f"{stats.chunk_block_counts[:6]}..., windows {stats.window_tiles}"
+            f" (smem {stats.window_smem_bytes} B), == B1 bitwise, predicted "
+            f"== counted: scheduled {stats.scheduled_tile_bytes} B, distinct "
+            f"{stats.distinct_tile_bytes} B, pipelined "
+            f"{stats.pipelined_tile_bytes} B, index stream "
+            f"{stats.index_stream_bytes} B; as given: scheduled "
+            f"{stats.presort_scheduled_tile_bytes} B, distinct "
+            f"{stats.presort_distinct_tile_bytes} B; scheduled/distinct "
+            f"{stats.presort_scheduled_over_distinct:.4f} as given -> "
+            f"{stats.scheduled_over_distinct:.4f} morton  [{gpu}]")
+        log(f"[stream-main] mode {n} single pass: windows {windows} (smem "
+            f"{smem} B); B6 {t_k:.3f} ms, B1 {t_b1:.3f} ms, plain {t_p:.3f} "
+            f"ms, bound {bound:.3f} ms ({by}, HBM 3.35 TB/s), max_abs_err "
+            f"{err:.3e}  [{gpu}]")
+        rows.append(dict(mode=n, err=err, ms=t_k, plain_ms=t_p,
+                         bound_ms=bound, bound_by=by))
+        del b1_ops, s_ops, b1, b6, plain
+        # The same permuted stream in 128-slot blocks, for the choice of blk.
+        ops128, windows128 = stream_operands(ops.gather_operands(
+            *reorder_stream(idx, val, valid, mode=n, ordering="morton",
+                            tile_rows=tile_rows, max_rows=max(frows))[:3],
+            factors, mode=n, rows_cap=rows_cap, row_offset=0,
+            slab=ops.padded_rank(rank), blk=2 * blk, tile_rows=tile_rows),
+            2 * blk)
+        kw128 = dict(rows_cap=rows_cap, blk=2 * blk, tile_rows=tile_rows)
+        t128 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *ops128, **kw128), 3)
+        smem128 = K.gather_stream_smem_bytes(k, ops.padded_rank(rank),
+                                             2 * blk, tile_rows, windows128)
+        log(f"[stream-main] mode {n} single pass at blk={2 * blk}: windows "
+            f"{windows128} (smem {smem128} B); B6 {t128:.3f} ms  [{gpu}]")
+        del ops128
+    profile_sweep(ft, rank, "pallas_fused_gather_stream", dev, blk=blk,
+                  tile_rows=tile_rows, ordering="morton")
+    return {"fused_mttkrp_nmode_gather_stream": (b6_launches, rows)}
 
 
 def phase_four_mode(dev):
@@ -381,13 +645,16 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     phase_kernels(dev)
-    main_rows = phase_main(dev, gpu)
+    phase_stream_kernels(dev)
+    ft, main_rows = phase_main(dev, gpu)
+    main_rows.update(phase_stream_main(ft, dev, gpu))
+    del ft
     phase_four_mode(dev)
     phase_recovery()
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),

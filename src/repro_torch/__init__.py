@@ -7,11 +7,16 @@ wrapper runs its plain PyTorch version. Importing the package needs no
 CUDA, ``nvcc`` or ``triton``: the kernels are built at first launch.
 
 core         FLYCOO preprocessing, remap, one-GPU Dynasor CP-ALS
-kernels      in-kernel-gather MTTKRP (CUDA) + block layout + oracles
+kernels      in-kernel-gather and stream MTTKRP (CUDA) + block layout +
+             oracles
+oocore       chunked out-of-core MTTKRP, stream windows and traffic
+reorder      locality-aware nonzero orderings
 resilience   guarded normal-equations solve
 runtime      device policy
 convert      JAX-package state → port tensors
 """
-from . import convert, core, kernels, resilience, runtime  # noqa: F401
+from . import (convert, core, kernels, oocore, reorder,  # noqa: F401
+               resilience, runtime)
 
-__all__ = ["convert", "core", "kernels", "resilience", "runtime"]
+__all__ = ["convert", "core", "kernels", "oocore", "reorder", "resilience",
+           "runtime"]

@@ -6,7 +6,8 @@ Port of ``repro/core/cpals.py``. Two drivers, one algorithm:
   correctness oracle.
 * :func:`cp_als_distributed` — the Dynasor path on one GPU: FLYCOO
   layout, per mode the owner-computes MTTKRP (the in-kernel-gather CUDA
-  kernels with ``backend="pallas_fused_gather"`` or ``"..._tiled"``),
+  kernels with ``backend="pallas_fused_gather"`` or ``"..._tiled"``, the
+  out-of-core stream kernel with ``"pallas_fused_gather_stream"``),
   guarded solve, column normalization and the remap into the next mode's
   order. :func:`als_sweep` is one sweep, the math of the reference's
   ``make_als_sweep`` at one worker.
@@ -211,14 +212,20 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
                        iters: int = 10, seed: int = 0, tol: float = 1e-5,
                        backend: str = "segsum", tile_rows: int = 8,
                        gather_dtype: str = "float32",
-                       ordering: str | None = None) -> CPResult:
+                       ordering: str | None = None,
+                       blk: int | None = None) -> CPResult:
     """Dynasor CP-ALS on one device: FLYCOO layout + :func:`als_sweep`.
 
-    The reference's signature with ``mesh`` replaced by ``device``.
-    ``ft`` must be built for one worker (``build_flycoo(t, 1)``); more
-    workers raise ``NotImplementedError`` (ROADMAP A9). ``backend`` is
-    ``segsum``, ``ref``, ``pallas_fused_gather`` (B1) or
-    ``pallas_fused_gather_tiled`` (B2).
+    The reference's signature with ``mesh`` replaced by ``device``, and
+    ``blk`` (the nonzero block; ``None``: ``prepare_runtime``'s
+    ``min(g, 512)``) passed on to :func:`prepare_runtime`, since the
+    stream kernel's windows grow with it. ``ft`` must be built for one
+    worker (``build_flycoo(t, 1)``); more workers raise
+    ``NotImplementedError`` (ROADMAP A9). ``backend`` is ``segsum``,
+    ``ref``, ``pallas_fused_gather`` (B1), ``pallas_fused_gather_tiled``
+    (B2) or ``pallas_fused_gather_stream`` (B6). ``ordering``
+    (``reorder.ORDERINGS``; ``None`` inherits ``ft.ordering``) ranks each
+    mode step's output-tile runs by factor-tile locality.
     """
     dev = resolve_device(device)
     kops.check_backend(backend, extra=("segsum",))
@@ -226,7 +233,7 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
         raise NotImplementedError(
             f"num_workers={ft.params.num_workers}: the multi-GPU path is not "
             "ported yet (ROADMAP A9); build FLYCOO with num_workers=1")
-    rt, packed = dist.prepare_runtime(ft, rank, tile_rows=tile_rows,
+    rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows,
                                       gather_dtype=gather_dtype,
                                       ordering=ordering)
     stream, factors, lam, x_norm_sq = device_state(ft, rt, packed,

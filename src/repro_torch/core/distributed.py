@@ -60,9 +60,8 @@ class DynasorRuntime:
             raise NotImplementedError(
                 f"gather_dtype={self.gather_dtype!r} is not ported yet "
                 "(ROADMAP A6)")
-        if self.ordering != "none":
-            raise NotImplementedError(
-                f"ordering={self.ordering!r} is not ported yet (ROADMAP A7)")
+        from ..reorder import validate_ordering  # deferred: reorder→kernels
+        validate_ordering(self.ordering)
 
     def bucket_cap_for(self, from_mode: int) -> int:
         """Exchange capacity of the ``from_mode -> from_mode+1`` remap."""
@@ -159,8 +158,9 @@ def device_mttkrp(idx, val, mask, factors, mode: int, rt: DynasorRuntime,
     """Owner-computes local MTTKRP for ``mode`` → ``(rows_cap, R)`` f32.
 
     ``backend`` is ``segsum`` (gather + ``index_add_``) or one of
-    ``ops.BACKENDS``; ``auto`` and the other JAX backends raise
-    ``NotImplementedError`` (ROADMAP A6).
+    ``ops.BACKENDS`` (B1, B2, the stream kernel B6); ``auto`` and the
+    other JAX backends raise ``NotImplementedError`` (ROADMAP A6). The
+    runtime's ``ordering`` applies to the kernel backends.
     """
     kops.check_backend(backend, extra=("segsum",))
     _require_one_worker(rt)

@@ -1,10 +1,9 @@
 """FLYCOO tensor format (paper §III): host-side preprocessing.
 
-The port's own copy of ``repro/core/flycoo.py`` (numpy only). Only the
-``ordering="none"`` nonzero order is part of this slice; any other
-ordering raises ``NotImplementedError`` (ROADMAP A7). Preprocessing
-works for any ``num_workers``, although the port's device path runs one
-worker (one GPU).
+The port's own copy of ``repro/core/flycoo.py`` (numpy, plus the
+locality sort of ``repro_torch.reorder`` on the CPU for the orderings).
+Preprocessing works for any ``num_workers``, although the port's device
+path runs one worker (one GPU).
 
 Per output mode ``n`` the format:
   * splits the ``|I_n|`` output-factor rows into equal intervals of ``m_n``
@@ -33,19 +32,10 @@ import math
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from .schedule import block_cyclic_schedule, lpt_schedule
 from .tensors import SparseTensor
-
-# ROADMAP item that ports the locality orderings (repro.reorder).
-_ORDERING_ITEM = "ROADMAP A7 (locality reordering)"
-
-
-def _require_no_ordering(ordering: str) -> None:
-    if ordering != "none":
-        raise NotImplementedError(
-            f"ordering={ordering!r} is not ported yet: {_ORDERING_ITEM}; "
-            "only ordering='none' runs")
 
 __all__ = [
     "PartitionParams",
@@ -322,9 +312,12 @@ def build_flycoo(
     ``fused_gather=True`` sizes shards for the N-mode fused kernel's
     gather-operand working set (see :func:`choose_partition_params`).
 
-    ``ordering`` must be ``"none"`` in the port (ROADMAP A7).
+    ``ordering`` (``repro_torch.reorder.ORDERINGS``) selects the
+    locality-aware nonzero order :func:`pack_mode` applies within each
+    (owner, output row) group.
     """
-    _require_no_ordering(ordering)
+    from ..reorder import validate_ordering  # deferred: reorder imports kernels
+    validate_ordering(ordering)
     _validate_tensor(t)
     if params is None:
         params = choose_partition_params(
@@ -343,7 +336,8 @@ def build_flycoo(
 
 
 def pack_mode(
-    ft: FlycooTensor, mode: int, cap: int | None = None
+    ft: FlycooTensor, mode: int, cap: int | None = None, *,
+    frow_tile: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Group nonzeros by mode-``mode`` owner, sorted by permuted output row.
 
@@ -351,19 +345,33 @@ def pack_mode(
     initial distributed layout ``H_mode`` of Alg. 2. Padding entries have
     ``val = 0`` and point at local row 0 (they contribute exactly zero).
 
-    Ties within an equal output row keep original nonzero position
-    (``ordering="none"``).
+    When ``ft.ordering != "none"`` the sort's primaries stay (owner,
+    permuted output row), but ties within an output row are broken by
+    the policy's locality keys over ``frow_tile``-row factor tiles
+    (``None``: the port's ``FACTOR_ROW_TILE``) instead of nonzero
+    position.
     """
     D = ft.params.num_workers
     cap = int(cap if cap is not None else ft.nnz_cap)
     owner = ft.owner_of(mode)
-    _require_no_ordering(ft.ordering)
-    # max(initial=0) keeps the empty-tensor case (nnz == 0) a valid
-    # all-padding layout instead of a ValueError on .max().
-    key = owner.astype(np.int64) \
-        * (ft.perm_indices[:, mode].max(initial=0) + 1) \
-        + ft.perm_indices[:, mode]
-    order = np.argsort(key, kind="stable")
+    if ft.ordering != "none":
+        from ..reorder import ordering as _reorder  # deferred: see above
+        in_modes = [w for w in range(ft.nmodes) if w != mode]
+        order = _reorder.locality_lexsort(
+            torch.from_numpy(ft.perm_indices[:, in_modes]), ft.ordering,
+            primaries=(torch.from_numpy(owner.astype(np.int64)),
+                       torch.from_numpy(ft.perm_indices[:, mode])),
+            frow_tile=(_reorder.FACTOR_ROW_TILE if frow_tile is None
+                       else frow_tile),
+            max_rows=max(ft.params.num_workers * ft.modes[w].rows_cap
+                         for w in in_modes)).numpy()
+    else:
+        # max(initial=0) keeps the empty-tensor case (nnz == 0) a valid
+        # all-padding layout instead of a ValueError on .max().
+        key = owner.astype(np.int64) \
+            * (ft.perm_indices[:, mode].max(initial=0) + 1) \
+            + ft.perm_indices[:, mode]
+        order = np.argsort(key, kind="stable")
 
     idx = np.zeros((D, cap, ft.nmodes), dtype=np.int32)
     val = np.zeros((D, cap), dtype=np.float32)

@@ -1,2 +1,3 @@
-"""In-kernel-gather spMTTKRP: CUDA kernels, block layout, oracles."""
+"""In-kernel-gather and stream spMTTKRP: CUDA kernels, block layout,
+schedules, oracles."""
 from . import build, kernel, ops, ref  # noqa: F401

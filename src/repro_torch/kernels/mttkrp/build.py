@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of this package.
 
 The sources under ``csrc/`` have a plain C interface: ``nvcc`` compiles
-them into a shared library, and ``ctypes`` loads it (route (b): no
-PyTorch headers, so a build takes seconds). The library goes into
+each into a shared library, and ``ctypes`` loads it (route (b): no
+PyTorch headers, so a build takes seconds). The libraries go into
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, and is built at first use — importing this module
-needs neither ``nvcc`` nor a card.
+source, the shared header and the flags, and are built at first use, all
+at once (one ``nvcc`` per source, started together) — importing this
+module needs neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
 
@@ -17,22 +18,43 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "nvcc_path"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_mttkrp.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+# Library name -> source; each defines `<name>_launch` and
+# `<name>_error_string`.
+SOURCES = {
+    "gather_mttkrp": CSRC / "gather_mttkrp.cu",              # B1, B2
+    "gather_stream_mttkrp": CSRC / "gather_stream_mttkrp.cu",  # B6
+}
+HEADERS = (CSRC / "mttkrp_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # <checkout>/build/kernels (this file is src/repro_torch/kernels/mttkrp/).
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LAUNCH_ARGTYPES = ([_P] * 4          # vals, idx, local rows, block starts
-                    + [_P] * 4        # factor pointers f0..f3
-                    + [_I] * 4        # factor row counts
-                    + [_P]            # out
-                    + [_I] * 9        # num_in, num_tiles, num_slabs, blk,
-                                      # tile_rows, ld, slab, groups, lanes
-                    + [_P])           # stream
+_LAUNCH_ARGTYPES = {
+    "gather_mttkrp": (
+        [_P] * 4          # vals, idx, local rows, block starts
+        + [_P] * 4        # factor pointers f0..f3
+        + [_I] * 4        # factor row counts
+        + [_P]            # out
+        + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows,
+                          # ld, slab, groups, lanes
+        + [_P]),          # stream
+    "gather_stream_mttkrp": (
+        [_P] * 4          # vals, idx, local rows, block starts
+        + [_P] * 4        # factor pointers f0..f3
+        + [_I] * 4        # factor row counts (multiples of frow)
+        + [_P] * 4        # schedule pointers s0..s3
+        + [_I] * 4        # schedule widths
+        + [_P] * 3        # out, carry_in, carry_out
+        + [_I] * 13       # num_in, num_tiles, num_slabs, blk, tile_rows,
+                          # ld, slab, groups, lanes, frow, carry_in_tile,
+                          # carry_in_phase, carry_out_tile
+        + [_P]),          # stream
+}
 
 
 def nvcc_path() -> str:
@@ -47,42 +69,60 @@ def nvcc_path() -> str:
                        "CUDA toolkit on the machine that has the card")
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{SOURCE.stem}-{digest[:16]}.so"
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        SOURCES[name].read_bytes()
+        + b"".join(h.read_bytes() for h in HEADERS)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if no library for this source exists yet.
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile every library not built yet for its current source, with
+    one ``nvcc`` per source running at once.
 
-    Returns ``(path, compiler_output)``; the output holds ``ptxas``'s
-    register and shared-memory report, and is empty when the library was
-    already built. Concurrent builders each write a private file and
-    rename it into place.
+    Returns ``{name: (path, compiler_output)}``; the output holds
+    ``ptxas``'s register and shared-memory report, and is empty for a
+    library that was already built. Concurrent builders each write a
+    private file and rename it into place.
     """
-    path = _library_path()
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    result, procs = {}, {}
+    for name in SOURCES:
+        path = _library_path(name)
+        if path.exists():
+            result[name] = (path, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (path, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (path, tmp, cmd, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{report}")
+            continue
+        os.replace(tmp, path)
+        result[name] = (path, report)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The built library with its argument types declared (built if absent)."""
-    path, _ = build()
+def load(name: str) -> ctypes.CDLL:
+    """Library ``name`` of :data:`SOURCES` with its argument types declared
+    (every library is built first if absent)."""
+    path, _ = build()[name]
     lib = ctypes.CDLL(str(path))
-    lib.gather_mttkrp_launch.argtypes = _LAUNCH_ARGTYPES
-    lib.gather_mttkrp_launch.restype = ctypes.c_int
-    lib.gather_mttkrp_error_string.argtypes = [ctypes.c_int]
-    lib.gather_mttkrp_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _LAUNCH_ARGTYPES[name]
+    launch.restype = ctypes.c_int
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
     return lib

@@ -52,11 +52,11 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ../build.py); bound with ctypes.
 
-#include <cuda_runtime.h>
+#include "mttkrp_common.cuh"
 
 namespace {
 
-constexpr int kMaxInModes = 4;
+using mttkrp_common::FactorSet;
 // Slots of the stream a CTA stages in shared memory at a time (a multiple
 // of every block size the wrapper picks: groups (<= 16) x lanes (16 or
 // 32), powers of two up to 512). No __launch_bounds__: on the H100 it
@@ -65,13 +65,6 @@ constexpr int kMaxInModes = 4;
 constexpr int kChunk = 2048;
 // Slots of one group whose factor loads are in flight together.
 constexpr int kUnroll = 4;
-
-// The K input-factor matrices (row-major, `ld` floats per row) and their
-// row counts, passed to the kernel by value.
-struct FactorSet {
-  const float* ptr[kMaxInModes];
-  int rows[kMaxInModes];
-};
 
 template <int K>
 __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
@@ -172,14 +165,9 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
   }
 
   // Fixed-order reduction of the group partials into the output tile.
-  float* tile_out = out + (long long)t * tile_rows * ld + col0;
-  for (int e = threadIdx.x; e < tile_elems; e += blockDim.x) {
-    float acc = part[e];
-    for (int q = 1; q < groups; ++q)
-      acc = __fadd_rn(acc, part[(size_t)q * tile_elems + e]);
-    float* o = tile_out + (long long)(e / slab) * ld + (e % slab);
-    *o = __fadd_rn(*o, acc);
-  }
+  mttkrp_common::reduce_partials_into(
+      part, groups, tile_elems, slab,
+      out + (long long)t * tile_rows * ld + col0, ld);
 }
 
 template <int K>
@@ -190,12 +178,9 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
                      cudaStream_t stream) {
   const size_t smem = (size_t)groups * tile_rows * slab * sizeof(float) +
                       (size_t)kChunk * (2 + K) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gather_mttkrp_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e =
+      mttkrp_common::allow_smem(gather_mttkrp_kernel<K>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
   gather_mttkrp_kernel<K><<<grid, groups * lanes, smem, stream>>>(
       vals, idx, lrow, blk_start, fs, out, blk, tile_rows, ld, slab, groups,
@@ -213,13 +198,8 @@ extern "C" int gather_mttkrp_launch(
     int rows1, int rows2, int rows3, void* out, int num_in, int num_tiles,
     int num_slabs, int blk, int tile_rows, int ld, int slab, int groups,
     int lanes, void* stream) {
-  FactorSet fs;
-  const void* ptrs[kMaxInModes] = {f0, f1, f2, f3};
-  const int rows[kMaxInModes] = {rows0, rows1, rows2, rows3};
-  for (int w = 0; w < kMaxInModes; ++w) {
-    fs.ptr[w] = static_cast<const float*>(ptrs[w]);
-    fs.rows[w] = rows[w];
-  }
+  const FactorSet fs = mttkrp_common::make_factor_set(
+      f0, f1, f2, f3, rows0, rows1, rows2, rows3);
   const float* v = static_cast<const float*>(vals);
   const int* ix = static_cast<const int*>(idx);
   const int* lr = static_cast<const int*>(lrow);

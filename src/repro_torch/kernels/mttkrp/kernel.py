@@ -1,13 +1,14 @@
 """In-kernel-gather fused spMTTKRP: CUDA kernels and their plain versions.
 
 Port of ``repro/kernels/mttkrp/kernel.py``'s ``fused_mttkrp_nmode_gather``
-(B1) and ``fused_mttkrp_nmode_gather_tiled`` (B2). Both wrappers keep the
-JAX signature. On a CUDA tensor they launch the hand-written kernel in
-``csrc/gather_mttkrp.cu`` (built for ``sm_90a`` at first use) or raise; on
-a CPU tensor they run the plain PyTorch version beside them
-(``*_plain``), which the tests hold against the JAX package. Nothing falls
-back from one to the other. Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+(B1), ``fused_mttkrp_nmode_gather_tiled`` (B2) and
+``fused_mttkrp_nmode_gather_stream`` (B6). The wrappers keep the JAX
+signatures. On a CUDA tensor they launch the hand-written kernels in
+``csrc/gather_mttkrp.cu`` (B1, B2) and ``csrc/gather_stream_mttkrp.cu``
+(B6), built for ``sm_90a`` at first use, or raise; on a CPU tensor they
+run the plain PyTorch version beside them (``*_plain``), which the tests
+hold against the JAX package. Nothing falls back from one to the other.
+Each wrapper counts its kernel launches in its ``launches`` attribute.
 
 Geometry is re-derived for Hopper, not copied from the TPU:
 
@@ -17,10 +18,24 @@ Geometry is re-derived for Hopper, not copied from the TPU:
 * ``RANK_SLAB = 128`` — the tiled kernel's default column slab.
 * ``ROW_SLOTS = 128`` — one CTA holds ``groups ≈ ROW_SLOTS // tile_rows``
   private partial tiles (a power of two in 1..16). It depends on
-  ``tile_rows`` only, so the untiled and the tiled kernel add in the same
-  order and agree bitwise.
+  ``tile_rows`` only, so the untiled, the tiled and the stream kernel add
+  in the same order and agree bitwise.
+* ``FACTOR_ROW_TILE = 8`` and ``STREAM_RANK_SLAB = 16`` — the stream
+  kernel's window unit is an 8-row x 16-column factor tile, 512 B: four
+  128-byte lines, copied with sixteen 16-byte ``cp.async``. The TPU's
+  128 x 128 tile (64 KiB) suits a DMA engine and 64 MiB of VMEM; a CTA
+  here has 227 KB of shared memory. With these, a block of ``blk <= 128``
+  nonzeros and K <= 3 input modes fits the data-blind window bound
+  ``min(blk, ceil(rows / 8))`` per mode (3 x 128 tiles = 192 KiB plus
+  8 KiB of partial tiles and the staged block) for any index data, so the
+  stream rung never needs an ordering to run; an ordering shrinks the
+  window and the bytes copied. A taller tile copies more rows that no
+  nonzero of the block reads; a shorter one lengthens the schedules the
+  kernel scans for every nonzero.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,13 +43,21 @@ from ...runtime.device import require_sm90
 from . import build as _build
 
 __all__ = [
+    "FACTOR_ROW_TILE",
     "RANK_MULTIPLE",
     "RANK_SLAB",
     "ROW_SLOTS",
     "SMEM_LIMIT_BYTES",
+    "STREAM_BACKEND_NAME",
+    "STREAM_RANK_SLAB",
+    "StreamCarry",
+    "gather_stream_smem_bytes",
     "padded_rank",
     "fused_mttkrp_nmode_gather",
     "fused_mttkrp_nmode_gather_plain",
+    "fused_mttkrp_nmode_gather_stream",
+    "fused_mttkrp_nmode_gather_stream_chunk",
+    "fused_mttkrp_nmode_gather_stream_plain",
     "fused_mttkrp_nmode_gather_tiled",
     "fused_mttkrp_nmode_gather_tiled_plain",
 ]
@@ -45,6 +68,9 @@ ROW_SLOTS = 128
 MAX_IN_MODES = 4
 # Dynamic shared memory one CTA may use on an H100 (227 KB).
 SMEM_LIMIT_BYTES = 232_448
+FACTOR_ROW_TILE = 8
+STREAM_RANK_SLAB = 16
+STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
 # Stream slots a CTA stages in shared memory at a time (kChunk in the .cu).
 STAGE_SLOTS = 2048
 # Elements of one (chunk, R) temporary in the plain version (~256 MB).
@@ -165,7 +191,7 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
                                                      - len(factors))
     nrows = [f.shape[0] for f in factors] + [0] * (MAX_IN_MODES
                                                    - len(factors))
-    lib = _build.load()
+    lib = _build.load("gather_mttkrp")
     err = lib.gather_mttkrp_launch(
         vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
         blk_start.data_ptr(), *ptrs, *nrows, out.data_ptr(), len(factors),
@@ -294,3 +320,291 @@ def fused_mttkrp_nmode_gather_tiled_plain(vals, idx_stream, factors,
     return _plain(vals, idx_stream, factors, local_row_in_tile,
                   tile_of_block, rows_cap=rows_cap, blk=blk,
                   tile_rows=tile_rows, out_init=out_init)
+
+
+# ---------------------------------------------------------------------------
+# B6: the out-of-core stream kernel
+# ---------------------------------------------------------------------------
+
+def gather_stream_smem_bytes(num_in_modes: int, rank_padded: int, blk: int,
+                             tile_rows: int, window_tiles,
+                             frow_tile: int = FACTOR_ROW_TILE,
+                             rank_slab: int = STREAM_RANK_SLAB) -> int:
+    """Shared memory of one CTA of the stream kernel (B6).
+
+    The Hopper counterpart of the reference's ``gather_stream_vmem_bytes``:
+    the ``groups`` partial output tiles, the factor-tile window (per
+    input mode ``window_tiles`` tiles of ``frow_tile`` rows, one slab
+    wide), the window's schedule row, and the staged block (value, local
+    row and one window row per input mode for each of ``blk`` slots).
+    ``window_tiles`` is an int for every mode or a per-mode sequence.
+    The layout is the kernel's (``csrc/gather_stream_mttkrp.cu``).
+    """
+    if isinstance(window_tiles, int):
+        window_tiles = (window_tiles,) * num_in_modes
+    if len(window_tiles) != num_in_modes:
+        raise ValueError(f"{len(window_tiles)} window widths for "
+                         f"{num_in_modes} input modes")
+    slab = min(rank_padded, rank_slab)
+    wsum = sum(int(w) for w in window_tiles)
+    return 4 * (_groups(tile_rows) * tile_rows * slab
+                + wsum * frow_tile * slab
+                + wsum
+                + blk * (2 + num_in_modes))
+
+
+class StreamCarry(NamedTuple):
+    """Pending sums of the output tile a stream-kernel call left open.
+
+    A chunk of the block stream may end inside an output tile's run. The
+    kernel then keeps that tile's ``groups`` private partial tiles here
+    instead of reducing them, and the next call, whose run starts with
+    the same tile, continues from them. The result is bitwise that of
+    one call over both chunks. The plain version adds everything to
+    ``out`` at once, so its carry holds zeros and it reads none.
+    """
+
+    tile: int                  # the open output tile
+    slots: int                 # slots of its run consumed so far
+    partials: torch.Tensor     # (num_slabs, groups, tile_rows, slab) f32
+
+
+def _check_stream_args(vals, idx_stream, factors, local_row_in_tile,
+                       tile_of_block, tile_schedules, *, rows_cap: int,
+                       blk: int, tile_rows: int, frow_tile: int,
+                       rank_slab: int, out_init):
+    """B1's checks plus the schedules and the row padding.
+
+    Returns ``(factors, schedules, R)`` as tuples.
+    """
+    factors, rank = _check_args(
+        vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=rank_slab,
+        out_init=out_init)
+    scheds = tuple(tile_schedules)
+    num_blocks = vals.shape[0] // blk
+    if len(scheds) != len(factors):
+        raise ValueError(f"{len(scheds)} tile schedules for "
+                         f"{len(factors)} input-factor matrices")
+    for w, (f, s) in enumerate(zip(factors, scheds)):
+        if f.shape[0] % frow_tile:
+            raise ValueError(
+                f"factor {w} has {f.shape[0]} rows, not a multiple of "
+                f"frow_tile={frow_tile} (pad with ops._pad_factor_rows)")
+        if s.dim() != 2 or s.shape[0] != num_blocks or s.shape[1] < 1 \
+                or s.dtype != torch.int32 or s.device != vals.device:
+            raise ValueError(
+                f"tile_schedules[{w}] must be ({num_blocks}, W) int32 with "
+                f"W >= 1 on {vals.device}, got {tuple(s.shape)} {s.dtype}")
+    return factors, scheds, rank
+
+
+def _carry_meta(tile_of_block, carry, split_tail: bool, blk: int):
+    """``(tile, slots)`` of the carry a call hands on, or ``None``."""
+    if carry is not None and carry.tile != int(tile_of_block[0]):
+        raise ValueError(f"the carry holds tile {carry.tile} but the call "
+                         f"starts with tile {int(tile_of_block[0])}")
+    if not split_tail:
+        return None
+    tail = int(tile_of_block[-1])
+    slots = int((tile_of_block == tail).sum()) * blk
+    if carry is not None and carry.tile == tail:
+        slots += carry.slots
+    return tail, slots
+
+
+def _plain_stream(vals, idx_stream, factors, local_row_in_tile,
+                  tile_of_block, scheds, *, rows_cap: int, blk: int,
+                  tile_rows: int, frow_tile: int, out_init):
+    """B1's plain sum, with a slot whose factor tile is missing from its
+    block's schedule row (in any input mode) adding nothing."""
+    rank = factors[0].shape[1]
+    dev = vals.device
+    rows = (torch.repeat_interleave(tile_of_block.long(), blk) * tile_rows
+            + local_row_in_tile.long())
+    out = (torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
+           if out_init is None else out_init.clone())
+    width = max(s.shape[1] for s in scheds)
+    step = max(blk, _PLAIN_CHUNK_ELEMS // max(rank, width))
+    for lo in range(0, vals.shape[0], step):
+        sl = slice(lo, lo + step)
+        block = torch.div(torch.arange(lo, lo + vals[sl].shape[0],
+                                       device=dev), blk,
+                          rounding_mode="floor")
+        contrib = vals[sl, None]
+        keep = torch.ones_like(vals[sl], dtype=torch.bool)
+        for w, (f, s) in enumerate(zip(factors, scheds)):
+            ix = idx_stream[sl, w].long()
+            inside = (ix >= 0) & (ix < f.shape[0])
+            ix = torch.where(inside, ix, 0)
+            tile = torch.div(ix, frow_tile, rounding_mode="floor")
+            hit = (s[block].long() == tile[:, None]).any(1)
+            keep &= inside & hit
+            contrib = contrib * f.index_select(0, ix)
+        contrib = torch.where(keep[:, None], contrib, 0.0)
+        out.index_add_(0, rows[sl], contrib)
+    return out
+
+
+def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
+                   tile_of_block, scheds, *, rows_cap: int, blk: int,
+                   tile_rows: int, frow_tile: int, slab: int, out_init,
+                   carry, tail):
+    dev = vals.device
+    require_sm90(dev)
+    k, rank = len(factors), factors[0].shape[1]
+    groups = _groups(tile_rows)
+    lanes = 32 if slab % 32 == 0 else 16
+    windows = tuple(s.shape[1] for s in scheds)
+    smem = gather_stream_smem_bytes(k, rank, blk, tile_rows, windows,
+                                    frow_tile=frow_tile, rank_slab=slab)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"the stream kernel's window of {windows} tiles of {frow_tile} "
+            f"x {slab} floats per input mode, with blk={blk} and "
+            f"tile_rows={tile_rows}, needs {smem} B of shared memory "
+            f"(> {SMEM_LIMIT_BYTES} B); use a smaller blk or frow_tile, a "
+            "locality ordering, or smaller chunks")
+    tensors = (vals, idx_stream, local_row_in_tile, tile_of_block) \
+        + factors + scheds
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all operands must be contiguous")
+    if any(f.data_ptr() % 16 for f in factors):
+        raise ValueError("factor matrices must be 16-byte aligned")
+    num_tiles, num_slabs = rows_cap // tile_rows, rank // slab
+    part_shape = (num_slabs, groups, tile_rows, slab)
+    if carry is not None and (tuple(carry.partials.shape) != part_shape
+                              or carry.partials.device != dev
+                              or not carry.partials.is_contiguous()):
+        raise ValueError(f"carry partials must be {part_shape} float32 on "
+                         f"{dev}")
+    blk_start = torch.searchsorted(
+        tile_of_block,
+        torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    out = (torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
+           if out_init is None else out_init.contiguous().clone())
+    carry_out = (torch.empty(part_shape, dtype=torch.float32, device=dev)
+                 if tail is not None else None)
+    pad = [0] * (MAX_IN_MODES - k)
+    lib = _build.load("gather_stream_mttkrp")
+    err = lib.gather_stream_mttkrp_launch(
+        vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
+        blk_start.data_ptr(), *[f.data_ptr() for f in factors], *pad,
+        *[f.shape[0] for f in factors], *pad,
+        *[s.data_ptr() for s in scheds], *pad, *windows, *pad,
+        out.data_ptr(),
+        carry.partials.data_ptr() if carry is not None else 0,
+        carry_out.data_ptr() if carry_out is not None else 0,
+        k, num_tiles, num_slabs, blk, tile_rows, rank, slab, groups, lanes,
+        frow_tile,
+        carry.tile if carry is not None else -1,
+        carry.slots % groups if carry is not None else 0,
+        tail[0] if tail is not None else -1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "gather_stream_mttkrp launch failed: "
+            f"{lib.gather_stream_mttkrp_error_string(err).decode()} ({err})")
+    return out, carry_out
+
+
+def fused_mttkrp_nmode_gather_stream_chunk(
+        vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+        tile_schedules, *, rows_cap: int, blk: int = 128, tile_rows: int = 8,
+        frow_tile: int = FACTOR_ROW_TILE, rank_slab: int = STREAM_RANK_SLAB,
+        out_init=None, carry: StreamCarry | None = None,
+        split_tail: bool = False):
+    """One call of the stream kernel over one chunk of the block stream.
+
+    :func:`fused_mttkrp_nmode_gather_stream` with the state the chunked
+    executor threads between calls: ``carry`` (from the previous call)
+    holds the pending sums of this call's first tile, and
+    ``split_tail=True`` says the last tile's run goes on in the next
+    call, so its sums are handed on instead of added to ``out``.
+
+    Returns ``(out, carry)``: ``carry`` is a :class:`StreamCarry` when
+    ``split_tail``, else ``None``.
+    """
+    factors, scheds, _ = _check_stream_args(
+        vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+        tile_schedules, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+        frow_tile=frow_tile, rank_slab=rank_slab, out_init=out_init)
+    tail = _carry_meta(tile_of_block, carry, split_tail, blk)
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+              frow_tile=frow_tile, out_init=out_init)
+    if vals.device.type == "cpu":
+        out = _plain_stream(vals, idx_stream, factors, local_row_in_tile,
+                            tile_of_block, scheds, **kw)
+        partials = None
+        if tail is not None:
+            partials = torch.zeros(
+                (factors[0].shape[1] // rank_slab, _groups(tile_rows),
+                 tile_rows, rank_slab), dtype=torch.float32)
+    elif vals.device.type == "cuda":
+        out, partials = _launch_stream(
+            vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+            scheds, slab=rank_slab, carry=carry, tail=tail, **kw)
+        fused_mttkrp_nmode_gather_stream.launches += 1
+    else:
+        raise ValueError(f"unsupported device {vals.device}")
+    if tail is None:
+        return out, None
+    return out, StreamCarry(tail[0], tail[1], partials)
+
+
+def fused_mttkrp_nmode_gather_stream(vals, idx_stream, factors,
+                                     local_row_in_tile, tile_of_block,
+                                     tile_schedules, *, rows_cap: int,
+                                     blk: int = 128, tile_rows: int = 8,
+                                     frow_tile: int = FACTOR_ROW_TILE,
+                                     rank_slab: int = STREAM_RANK_SLAB,
+                                     out_init=None):
+    """Out-of-core in-kernel gather (B6): factors stay in device memory.
+
+    Same contract as :func:`fused_mttkrp_nmode_gather`, plus:
+
+    * each factor has a multiple of ``frow_tile`` rows
+      (``ops._pad_factor_rows``) and R is a multiple of ``rank_slab``
+      (a grid axis over column slabs, as in B2);
+    * ``tile_schedules[w]`` is ``(num_blocks, W_w)`` int32: row ``b``
+      lists the ``frow_tile``-row tiles of factor ``w`` that block ``b``
+      may read (``ops.tile_schedule``). Per block the kernel copies those
+      tiles, one slab wide, into a shared-memory window; each slot takes
+      the first window slot whose tile holds its row. A slot whose tile
+      is missing adds nothing.
+
+    The rows read from the window are the rows B1 reads from the whole
+    factor, and the kernel adds in B1's order, so the result is bitwise
+    B1's on the same stream. Raises when the window does not fit shared
+    memory (:func:`gather_stream_smem_bytes`). Returns ``(rows_cap, R)``
+    float32.
+    """
+    out, _ = fused_mttkrp_nmode_gather_stream_chunk(
+        vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+        tile_schedules, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+        frow_tile=frow_tile, rank_slab=rank_slab, out_init=out_init)
+    return out
+
+
+fused_mttkrp_nmode_gather_stream.launches = 0
+
+
+def fused_mttkrp_nmode_gather_stream_plain(vals, idx_stream, factors,
+                                           local_row_in_tile, tile_of_block,
+                                           tile_schedules, *, rows_cap: int,
+                                           blk: int = 128,
+                                           tile_rows: int = 8,
+                                           frow_tile: int = FACTOR_ROW_TILE,
+                                           rank_slab: int = STREAM_RANK_SLAB,
+                                           out_init=None):
+    """Plain PyTorch version of B6 (runs on any device): B1's plain sum
+    with the schedule test; agrees with the kernel to fp32 rounding."""
+    factors, scheds, _ = _check_stream_args(
+        vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+        tile_schedules, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+        frow_tile=frow_tile, rank_slab=rank_slab, out_init=out_init)
+    return _plain_stream(vals, idx_stream, factors, local_row_in_tile,
+                         tile_of_block, scheds, rows_cap=rows_cap, blk=blk,
+                         tile_rows=tile_rows, frow_tile=frow_tile,
+                         out_init=out_init)

@@ -4,12 +4,16 @@ Port of ``repro/kernels/mttkrp/ops.py`` for this slice:
 
 * :func:`build_block_layout` turns the row-sorted nonzero stream into the
   block-aligned layout the kernels require (no block straddles an output
-  row tile); with the same geometry it returns exactly the JAX slots and
-  ``tile_of_block``.
+  row tile), ranking each tile's run by locality keys when given
+  (``order_keys``); with the same geometry it returns exactly the JAX
+  slots and ``tile_of_block``.
+* :func:`tile_schedule` lists the factor tiles each block reads, the
+  stream kernel's per-block window (equal to the reference's).
 * :func:`mttkrp_device_step` runs one mode step through the backends of
-  :data:`BACKENDS`: ``ref`` (materialized ``index_add_``) and the
+  :data:`BACKENDS`: ``ref`` (materialized ``index_add_``), the
   in-kernel-gather kernels ``pallas_fused_gather`` (B1) and
-  ``pallas_fused_gather_tiled`` (B2) — the backend names are the JAX
+  ``pallas_fused_gather_tiled`` (B2), and the out-of-core stream kernel
+  ``pallas_fused_gather_stream`` (B6) — the backend names are the JAX
   package's, the kernels are CUDA. ``auto``, the other JAX backends and
   bf16 gathers raise ``NotImplementedError`` (ROADMAP A6).
 """
@@ -19,24 +23,31 @@ import torch
 import torch.nn.functional as F
 
 from ...core.mttkrp import hadamard_rows
+from ...oocore import planner as _planner
+from ...reorder import ordering as _reorder
 from . import kernel as _kernel
 from . import ref as _ref
 
 __all__ = [
     "BACKENDS",
     "GATHER_BACKENDS",
+    "STREAM_BACKEND",
     "build_block_layout",
     "gather_operands",
     "mttkrp_device_step",
     "n_pad_for",
     "pad_rank",
     "padded_rank",
+    "stream_schedules",
+    "tile_schedule",
     "tiled_rank_slab",
 ]
 
 # Backends this module runs. ``segsum`` is accepted one level up, in
 # core.distributed.device_mttkrp, and runs here as ``ref``.
-BACKENDS = ("ref", "pallas_fused_gather", "pallas_fused_gather_tiled")
+STREAM_BACKEND = _kernel.STREAM_BACKEND_NAME
+BACKENDS = ("ref", "pallas_fused_gather", "pallas_fused_gather_tiled",
+            STREAM_BACKEND)
 GATHER_BACKENDS = ("pallas_fused_gather", "pallas_fused_gather_tiled")
 
 # JAX backend names the port does not run yet, with the ROADMAP item.
@@ -47,7 +58,6 @@ NOT_PORTED = {
     "pallas_fused_tiled": "A6",
     "pallas_fused_bf16": "A6",
     "pallas_fused_gather_bf16": "A6",
-    "pallas_fused_gather_stream": "A8",
 }
 
 padded_rank = _kernel.padded_rank
@@ -71,6 +81,13 @@ def pad_rank(x, multiple: int = _kernel.RANK_MULTIPLE):
     return x if pad == 0 else F.pad(x, (0, pad))
 
 
+def _pad_factor_rows(x, multiple: int):
+    """Zero-pad a factor's rows to a whole number of stream tiles; the
+    padding rows are unreachable (indices stay below the true count)."""
+    pad = (-x.shape[0]) % multiple
+    return x if pad == 0 else F.pad(x, (0, 0, 0, pad))
+
+
 def tiled_rank_slab(rank: int) -> int:
     """Column slab of the tiled kernel for ``rank``: the padded rank up to
     ``RANK_SLAB`` (a single slab), else ``RANK_SLAB``."""
@@ -84,14 +101,20 @@ def n_pad_for(cap: int, rows_cap: int, blk: int, tile_rows: int) -> int:
 
 
 def build_block_layout(local_row, valid, *, rows_cap: int, blk: int,
-                       tile_rows: int):
+                       tile_rows: int, order_keys=None):
     """Block-aligned slots for a sorted nonzero stream.
 
     Args:
       local_row: ``(cap,)`` int32 output row per element, ascending among
-        valid elements; invalid elements trail.
+        valid elements; invalid elements trail. (Only the output-tile
+        runs must be contiguous and ascending.)
       valid: ``(cap,)`` bool.
       rows_cap: output rows (multiple of ``tile_rows``).
+      order_keys: optional tuple of ``(cap,)`` integer keys, most
+        significant first (``reorder.locality_keys``). Elements are then
+        ranked within their output-tile run by these keys, position
+        breaking ties, as the reference's lexsort does; beyond
+        valid-first the input need not be sorted.
 
     Returns:
       ``(slot, tile_of_block)`` int32 — ``slot[(cap,)]`` destination of
@@ -113,12 +136,22 @@ def build_block_layout(local_row, valid, *, rows_cap: int, blk: int,
     padded = (counts + blk - 1) // blk * blk
     offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                          torch.cumsum(padded, 0)]).to(torch.int32)
-    # Elements sorted by (valid desc, row asc) => per-tile runs are
-    # contiguous; rank = distance from the run's first position.
-    first_of_tile = torch.searchsorted(tile_of_elem, tile_of_elem,
-                                       side="left", out_int32=True)
-    rank_in_tile = torch.arange(cap, dtype=torch.int32,
-                                device=dev) - first_of_tile
+    pos = torch.arange(cap, dtype=torch.int32, device=dev)
+    if order_keys:
+        # Rank within the tile run = position under the (tile, keys,
+        # position) lexsort.
+        order = _reorder.lexsort(
+            (tile_of_elem,) + tuple(k.to(torch.int32) for k in order_keys))
+        inv = torch.empty_like(pos).scatter_(0, order, pos)
+        first_of_tile = torch.searchsorted(tile_of_elem[order], tile_of_elem,
+                                           side="left", out_int32=True)
+        rank_in_tile = inv - first_of_tile
+    else:
+        # Elements sorted by (valid desc, row asc) => per-tile runs are
+        # contiguous; rank = distance from the run's first position.
+        first_of_tile = torch.searchsorted(tile_of_elem, tile_of_elem,
+                                           side="left", out_int32=True)
+        rank_in_tile = pos - first_of_tile
     slot = torch.where(valid, offsets[tile_of_elem.long()] + rank_in_tile,
                        n_pad).to(torch.int32)
     block_start = torch.arange(n_pad // blk, dtype=torch.int32,
@@ -142,15 +175,69 @@ def _align_to_blocks(x, slot, n_pad: int):
     return out[:-1]
 
 
+def tile_schedule(indices_aligned, blk: int, window: int,
+                  frow_tile: int = _kernel.FACTOR_ROW_TILE):
+    """Per-block factor-tile schedule of the stream kernel.
+
+    ``indices_aligned`` is one mode's block-aligned ``(n_pad,)`` factor-row
+    stream. Returns ``(n_pad // blk, window)`` int32: row ``b`` holds the
+    sorted distinct ``frow_tile``-row tiles block ``b`` touches, the
+    unfilled slots repeating the block's *first* tile, as the reference
+    builds it; a block with more than ``window`` distinct tiles keeps its
+    first ``window``.
+    """
+    tiles = torch.div(indices_aligned.long(), frow_tile,
+                      rounding_mode="floor").reshape(-1, blk, 1)
+    st, first, rank_of, _ = _planner.block_tile_analysis(tiles)
+    return _schedule_from_analysis(st[..., 0], first[..., 0],
+                                   rank_of[..., 0], window)
+
+
+def _schedule_from_analysis(st, first, rank_of, window: int):
+    """One mode's ``(num_blocks, window)`` schedule from its
+    ``(num_blocks, blk)`` sorted tiles, first-occurrence mask and distinct
+    ranks: first occurrences scatter to their rank, the rest to a dump
+    column that is cut off."""
+    dest = torch.where(first & (rank_of < window), rank_of.long(), window)
+    sched = st[:, :1].expand(-1, window + 1).clone()
+    sched.scatter_(1, dest, st)
+    return sched[:, :window].to(torch.int32).contiguous()
+
+
+def stream_schedules(idx_stream, blk: int, factor_rows, *,
+                     frow_tile: int = _kernel.FACTOR_ROW_TILE):
+    """The stream kernel's schedules for a block-aligned ``(n_pad, K)``
+    index stream, with windows tightened to the data.
+
+    Each input mode's window is the data-blind bound
+    ``min(blk, ceil(rows / frow_tile))`` cut to the largest per-block
+    distinct-tile count. The reference's jit path must plan with the
+    bound; the port runs eagerly and reads the data, as the reference's
+    executor does. Returns ``(schedules, windows, distinct_counts)``.
+    """
+    k = idx_stream.shape[1]
+    tiles = torch.div(idx_stream.long(), frow_tile,
+                      rounding_mode="floor").reshape(-1, blk, k)
+    st, first, rank_of, dcounts = _planner.block_tile_analysis(tiles)
+    windows = _planner.stream_windows(dcounts, factor_rows, blk, frow_tile)
+    scheds = tuple(_schedule_from_analysis(st[..., i], first[..., i],
+                                           rank_of[..., i], windows[i])
+                   for i in range(k))
+    return scheds, windows, dcounts
+
+
 def gather_operands(idx, val, valid, factors, *, mode: int, rows_cap: int,
-                    row_offset: int, blk: int, tile_rows: int, slab: int):
+                    row_offset: int, blk: int, tile_rows: int, slab: int,
+                    ordering: str = "none"):
     """Block-aligned operands of the in-kernel-gather kernels for one mode.
 
     Returns ``(vals, idx_stream, factors, local_row_in_tile,
     tile_of_block)`` in the kernels' argument order: only the scalar and
     int32 index streams are block-aligned; the K input-factor matrices
     go whole, zero-padded to a multiple of ``slab`` columns. Padding and
-    invalid slots carry value 0, index 0 and local row 0.
+    invalid slots carry value 0, index 0 and local row 0. ``ordering``
+    (``reorder.ORDERINGS``) ranks each output-tile run by the locality
+    keys of ``FACTOR_ROW_TILE``-row factor tiles before alignment.
     """
     nmodes = idx.shape[1]
     in_modes = [w for w in range(nmodes) if w != mode]
@@ -160,8 +247,14 @@ def gather_operands(idx, val, valid, factors, *, mode: int, rows_cap: int,
     n_pad = n_pad_for(local_row.shape[0], rows_cap, blk, tile_rows)
     idx_in = torch.stack([idx[:, w] for w in in_modes], dim=1)
     idx_in = torch.where(valid[:, None], idx_in, 0).to(torch.int32)
+    # max_rows comes from the factor shapes, so a host-side sort of the
+    # same stream derives the same Morton bit budget.
+    order_keys = _reorder.locality_keys(
+        idx_in, ordering,
+        max_rows=max(factors[w].shape[0] for w in in_modes))
     slot, tile_of_block = build_block_layout(
-        local_row, valid, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+        local_row, valid, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+        order_keys=order_keys)
     return (_align_to_blocks(vals, slot, n_pad),
             _align_to_blocks(idx_in, slot, n_pad),
             tuple(pad_rank(factors[w].to(torch.float32), slab).contiguous()
@@ -189,7 +282,14 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
       row_offset: first owned permuted row.
       backend: one of :data:`BACKENDS`.
       gather_dtype: only ``"float32"`` (bf16 gathers: ROADMAP A6).
-      ordering: only ``"none"`` (ROADMAP A7).
+      ordering: ``reorder.ORDERINGS`` policy; anything but ``"none"``
+        ranks each output-tile run by factor-tile locality before block
+        alignment, for B1, B2 and B6 alike (one aligned stream, so they
+        stay bitwise equal per ordering); ``ref`` ignores it.
+
+    The stream backend (B6) tightens each window to the data
+    (:func:`stream_schedules`) and launches once; its window must fit
+    shared memory (the kernel raises otherwise).
 
     Returns ``(rows_cap, R)`` float32 output rows.
     """
@@ -198,26 +298,36 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
             raise NotImplementedError(
                 "bf16 gathers are not ported yet (ROADMAP A6)")
         raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
-    if ordering != "none":
-        raise NotImplementedError(
-            f"ordering={ordering!r} is not ported yet (ROADMAP A7)")
+    _reorder.validate_ordering(ordering)
     check_backend(backend)
     rank = factors[mode].shape[-1]
-    if backend in GATHER_BACKENDS:
-        tiled = backend == "pallas_fused_gather_tiled"
-        slab = tiled_rank_slab(rank) if tiled else padded_rank(rank)
-        operands = gather_operands(
-            idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
-            row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab)
-        if tiled:
-            out = _kernel.fused_mttkrp_nmode_gather_tiled(
-                *operands, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
-                rank_slab=slab)
-        else:
-            out = _kernel.fused_mttkrp_nmode_gather(
-                *operands, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
-        return out[:, :rank]
-    # ref: the per-nonzero contribution is materialized, then scattered.
-    local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
-    ell = hadamard_rows(idx, torch.where(valid, val, 0.0), factors, mode)
-    return _ref.segment_accumulate_ref(ell.float(), local_row, rows_cap)
+    if backend == "ref":
+        # The per-nonzero contribution is materialized, then scattered.
+        local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
+        ell = hadamard_rows(idx, torch.where(valid, val, 0.0), factors, mode)
+        return _ref.segment_accumulate_ref(ell.float(), local_row, rows_cap)
+    if backend == STREAM_BACKEND:
+        slab = min(padded_rank(rank), _kernel.STREAM_RANK_SLAB)
+    elif backend == "pallas_fused_gather_tiled":
+        slab = tiled_rank_slab(rank)
+    else:
+        slab = padded_rank(rank)
+    vals, idx_al, fmats, r_al, tob = gather_operands(
+        idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
+        row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab,
+        ordering=ordering)
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    if backend == STREAM_BACKEND:
+        fmats = tuple(_pad_factor_rows(f, _kernel.FACTOR_ROW_TILE)
+                      for f in fmats)
+        scheds, _, _ = stream_schedules(idx_al, blk,
+                                        tuple(f.shape[0] for f in fmats))
+        out = _kernel.fused_mttkrp_nmode_gather_stream(
+            vals, idx_al, fmats, r_al, tob, scheds, rank_slab=slab, **kw)
+    elif backend == "pallas_fused_gather_tiled":
+        out = _kernel.fused_mttkrp_nmode_gather_tiled(
+            vals, idx_al, fmats, r_al, tob, rank_slab=slab, **kw)
+    else:
+        out = _kernel.fused_mttkrp_nmode_gather(
+            vals, idx_al, fmats, r_al, tob, **kw)
+    return out[:, :rank]

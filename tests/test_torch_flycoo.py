@@ -122,9 +122,14 @@ def test_cyclic_schedule_flycoo_equal():
 
 
 def test_orderings_other_than_none_raise():
+    """Only an ordering outside ``ORDERINGS`` raises, as in the reference;
+    "tile" and "morton" build (held equal in tests/test_torch_reorder.py)."""
     t = GENERATORS["uniform"](tten)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfly.build_flycoo(t, 1, ordering="tile")
+    with pytest.raises(ValueError, match="unknown ordering"):
+        tfly.build_flycoo(t, 1, ordering="hilbert")
+    with pytest.raises(ValueError, match="unknown ordering"):
+        jfly.build_flycoo(GENERATORS["uniform"](jten), 1, ordering="hilbert")
+    assert tfly.build_flycoo(t, 1, ordering="tile").ordering == "tile"
 
 
 @pytest.mark.parametrize("bad", ["negative", "too_large", "nan"])

@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import cpals, flycoo, tensors  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as K  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
+from repro_torch.oocore import executor, planner  # noqa: E402
+from repro_torch.reorder import reorder_stream  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 BLK, TILE = 64, 8
@@ -25,8 +27,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(dev, k, rank, slab, cap=5000, rows_cap=96, seed=0, blk=BLK,
-              tile_rows=TILE):
+def _stream(dev, k, rank, cap, rows_cap, seed):
+    """A row-sorted random stream (mode 0 out) and its factors."""
     rng = np.random.default_rng(seed)
     frows = [int(x) for x in rng.integers(50, 400, k)]
     idx = np.stack([np.sort(rng.integers(0, rows_cap, cap))]
@@ -35,12 +37,27 @@ def _operands(dev, k, rank, slab, cap=5000, rows_cap=96, seed=0, blk=BLK,
         torch.from_numpy(rng.standard_normal((f, rank)).astype(np.float32))
         for f in frows]
     valid = torch.from_numpy(np.arange(cap) < cap - 17)
+    val = rng.standard_normal(cap).astype(np.float32)
+    return (torch.from_numpy(idx.astype(np.int32)).to(dev),
+            torch.from_numpy(val).to(dev), valid.to(dev),
+            [f.to(dev) for f in factors])
+
+
+def _operands(dev, k, rank, slab, cap=5000, rows_cap=96, seed=0, blk=BLK,
+              tile_rows=TILE, ordering="none"):
+    idx, val, valid, factors = _stream(dev, k, rank, cap, rows_cap, seed)
     return ops.gather_operands(
-        torch.from_numpy(idx.astype(np.int32)).to(dev),
-        torch.from_numpy(rng.standard_normal(cap).astype(np.float32)).to(dev),
-        valid.to(dev), [f.to(dev) for f in factors], mode=0,
-        rows_cap=rows_cap, row_offset=0, blk=blk, tile_rows=tile_rows,
-        slab=slab)
+        idx, val, valid, factors, mode=0, rows_cap=rows_cap, row_offset=0,
+        blk=blk, tile_rows=tile_rows, slab=slab, ordering=ordering)
+
+
+def _stream_args(operands, blk=BLK):
+    """B6's operands from B1's: factors padded to whole tiles, schedules."""
+    vals, idx_al, fmats, rows, tob = operands
+    fmats = tuple(ops._pad_factor_rows(f, K.FACTOR_ROW_TILE) for f in fmats)
+    scheds, _, _ = ops.stream_schedules(idx_al, blk,
+                                        [f.shape[0] for f in fmats])
+    return vals, idx_al, fmats, rows, tob, scheds
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
@@ -125,6 +142,133 @@ def test_cp_als_oracle_on_card_matches_cpu(cuda):
     t = tensors.random_sparse_tensor((30, 20, 10), 500, seed=4)
     got = cpals.cp_als(t, 6, iters=5, seed=5)
     want = cpals.cp_als(t, 6, device="cpu", iters=5, seed=5)
+    np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
+    for a, b in zip(got.factors, want.factors):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B6, the stream kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank,slab", [(16, 16), (48, 16), (64, 32)])
+@pytest.mark.parametrize("ordering", ["none", "morton"])
+def test_stream_matches_plain_and_b1_bitwise(cuda, k, rank, slab, ordering):
+    args = _operands(cuda, k, rank, rank, seed=k + rank, ordering=ordering)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    sargs = _stream_args(args)
+    n6 = K.fused_mttkrp_nmode_gather_stream.launches
+    b6 = K.fused_mttkrp_nmode_gather_stream(*sargs, rank_slab=slab, **kw)
+    assert K.fused_mttkrp_nmode_gather_stream.launches == n6 + 1
+    plain = K.fused_mttkrp_nmode_gather_stream_plain(*sargs, rank_slab=slab,
+                                                     **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b6, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b6, K.fused_mttkrp_nmode_gather(*args, **kw))
+    assert torch.equal(b6, K.fused_mttkrp_nmode_gather_stream(
+        *sargs, rank_slab=slab, **kw))
+
+
+@pytest.mark.parametrize("blk,tile_rows", [(32, 1), (128, 4), (64, 16),
+                                            (128, 8)])
+def test_stream_geometries(cuda, blk, tile_rows):
+    """groups = 16, 16, 8 and 16 partial tiles; B6 == B1 bitwise."""
+    rows_cap = 64 * tile_rows
+    args = _operands(cuda, 3, 16, 16, cap=20_000, rows_cap=rows_cap,
+                     seed=blk + tile_rows, blk=blk, tile_rows=tile_rows,
+                     ordering="morton")
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    b6 = K.fused_mttkrp_nmode_gather_stream(*_stream_args(args, blk), **kw)
+    assert torch.equal(b6, K.fused_mttkrp_nmode_gather(*args, **kw))
+
+
+def test_stream_missing_tile_adds_nothing(cuda):
+    """A slot whose tile is not in its block's schedule row adds nothing,
+    like an out-of-range index in B1."""
+    args = _operands(cuda, 2, 16, 16, seed=11)
+    vals, idx_al, fmats, rows, tob, scheds = _stream_args(args)
+    # Replace block 0's schedule row for mode 0 by a tile it never reads.
+    bad = scheds[0].clone()
+    bad[0] = int(fmats[0].shape[0] // K.FACTOR_ROW_TILE) - 1
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    used = (idx_al[:BLK, 0] // K.FACTOR_ROW_TILE) != bad[0, 0]
+    keep = torch.ones_like(vals, dtype=torch.bool)
+    keep[:BLK] = ~used
+    want = K.fused_mttkrp_nmode_gather_plain(
+        torch.where(keep, vals, 0.0), idx_al, fmats, rows, tob, **kw)
+    got = K.fused_mttkrp_nmode_gather_stream(
+        vals, idx_al, fmats, rows, tob, (bad, scheds[1]), **kw)
+    scale = float(want.abs().max())
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_stream_unsorted_schedule_matches_b1(cuda):
+    """A schedule row in another order (here reversed) is still searched
+    in full: the kernel falls back from its binary search to a scan."""
+    args = _operands(cuda, 2, 16, 16, seed=13, ordering="morton")
+    vals, idx_al, fmats, rows, tob, scheds = _stream_args(args)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    rev = tuple(torch.flip(s, dims=[1]).contiguous() for s in scheds)
+    got = K.fused_mttkrp_nmode_gather_stream(vals, idx_al, fmats, rows, tob,
+                                             rev, **kw)
+    assert torch.equal(got, K.fused_mttkrp_nmode_gather(*args, **kw))
+
+
+def test_stream_window_over_smem_raises(cuda):
+    args = _operands(cuda, 2, 16, 16, seed=12)
+    vals, idx_al, fmats, rows, tob, scheds = _stream_args(args)
+    wide = tuple(s[:, :1].expand(-1, 300).contiguous() for s in scheds)
+    nbytes = K.gather_stream_smem_bytes(2, 16, BLK, TILE, (300, 300))
+    assert nbytes > K.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match=str(nbytes)):
+        K.fused_mttkrp_nmode_gather_stream(vals, idx_al, fmats, rows, tob,
+                                           wide, rows_cap=96, blk=BLK,
+                                           tile_rows=TILE)
+
+
+@pytest.mark.parametrize("ordering", ["none", "tile", "morton"])
+def test_chunked_equals_single_pass_with_mid_tile_split(cuda, ordering):
+    """Chunks that split output tiles' runs give the single pass's bits,
+    which are B1's on the same (reordered) stream."""
+    # 40 rows in 5 tiles of 8: each tile's run is ~30 blocks of 32, so a
+    # budget of ~7 blocks splits every run mid-tile.
+    idx, val, valid, factors = _stream(cuda, 3, 16, 5000, 40, seed=5)
+    kw = dict(mode=0, rows_cap=40, blk=32, tile_rows=8, ordering=ordering)
+    single, s1 = executor.mttkrp_out_of_core(idx, val, valid, factors, **kw)
+    budget = 7 * planner.stream_chunk_bytes(32, 3, s1.window_tiles)
+    chunked, s2 = executor.mttkrp_out_of_core(
+        idx, val, valid, factors, max_chunk_bytes=budget, **kw)
+    assert s1.chunks == 1 and s2.chunks >= 10
+    assert max(s2.chunk_block_counts) < 30     # runs split mid-tile
+    assert torch.equal(chunked, single)
+    if ordering != "none":
+        idx, val, valid, _ = reorder_stream(
+            idx, val, valid, mode=0, ordering=ordering, tile_rows=8)
+    b1 = ops.mttkrp_device_step(idx, val, valid, factors, mode=0,
+                                rows_cap=40, blk=32, tile_rows=8,
+                                backend="pallas_fused_gather")
+    assert torch.equal(chunked, b1)
+    want = executor.mttkrp_out_of_core(
+        idx.cpu(), val.cpu(), valid.cpu(), [f.cpu() for f in factors],
+        device="cpu", max_chunk_bytes=budget,
+        **dict(kw, ordering="none"))[0]
+    scale = float(want.abs().max())
+    assert torch.allclose(chunked.cpu(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_stream_cp_als_on_card(cuda):
+    """The stream backend's fits equal B1's with the same ordering (same
+    aligned stream, bitwise equal kernels) and match the CPU run."""
+    t = tensors.random_sparse_tensor((40, 300, 170), 3000, seed=0)
+    ft = flycoo.build_flycoo(t, 1)
+    kw = dict(iters=3, tol=0.0, ordering="morton", blk=128)
+    got = cpals.cp_als_distributed(
+        ft, 8, backend="pallas_fused_gather_stream", **kw)
+    b1 = cpals.cp_als_distributed(ft, 8, backend="pallas_fused_gather", **kw)
+    assert got.fits == b1.fits
+    want = cpals.cp_als_distributed(
+        ft, 8, device="cpu", backend="pallas_fused_gather_stream", **kw)
     np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
     for a, b in zip(got.factors, want.factors):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)

@@ -40,7 +40,27 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core.cpals, "
-            "repro_torch.kernels.mttkrp.kernel, repro_torch.convert; "
+            "repro_torch.kernels.mttkrp.kernel, repro_torch.convert, "
+            "repro_torch.oocore.executor, repro_torch.oocore.planner, "
+            "repro_torch.reorder.ordering; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.reorder.ordering", "repro_torch.oocore.planner",
+    "repro_torch.oocore.executor", "repro_torch.kernels.mttkrp.ops",
+    "repro_torch.core.flycoo"])
+def test_new_modules_import_first_without_jax(module):
+    """Each module of the stream path imports on its own (the package's
+    import cycle between ops, the planner and the orderings resolves in
+    any order) and pulls in no JAX."""
+    code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

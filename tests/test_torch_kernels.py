@@ -188,7 +188,7 @@ def test_device_step_matches_jax(nmodes, backend):
 @pytest.mark.parametrize("backend,item", [
     ("auto", "A6"), ("pallas", "A6"), ("pallas_fused", "A6"),
     ("pallas_fused_tiled", "A6"), ("pallas_fused_bf16", "A6"),
-    ("pallas_fused_gather_bf16", "A6"), ("pallas_fused_gather_stream", "A8"),
+    ("pallas_fused_gather_bf16", "A6"),
 ])
 def test_unported_backends_raise(backend, item):
     _, _, rows_cap, (idx, val, factors) = _case(3, 8, seed=4)
@@ -208,9 +208,10 @@ def test_bf16_and_orderings_raise():
     with pytest.raises(NotImplementedError, match="A6"):
         tops.mttkrp_device_step(*args, mode=0, rows_cap=rows_cap,
                                 gather_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A7"):
+    # The orderings are ported; an unknown one raises as in the reference.
+    with pytest.raises(ValueError, match="unknown ordering"):
         tops.mttkrp_device_step(*args, mode=0, rows_cap=rows_cap,
-                                ordering="tile")
+                                ordering="hilbert")
     with pytest.raises(ValueError):
         tops.mttkrp_device_step(*args, mode=0, rows_cap=rows_cap,
                                 backend="nope")
