@@ -16,20 +16,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      against its plain version, B6 == B1 bitwise, a rerun bitwise equal,
      and a chunked out-of-core run with mid-tile splits bitwise equal to
      the single pass;
-  4. the main path at nell-2 scale: ``cp_als_distributed`` (R=16, B1,
-     3 sweeps) on a synthetic stand-in of FROSTT nell-2 with its real
-     shape and nonzero count, then the tiled path (R=256, B2, 1 sweep);
-     launch counts, fits, and each mode's sweep-0 kernel output against
-     the plain version on the same inputs, with times beside the bounds;
-  5. ``[stream-main]``, the out-of-core path on the same tensor (R=16,
-     blk=64): per mode ``mttkrp_out_of_core`` with Morton order in >= 5 chunks,
-     bitwise equal to B1 on the same permuted stream, predicted traffic
-     equal to the counted; then ``cp_als_distributed`` with the stream
-     backend and with B1, Morton order, 2 sweeps each: equal fits;
-  6. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
-  7. exact recovery of a dense rank-4 tensor (fit > 0.999);
-  8. one JSON line per kernel, the card's name and power limit, and the
-     last line ``{"ok": true, "device": {...}}``.
+  4. ``[fused-kernels]``: B3 (``fused_mttkrp_nmode``), B4
+     (``fused_mttkrp_nmode_tiled``) and B5 (``segment_accumulate``) on
+     random streams (K in {2,3}, R in {16,256}, and 1024 for B5): against
+     their plain versions, B4 == B3 == B1 and B5 == B1 bitwise, reruns
+     bitwise, ``out_init`` kept and added, B5 beside ``index_add_``;
+  5. the main path at nell-2 scale: ``cp_als_distributed`` (R=16,
+     ``backend="auto"``, which must launch B1 only, 3 sweeps) on a
+     synthetic stand-in of FROSTT nell-2 with its real shape and nonzero
+     count, then the tiled path (R=256, B2, 1 sweep); launch counts,
+     fits, and each mode's sweep-0 kernel output against the plain
+     version on the same inputs, with times beside the bounds;
+  6. ``[fused-main]`` and ``[auto]`` on the same tensor:
+     ``cp_als_distributed`` with ``pallas_fused`` (B3),
+     ``pallas_fused_tiled`` (B4) and ``pallas`` (B5), R=16, 2 sweeps each,
+     fits equal to the auto run's; per mode each kernel at its path's
+     inputs (and B4 at R=32 in two slabs) against its plain version and
+     B1 bitwise, with times, bounds, ``index_add_`` for B5 and peak
+     memory; the ladder's choice per mode at R in {16,256}, blk in
+     {64,512}; a profiled ``pallas`` sweep;
+  7. ``[stream-main]``, the out-of-core path on the same tensor (R=16,
+     blk=64): per mode ``mttkrp_out_of_core`` with Morton order in >= 5
+     chunks, bitwise equal to B1 on the same permuted stream, predicted
+     traffic equal to the counted; then ``cp_als_distributed`` with the
+     stream backend and with B1, Morton order, 2 sweeps each: equal fits;
+  8. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
+  9. exact recovery of a dense rank-4 tensor (fit > 0.999);
+  10. one JSON line with all six kernels, the card's name and power
+      limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -68,14 +82,29 @@ CSRC = "src/repro_torch/kernels/mttkrp/csrc/"
 SOURCE = {
     "fused_mttkrp_nmode_gather": CSRC + "gather_mttkrp.cu",
     "fused_mttkrp_nmode_gather_tiled": CSRC + "gather_mttkrp.cu",
+    "fused_mttkrp_nmode": CSRC + "fused_mttkrp.cu",
+    "fused_mttkrp_nmode_tiled": CSRC + "fused_mttkrp.cu",
+    "segment_accumulate": CSRC + "fused_mttkrp.cu",
     "fused_mttkrp_nmode_gather_stream": CSRC + "gather_stream_mttkrp.cu",
 }
 REPLACES = {
     "fused_mttkrp_nmode_gather": "src/repro/kernels/mttkrp/kernel.py:632",
     "fused_mttkrp_nmode_gather_tiled":
         "src/repro/kernels/mttkrp/kernel.py:728",
+    "fused_mttkrp_nmode": "src/repro/kernels/mttkrp/kernel.py:429",
+    "fused_mttkrp_nmode_tiled": "src/repro/kernels/mttkrp/kernel.py:516",
+    "segment_accumulate": "src/repro/kernels/mttkrp/kernel.py:338",
     "fused_mttkrp_nmode_gather_stream":
         "src/repro/kernels/mttkrp/kernel.py:868",
+}
+# The backend name of each kernel, and the wrapper whose count it keeps.
+BACKEND_OF = {
+    "fused_mttkrp_nmode_gather": "pallas_fused_gather",
+    "fused_mttkrp_nmode_gather_tiled": "pallas_fused_gather_tiled",
+    "fused_mttkrp_nmode": "pallas_fused",
+    "fused_mttkrp_nmode_tiled": "pallas_fused_tiled",
+    "segment_accumulate": "pallas",
+    "fused_mttkrp_nmode_gather_stream": "pallas_fused_gather_stream",
 }
 
 
@@ -135,6 +164,46 @@ def kernel_bound_ms(operands, *, rows_cap: int, tile_rows: int,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """max(bytes / HBM rate, flops / fp32 peak) in ms, and which bounds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bound_ms(nnz: int, rank: int, k: int, *, rows_cap: int,
+                   tile_rows: int) -> tuple[float, str]:
+    """Least time for one call of B3/B4 (``k`` pre-gathered rows) or, with
+    ``k=0``, of B5 (one contribution row), on the ``nnz`` slots that hold
+    a nonzero: B3 reads per slot its value, local row and K rows of
+    ``rank`` floats and does K multiplies and one add per column; B5 reads
+    the local row and one row and does one add per column. Both read the
+    per-tile block starts and write the output once."""
+    per_slot = 4 + (4 + 4 * k * rank if k else 4 * rank)
+    nbytes = nnz * per_slot + (rows_cap // tile_rows + 1) * 4 \
+        + rows_cap * rank * 4
+    return bound_ms(nbytes, nnz * rank * max(k + 1, 1))
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.mttkrp import kernel as K
+    for name in SOURCE:
+        getattr(K, name).launches = 0
+
+
+def counts() -> dict:
+    from repro_torch.kernels.mttkrp import kernel as K
+    return {name: getattr(K, name).launches for name in SOURCE}
+
+
+def require_only(launched: dict, name: str, want: int, what: str):
+    """``name`` launched ``want`` times and no other kernel launched."""
+    others = {k: v for k, v in launched.items() if k != name and v}
+    require(launched[name] == want and not others,
+            f"{what}: launches {launched}, expected {want} of {name} only")
 
 
 def compare(out, plain, what: str) -> float:
@@ -228,6 +297,81 @@ def phase_kernels(dev):
         log(f"[kernels] {what} nnz={cap} slab={slab}: max_abs_err={err:.3e} "
             f"B1==B2 bitwise, rerun bitwise; B1 {t_b1:.4f} ms, B2 {t_b2:.4f} "
             f"ms, plain {t_p:.4f} ms, bound {bound:.4f} ms ({by})")
+
+
+def phase_fused_kernels(dev):
+    """B3, B4 and B5 on random streams: against their plain versions,
+    B4 == B3 == B1 and B5 == B1 bitwise, reruns bitwise, out_init kept."""
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    rng = np.random.default_rng(2)
+    cap, rows_cap = 1 << 20, 16_384
+    kw = dict(rows_cap=rows_cap, blk=BLK, tile_rows=TILE_ROWS)
+    for k, rank in itertools.product((2, 3), (16, 256, 1024)):
+        slab = min(rank, 128)
+        ops_ = random_operands(rng, k, rank, cap, rows_cap, slab, dev)
+        vals, idx_al, fmats, rows, tob = ops_
+        what = f"K={k} R={rank}"
+        # B1 at the whole rank, or B2 (== B1) where B1 does not fit.
+        b1_fits = K.gather_smem_bytes(k, rank, TILE_ROWS) \
+            <= K.SMEM_LIMIT_BYTES
+        b1 = (K.fused_mttkrp_nmode_gather(*ops_, **kw) if b1_fits else
+              K.fused_mttkrp_nmode_gather_tiled(*ops_, rank_slab=slab, **kw))
+        pre = ops.pregathered_rows(idx_al, fmats)
+        contrib = vals[:, None]
+        for r in pre:
+            contrib = contrib * r
+        b5 = K.segment_accumulate(contrib, rows, tob, **kw)
+        plain5 = K.segment_accumulate_plain(contrib, rows, tob, **kw)
+        torch.cuda.synchronize()
+        err5 = compare(b5, plain5, f"B5 {what}")
+        require(torch.equal(b5, b1), f"B5 {what}: differs from B1 bitwise")
+        require(torch.equal(b5, K.segment_accumulate(contrib, rows, tob,
+                                                     **kw)),
+                f"B5 {what}: rerun differs")
+        out_rows = (torch.repeat_interleave(tob.long(), BLK) * TILE_ROWS
+                    + rows.long())
+        t_b5 = cuda_ms(lambda: K.segment_accumulate(contrib, rows, tob,
+                                                    **kw), 5)
+        t_lib = cuda_ms(lambda: torch.zeros(rows_cap, rank, device=dev)
+                        .index_add_(0, out_rows, contrib), 5)
+        line = (f"[fused-kernels] {what} nnz={cap}: B5 max_abs_err "
+                f"{err5:.3e}, B5==B1 bitwise, rerun bitwise; B5 {t_b5:.4f} "
+                f"ms, index_add_ {t_lib:.4f} ms")
+        del contrib, plain5, out_rows
+        if rank <= 256:
+            b3 = K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw)
+            b4 = K.fused_mttkrp_nmode_tiled(vals, pre, rows, tob,
+                                            rank_slab=16, **kw)
+            plain3 = K.fused_mttkrp_nmode_plain(vals, pre, rows, tob, **kw)
+            torch.cuda.synchronize()
+            err3 = compare(b3, plain3, f"B3 {what}")
+            require(torch.equal(b3, b1), f"B3 {what}: differs from B1")
+            require(torch.equal(b4, b3), f"B4 {what}: differs from B3")
+            require(torch.equal(b3, K.fused_mttkrp_nmode(vals, pre, rows, tob,
+                                                         **kw)),
+                    f"B3 {what}: rerun differs")
+            init = torch.randn(rows_cap, rank, device=dev)
+            keep = init.clone()
+            b3i = K.fused_mttkrp_nmode(vals, pre, rows, tob, out_init=init,
+                                       **kw)
+            b1i = K.fused_mttkrp_nmode_gather_tiled(
+                *ops_, rank_slab=slab, out_init=init, **kw)
+            require(torch.equal(init, keep), f"B3 {what}: out_init modified")
+            require(torch.equal(b3i, b1i),
+                    f"B3 {what}: with out_init differs from B1")
+            compare(b3i, K.fused_mttkrp_nmode_plain(
+                vals, pre, rows, tob, out_init=init, **kw), f"B3 {what} init")
+            t_b3 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre, rows, tob,
+                                                        **kw), 5)
+            t_b4 = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(
+                vals, pre, rows, tob, rank_slab=16, **kw), 5)
+            line += (f"; B3 max_abs_err {err3:.3e}, B4==B3==B1 bitwise, "
+                     f"rerun bitwise, out_init kept and added; B3 "
+                     f"{t_b3:.4f} ms, B4 (slab 16) {t_b4:.4f} ms")
+            del b3, b4, plain3, b3i, b1i, init, keep
+        log(line)
+        del ops_, pre, b1, b5
+    torch.cuda.empty_cache()
 
 
 def mid_tile_splits(tile_of_block, chunk_block_counts) -> int:
@@ -376,7 +520,6 @@ def profile_sweep(ft, rank: int, backend: str, dev, **runtime_kw):
 
 def phase_main(dev, gpu: str):
     from repro_torch.core import cpals, flycoo, tensors
-    from repro_torch.kernels.mttkrp import kernel as K
     prof = tensors.FROSTT_PROFILES["nell-2"]
     shape, nnz = prof["shape"], prof["nnz"]
     t0 = time.perf_counter()
@@ -389,24 +532,22 @@ def phase_main(dev, gpu: str):
         f"{nnz}, uniform, seed 0): generate {t_gen:.1f} s, build_flycoo "
         f"{t_fly:.1f} s")
 
-    # --- B1 path: counts zeroed just before, read just after ----------
+    # --- auto (B1 at R=16): counts zeroed just before, read just after --
     torch.cuda.reset_peak_memory_stats()
-    K.fused_mttkrp_nmode_gather.launches = 0
-    K.fused_mttkrp_nmode_gather_tiled.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    res = cpals.cp_als_distributed(ft, 16, backend="pallas_fused_gather",
-                                   iters=3, tol=0.0)
+    res = cpals.cp_als_distributed(ft, 16, backend="auto", iters=3, tol=0.0)
     wall = time.perf_counter() - t0
-    b1_launches = K.fused_mttkrp_nmode_gather.launches
-    b2_stray = K.fused_mttkrp_nmode_gather_tiled.launches
+    launched = counts()
+    b1_launches = launched["fused_mttkrp_nmode_gather"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fits = res.fits
-    log(f"[main] cp_als_distributed R=16 pallas_fused_gather: fits {fits}; "
+    log(f"[main] cp_als_distributed R=16 backend=auto: fits {fits}; "
         f"ms per sweep {[round(s * 1e3, 2) for s in res.sweep_seconds]}; "
         f"call {wall:.1f} s incl. host prepare_runtime; peak device memory "
         f"{peak_gb:.2f} GB; B1 launches {b1_launches}")
-    require(b1_launches == 9, f"B1 launched {b1_launches} times, expected 9")
-    require(b2_stray == 0, "the B1 path launched B2")
+    require_only(launched, "fused_mttkrp_nmode_gather", 9,
+                 "auto at R=16 (B1 on every mode)")
     require(all(np.isfinite(fits)) and max(fits) <= 1.0, f"fits {fits}")
     require(all(b >= a - 1e-3 for a, b in zip(fits[1:], fits[2:])),
             f"fit decreased after sweep 1: {fits}")
@@ -422,18 +563,16 @@ def phase_main(dev, gpu: str):
     profile_sweep(ft, 16, "pallas_fused_gather", dev)
 
     # --- B2 path (auto's next rung): R=256 in 128-column slabs ---------
-    K.fused_mttkrp_nmode_gather.launches = 0
-    K.fused_mttkrp_nmode_gather_tiled.launches = 0
+    reset_counts()
     res2 = cpals.cp_als_distributed(
         ft, 256, backend="pallas_fused_gather_tiled", iters=1, tol=0.0)
-    b2_launches = K.fused_mttkrp_nmode_gather_tiled.launches
-    require(K.fused_mttkrp_nmode_gather.launches == 0,
-            "the B2 path launched B1")
+    launched = counts()
+    b2_launches = launched["fused_mttkrp_nmode_gather_tiled"]
+    require_only(launched, "fused_mttkrp_nmode_gather_tiled", 3, "B2 path")
     log(f"[main] cp_als_distributed R=256 pallas_fused_gather_tiled: fits "
         f"{res2.fits}; ms per sweep "
         f"{[round(s * 1e3, 2) for s in res2.sweep_seconds]}; B2 launches "
         f"{b2_launches}")
-    require(b2_launches == 3, f"B2 launched {b2_launches} times, expected 3")
     require(all(np.isfinite(res2.fits)) and max(res2.fits) <= 1.0,
             f"fits {res2.fits}")
     b2_rows, _ = check_modes(ft, 256, "pallas_fused_gather_tiled", dev,
@@ -443,8 +582,170 @@ def phase_main(dev, gpu: str):
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max_abs_err "
             f"{r['err']:.3e}  [{gpu}]")
-    return ft, {"fused_mttkrp_nmode_gather": (b1_launches, b1_rows),
-                "fused_mttkrp_nmode_gather_tiled": (b2_launches, b2_rows)}
+    return ft, fits, {
+        "fused_mttkrp_nmode_gather": (b1_launches, b1_rows),
+        "fused_mttkrp_nmode_gather_tiled": (b2_launches, b2_rows)}
+
+
+def phase_fused_main(ft, b1_fits, dev, gpu: str):
+    """pallas_fused (B3), pallas_fused_tiled (B4) and pallas (B5) on the
+    nell-2 stand-in that phase_main built: each CP-ALS run's fits equal
+    the B1 run's; per mode, each kernel at its own inputs against its
+    plain version and B1 bitwise, with times, bounds and peak memory."""
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core.mttkrp import hadamard_rows
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    rank = 16
+    launches = {}
+    # --- the driven paths: counts zeroed just before, read just after ---
+    for name in ("fused_mttkrp_nmode", "fused_mttkrp_nmode_tiled",
+                 "segment_accumulate"):
+        backend = BACKEND_OF[name]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = cpals.cp_als_distributed(ft, rank, backend=backend, iters=2,
+                                       tol=0.0)
+        launched = counts()
+        log(f"[fused-main] cp_als_distributed R={rank} {backend}: fits "
+            f"{res.fits}; ms per sweep "
+            f"{[round(x * 1e3, 2) for x in res.sweep_seconds]}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"{name} launches {launched[name]}")
+        require_only(launched, name, 6, f"{backend} path")
+        require(res.fits == b1_fits[:2],
+                f"{backend} fits {res.fits} != B1 fits {b1_fits[:2]}")
+        launches[name] = launched[name]
+        del res
+
+    # --- per mode at the main path's inputs (launches not counted) ------
+    rt, packed = dist.prepare_runtime(ft, rank)
+    stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
+                                               device=dev)
+    del packed
+    nmodes = rt.nmodes
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for r_, blk_ in itertools.product((16, 256), (64, 512)):
+        picks = [ops.select_backend(
+            "auto", nmodes=nmodes, rank=r_, blk=blk_, tile_rows=rt.tile_rows,
+            factor_rows=[rt.i_pad[w] for w in range(nmodes) if w != n])
+            for n in range(nmodes)]
+        log(f"[auto] R={r_} blk={blk_}: per mode {picks}; l2_budget "
+            f"{K.L2_BUDGET_BYTES} B of the card's L2 {l2} B, smem_budget "
+            f"{K.SMEM_LIMIT_BYTES} B")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f32 = [torch.randn(rt.i_pad[w], 32, generator=gen, device=dev)
+           for w in range(nmodes)]
+    rows = {"fused_mttkrp_nmode": [], "fused_mttkrp_nmode_tiled": [],
+            "segment_accumulate": []}
+    cur = stream
+    for n in range(nmodes):
+        rows_cap = rt.rows_cap[n]
+        kw = dict(rows_cap=rows_cap, blk=rt.blk, tile_rows=rt.tile_rows)
+        okw = dict(mode=n, rows_cap=rows_cap, row_offset=0, blk=rt.blk,
+                   tile_rows=rt.tile_rows)
+        nnz = int(cur[2].sum())
+        torch.cuda.reset_peak_memory_stats()
+        # B3 at R=16, on B1's aligned stream.
+        vals, idx_al, fmats, r_al, tob = ops.gather_operands(
+            *cur, factors, slab=rank, **okw)
+        b1_16 = K.fused_mttkrp_nmode_gather(vals, idx_al, fmats, r_al, tob,
+                                            **kw)
+        k = len(fmats)
+        pre = ops.pregathered_rows(idx_al, fmats)
+        del idx_al, fmats
+        b3 = K.fused_mttkrp_nmode(vals, pre, r_al, tob, **kw)
+        require(torch.equal(b3, b1_16), f"mode {n}: B3 differs from B1")
+        plain = K.fused_mttkrp_nmode_plain(vals, pre, r_al, tob, **kw)
+        err = compare(b3, plain, f"B3 mode {n}")
+        t_k = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre, r_al, tob,
+                                                   **kw), 5)
+        t_p = cuda_ms(lambda: K.fused_mttkrp_nmode_plain(vals, pre, r_al,
+                                                         tob, **kw), 2)
+        bound, by = fused_bound_ms(nnz, rank, k, rows_cap=rows_cap,
+                                   tile_rows=rt.tile_rows)
+        rows["fused_mttkrp_nmode"].append(dict(
+            mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+            bound_by=by))
+        log(f"[fused-main] B3 mode {n}: {vals.shape[0]} slots, {nnz} nnz, "
+            f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms "
+            f"({by}, HBM 3.35 TB/s), max_abs_err {err:.3e}, == B1 bitwise  "
+            f"[{gpu}]")
+        # B4 at the tiled path's own inputs (R=16: one 16-column slab).
+        tkw = dict(rank_slab=16, **kw)
+        b4 = K.fused_mttkrp_nmode_tiled(vals, pre, r_al, tob, **tkw)
+        require(torch.equal(b4, b1_16), f"mode {n}: B4 differs from B1")
+        plain = K.fused_mttkrp_nmode_tiled_plain(vals, pre, r_al, tob, **tkw)
+        err = compare(b4, plain, f"B4 mode {n}")
+        t_k = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(vals, pre, r_al, tob,
+                                                         **tkw), 5)
+        t_p = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled_plain(
+            vals, pre, r_al, tob, **tkw), 2)
+        rows["fused_mttkrp_nmode_tiled"].append(dict(
+            mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+            bound_by=by))
+        log(f"[fused-main] B4 mode {n}: R=16, one slab, kernel {t_k:.3f} ms, "
+            f"plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}), max_abs_err "
+            f"{err:.3e}, == B1 bitwise  [{gpu}]")
+        del vals, pre, r_al, tob, b3, b4, plain
+        # B4 at R=32 in two 16-column slabs, on B1's stream at R=32.
+        vals, idx_al, fmats, r_al, tob = ops.gather_operands(
+            *cur, f32, slab=32, **okw)
+        b1_32 = K.fused_mttkrp_nmode_gather(vals, idx_al, fmats, r_al, tob,
+                                            **kw)
+        pre = ops.pregathered_rows(idx_al, fmats)
+        del idx_al, fmats
+        b4 = K.fused_mttkrp_nmode_tiled(vals, pre, r_al, tob, **tkw)
+        require(torch.equal(b4, b1_32), f"mode {n}: B4 differs from B1")
+        plain = K.fused_mttkrp_nmode_tiled_plain(vals, pre, r_al, tob, **tkw)
+        err = compare(b4, plain, f"B4 mode {n}")
+        t_k = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(vals, pre, r_al, tob,
+                                                         **tkw), 5)
+        t_p = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled_plain(
+            vals, pre, r_al, tob, **tkw), 2)
+        bound, by = fused_bound_ms(nnz, 32, k, rows_cap=rows_cap,
+                                   tile_rows=rt.tile_rows)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[fused-main] B4 mode {n}: R=32, 2 slabs of 16, kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}),"
+            f" max_abs_err {err:.3e}, == B1 bitwise; peak device memory of "
+            f"B3 and B4 {peak_gb:.2f} GB  [{gpu}]")
+        del vals, pre, r_al, tob, b4, b1_32, plain
+        # B5 at R=16, on the materialized path's own operands.
+        torch.cuda.reset_peak_memory_stats()
+        idx, val, valid = cur
+        ell = hadamard_rows(torch.where(valid[:, None], idx, 0),
+                            torch.where(valid, val, 0.0), factors, n).float()
+        local_row = torch.where(valid, idx[:, n], 0).to(torch.int32)
+        contrib, r_al, tob = ops.blocked_operands(ell, local_row, valid, **kw)
+        del ell, local_row
+        b5 = K.segment_accumulate(contrib, r_al, tob, **kw)
+        require(torch.equal(b5, b1_16), f"mode {n}: B5 differs from B1")
+        plain = K.segment_accumulate_plain(contrib, r_al, tob, **kw)
+        err = compare(b5, plain, f"B5 mode {n}")
+        out_rows = (torch.repeat_interleave(tob.long(), rt.blk)
+                    * rt.tile_rows + r_al.long())
+        t_k = cuda_ms(lambda: K.segment_accumulate(contrib, r_al, tob, **kw),
+                      5)
+        t_p = cuda_ms(lambda: K.segment_accumulate_plain(contrib, r_al, tob,
+                                                         **kw), 2)
+        t_lib = cuda_ms(lambda: torch.zeros(rows_cap, rank, device=dev)
+                        .index_add_(0, out_rows, contrib), 5)
+        bound, by = fused_bound_ms(nnz, rank, 0, rows_cap=rows_cap,
+                                   tile_rows=rt.tile_rows)
+        rows["segment_accumulate"].append(dict(
+            mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+            bound_by=by, library_ms=t_lib))
+        log(f"[fused-main] B5 mode {n}: {contrib.shape[0]} slots (trailing "
+            f"padding cut), kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"index_add_ {t_lib:.3f} ms, bound {bound:.3f} ms ({by}), "
+            f"max_abs_err {err:.3e}, == B1 bitwise; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{gpu}]")
+        del contrib, r_al, tob, b5, plain, out_rows, b1_16
+        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+    del cur, stream, factors, f32
+    torch.cuda.empty_cache()
+    profile_sweep(ft, rank, "pallas", dev)
+    return {name: (launches[name], rows[name]) for name in rows}
 
 
 def phase_stream_main(ft, dev, gpu: str):
@@ -638,7 +939,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels.mttkrp import kernel as K
     dev = torch.device("cuda")
     gpu = gpu_info()
     log(f"[gpu] {gpu}; torch {torch.__version__} CUDA {torch.version.cuda}")
@@ -646,7 +946,9 @@ def main() -> int:
     phase_build()
     phase_kernels(dev)
     phase_stream_kernels(dev)
-    ft, main_rows = phase_main(dev, gpu)
+    phase_fused_kernels(dev)
+    ft, b1_fits, main_rows = phase_main(dev, gpu)
+    main_rows.update(phase_fused_main(ft, b1_fits, dev, gpu))
     main_rows.update(phase_stream_main(ft, dev, gpu))
     del ft
     phase_four_mode(dev)
@@ -661,13 +963,16 @@ def main() -> int:
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
             "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
             "bound_by": rows[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": (float(np.mean([r["library_ms"] for r in rows]))
+                           if "library_ms" in rows[0] else None),
         })
-    require(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
+    require(len(kernels) == len(SOURCE)
+            and all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s; "
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
-        "of the main path; library_ms null: no single PyTorch call "
-        "computes spMTTKRP")
+        "of the main path; library_ms is index_add_ for segment_accumulate "
+        "and null for the others: no single PyTorch call computes "
+        "spMTTKRP")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ wrapper runs its plain PyTorch version. Importing the package needs no
 CUDA, ``nvcc`` or ``triton``: the kernels are built at first launch.
 
 core         FLYCOO preprocessing, remap, one-GPU Dynasor CP-ALS
-kernels      in-kernel-gather and stream MTTKRP (CUDA) + block layout +
+kernels      the six MTTKRP kernels (CUDA) + block layout + dispatch +
              oracles
 oocore       chunked out-of-core MTTKRP, stream windows and traffic
 reorder      locality-aware nonzero orderings

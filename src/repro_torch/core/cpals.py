@@ -222,8 +222,12 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     stream kernel's windows grow with it. ``ft`` must be built for one
     worker (``build_flycoo(t, 1)``); more workers raise
     ``NotImplementedError`` (ROADMAP A9). ``backend`` is ``segsum``,
-    ``ref``, ``pallas_fused_gather`` (B1), ``pallas_fused_gather_tiled``
-    (B2) or ``pallas_fused_gather_stream`` (B6). ``ordering``
+    ``ref``, ``auto`` (per mode the first rung of the residency ladder
+    that fits, ``ops.select_backend``), ``pallas_fused_gather`` (B1),
+    ``pallas_fused_gather_tiled`` (B2), ``pallas_fused`` (B3),
+    ``pallas_fused_tiled`` (B4), ``pallas`` (B5) or
+    ``pallas_fused_gather_stream`` (B6); the bf16 names raise
+    ``NotImplementedError`` (ROADMAP A6b). ``ordering``
     (``reorder.ORDERINGS``; ``None`` inherits ``ft.ordering``) ranks each
     mode step's output-tile runs by factor-tile locality.
     """

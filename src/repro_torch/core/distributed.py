@@ -59,7 +59,7 @@ class DynasorRuntime:
         if self.gather_dtype != "float32":
             raise NotImplementedError(
                 f"gather_dtype={self.gather_dtype!r} is not ported yet "
-                "(ROADMAP A6)")
+                "(ROADMAP A6b)")
         from ..reorder import validate_ordering  # deferred: reorder→kernels
         validate_ordering(self.ordering)
 
@@ -157,10 +157,11 @@ def device_mttkrp(idx, val, mask, factors, mode: int, rt: DynasorRuntime,
                   backend: str):
     """Owner-computes local MTTKRP for ``mode`` → ``(rows_cap, R)`` f32.
 
-    ``backend`` is ``segsum`` (gather + ``index_add_``) or one of
-    ``ops.BACKENDS`` (B1, B2, the stream kernel B6); ``auto`` and the
-    other JAX backends raise ``NotImplementedError`` (ROADMAP A6). The
-    runtime's ``ordering`` applies to the kernel backends.
+    ``backend`` is ``segsum`` (gather + ``index_add_``), ``auto`` (the
+    residency ladder, ``ops.select_backend``) or one of ``ops.BACKENDS``
+    (``ref``, and B1–B6 behind the JAX package's names); the bf16 names
+    raise ``NotImplementedError`` (ROADMAP A6b). The runtime's
+    ``ordering`` applies to the fused and gather kernels.
     """
     kops.check_backend(backend, extra=("segsum",))
     _require_one_worker(rt)

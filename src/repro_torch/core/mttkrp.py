@@ -10,6 +10,7 @@ Port of ``repro/core/mttkrp.py``:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..kernels.mttkrp.ref import segment_accumulate_ref
 
@@ -44,7 +45,13 @@ def hadamard_rows(indices, values, factors, mode):
     ell = values[:, None].to(factors[0].dtype)
     for w in range(indices.shape[1]):
         if w != mode:
-            ell = ell * factors[w].index_select(0, indices[:, w].long())
+            # int32 indices go to index_select as they are: on an H100 an
+            # int64 index sent this (N, 16) row gather down a path ~13x
+            # slower at nell-2 scale (PERF.md).
+            ix = indices[:, w]
+            if ix.dtype not in (torch.int32, torch.int64):
+                ix = ix.long()
+            ell = ell * factors[w].index_select(0, ix)
     return ell
 
 

@@ -1,3 +1,2 @@
-"""In-kernel-gather and stream spMTTKRP: CUDA kernels, block layout,
-schedules, oracles."""
+"""spMTTKRP: CUDA kernels, block layout, schedules, dispatch, oracles."""
 from . import build, kernel, ops, ref  # noqa: F401

@@ -21,11 +21,12 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# Library name -> source; each defines `<name>_launch` and
-# `<name>_error_string`.
+# Library name -> source; each defines the launch functions of
+# `_LAUNCH_ARGTYPES[name]` and `<name>_error_string`.
 SOURCES = {
     "gather_mttkrp": CSRC / "gather_mttkrp.cu",              # B1, B2
     "gather_stream_mttkrp": CSRC / "gather_stream_mttkrp.cu",  # B6
+    "fused_mttkrp": CSRC / "fused_mttkrp.cu",                # B3, B4, B5
 }
 HEADERS = (CSRC / "mttkrp_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,16 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# Library name -> {launch function: argument types}.
 _LAUNCH_ARGTYPES = {
-    "gather_mttkrp": (
+    "gather_mttkrp": {"gather_mttkrp_launch": (
         [_P] * 4          # vals, idx, local rows, block starts
         + [_P] * 4        # factor pointers f0..f3
         + [_I] * 4        # factor row counts
         + [_P]            # out
         + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows,
                           # ld, slab, groups, lanes
-        + [_P]),          # stream
-    "gather_stream_mttkrp": (
+        + [_P])},         # stream
+    "gather_stream_mttkrp": {"gather_stream_mttkrp_launch": (
         [_P] * 4          # vals, idx, local rows, block starts
         + [_P] * 4        # factor pointers f0..f3
         + [_I] * 4        # factor row counts (multiples of frow)
@@ -53,7 +55,21 @@ _LAUNCH_ARGTYPES = {
         + [_I] * 13       # num_in, num_tiles, num_slabs, blk, tile_rows,
                           # ld, slab, groups, lanes, frow, carry_in_tile,
                           # carry_in_phase, carry_out_tile
-        + [_P]),          # stream
+        + [_P])},         # stream
+    "fused_mttkrp": {
+        "fused_mttkrp_launch": (
+            [_P]          # vals
+            + [_P] * 4    # pre-gathered row arrays r0..r3
+            + [_P] * 3    # local rows, block starts, out
+            + [_I] * 9    # num_in, num_tiles, num_slabs, blk, tile_rows,
+                          # ld, slab, groups, lanes
+            + [_P]),      # stream
+        "segment_accumulate_launch": (
+            [_P] * 4      # contrib, local rows, block starts, out
+            + [_I] * 9    # num_tiles, num_slabs, blk, tile_rows, ld, slab,
+                          # groups, lanes, chunk
+            + [_P]),      # stream
+    },
 }
 
 
@@ -119,9 +135,10 @@ def load(name: str) -> ctypes.CDLL:
     (every library is built first if absent)."""
     path, _ = build()[name]
     lib = ctypes.CDLL(str(path))
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = _LAUNCH_ARGTYPES[name]
-    launch.restype = ctypes.c_int
+    for fn, argtypes in _LAUNCH_ARGTYPES[name].items():
+        launch = getattr(lib, fn)
+        launch.argtypes = argtypes
+        launch.restype = ctypes.c_int
     error_string = getattr(lib, f"{name}_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p

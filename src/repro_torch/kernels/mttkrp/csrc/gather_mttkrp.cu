@@ -143,23 +143,8 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
           rowp[u][w] = fs.ptr[w] + (long long)ix * ld + col0;
         }
       }
-      for (int c = lane; c < slab; c += lanes) {
-        float p[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          p[u] = v[u];
-#pragma unroll
-          for (int w = 0; w < K; ++w)
-            p[u] = __fmul_rn(p[u], use[u] ? __ldg(rowp[u][w] + c) : 0.0f);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (use[u]) {
-            float* dst = mine + r[u] * slab + c;
-            *dst = __fadd_rn(*dst, p[u]);
-          }
-        }
-      }
+      mttkrp_common::add_products<K, kUnroll>(v, r, rowp, use, mine, slab,
+                                              lane, lanes);
     }
     __syncthreads();  // the next chunk overwrites the staging buffers
   }

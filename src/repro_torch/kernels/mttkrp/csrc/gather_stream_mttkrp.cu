@@ -66,6 +66,9 @@
 namespace {
 
 using mttkrp_common::FactorSet;
+using mttkrp_common::cp_async16;
+using mttkrp_common::cp_async_commit;
+using mttkrp_common::cp_async_wait_all;
 using mttkrp_common::kMaxInModes;
 
 // Threads of a CTA: groups * lanes (<= 512) accumulate; all of them stage
@@ -79,23 +82,6 @@ struct ScheduleSet {
   const int* ptr[kMaxInModes];
   int width[kMaxInModes];
 };
-
-__device__ __forceinline__ void cp_async16(void* smem_dst,
-                                           const void* gmem_src) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem_src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 template <int K>
 __global__ void gather_stream_mttkrp_kernel(

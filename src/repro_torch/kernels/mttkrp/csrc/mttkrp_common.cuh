@@ -1,8 +1,10 @@
-// Device code shared by the in-kernel-gather kernels (gather_mttkrp.cu,
-// gather_stream_mttkrp.cu): the factor set passed by value, the fixed-order
-// reduction of a CTA's private partial tiles, and the opt-in to more than
-// 48 KB of dynamic shared memory. Both kernels add in one order, and this
-// epilogue is the last step of it, so B1 == B2 == B6 bitwise.
+// Device code shared by the spMTTKRP kernels (gather_mttkrp.cu: B1, B2;
+// gather_stream_mttkrp.cu: B6; fused_mttkrp.cu: B3, B4, B5): the factor set
+// passed by value, the per-group product-and-add of a batch of slots, the
+// fixed-order reduction of a CTA's private partial tiles, 16-byte cp.async,
+// and the opt-in to more than 48 KB of dynamic shared memory. Every kernel
+// adds in one order and ends with the same epilogue, so B1 == B2 == B3 ==
+// B4 == B5 == B6 bitwise on one aligned stream.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +33,39 @@ inline FactorSet make_factor_set(const void* f0, const void* f1,
   return fs;
 }
 
+// One group's adds for a batch of U slots: for each of this lane's columns
+// c, the product v[u] * rowp[u][0][c] * ... * rowp[u][K-1][c] (multiplied
+// left to right with __fmul_rn) is added with __fadd_rn into row r[u] of
+// the group's partial tile `mine`, in the order u = 0..U-1. A slot with
+// use[u] false loads nothing and adds nothing. All loads of the batch are
+// issued before its first add. B1, B2 and B3, B4 call this with the rows
+// they gather or are given, so their sums are one sequence of operations.
+template <int K, int U>
+__device__ __forceinline__ void add_products(const float (&v)[U],
+                                             const int (&r)[U],
+                                             const float* (&rowp)[U][K],
+                                             const bool (&use)[U],
+                                             float* mine, int slab, int lane,
+                                             int lanes) {
+  for (int c = lane; c < slab; c += lanes) {
+    float p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      p[u] = v[u];
+#pragma unroll
+      for (int w = 0; w < K; ++w)
+        p[u] = __fmul_rn(p[u], use[u] ? __ldg(rowp[u][w] + c) : 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (use[u]) {
+        float* dst = mine + r[u] * slab + c;
+        *dst = __fadd_rn(*dst, p[u]);
+      }
+    }
+  }
+}
+
 // Sum the `groups` partial tiles (each tile_rows x slab, row-major, one
 // after the other in `part`) in the fixed order 0..groups-1 and add the
 // sum to the output tile at `tile_out` (row stride `ld`).
@@ -46,6 +81,24 @@ __device__ __forceinline__ void reduce_partials_into(const float* part,
     float* o = tile_out + (long long)(e / slab) * ld + (e % slab);
     *o = __fadd_rn(*o, acc);
   }
+}
+
+// 16-byte asynchronous copy from global to shared memory, and its fences.
+__device__ __forceinline__ void cp_async16(void* smem_dst,
+                                           const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A launch above 48 KB of dynamic shared memory needs this opt-in first.

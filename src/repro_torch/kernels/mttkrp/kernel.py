@@ -1,14 +1,19 @@
-"""In-kernel-gather fused spMTTKRP: CUDA kernels and their plain versions.
+"""spMTTKRP kernels for Hopper and their plain versions.
 
-Port of ``repro/kernels/mttkrp/kernel.py``'s ``fused_mttkrp_nmode_gather``
-(B1), ``fused_mttkrp_nmode_gather_tiled`` (B2) and
-``fused_mttkrp_nmode_gather_stream`` (B6). The wrappers keep the JAX
-signatures. On a CUDA tensor they launch the hand-written kernels in
-``csrc/gather_mttkrp.cu`` (B1, B2) and ``csrc/gather_stream_mttkrp.cu``
+Port of the six Pallas kernels of ``repro/kernels/mttkrp/kernel.py``:
+``fused_mttkrp_nmode_gather`` (B1), ``fused_mttkrp_nmode_gather_tiled``
+(B2), ``fused_mttkrp_nmode`` (B3), ``fused_mttkrp_nmode_tiled`` (B4),
+``segment_accumulate`` (B5) and ``fused_mttkrp_nmode_gather_stream`` (B6).
+The wrappers keep the JAX signatures. On a CUDA tensor they launch the
+hand-written kernels in ``csrc/gather_mttkrp.cu`` (B1, B2),
+``csrc/fused_mttkrp.cu`` (B3, B4, B5) and ``csrc/gather_stream_mttkrp.cu``
 (B6), built for ``sm_90a`` at first use, or raise; on a CPU tensor they
 run the plain PyTorch version beside them (``*_plain``), which the tests
 hold against the JAX package. Nothing falls back from one to the other.
 Each wrapper counts its kernel launches in its ``launches`` attribute.
+The ``*_smem_bytes`` functions give each kernel's per-CTA shared memory,
+which the launch checks and the residency planner
+(``oocore.planner.plan_residency``) both read.
 
 Geometry is re-derived for Hopper, not copied from the TPU:
 
@@ -18,8 +23,8 @@ Geometry is re-derived for Hopper, not copied from the TPU:
 * ``RANK_SLAB = 128`` — the tiled kernel's default column slab.
 * ``ROW_SLOTS = 128`` — one CTA holds ``groups ≈ ROW_SLOTS // tile_rows``
   private partial tiles (a power of two in 1..16). It depends on
-  ``tile_rows`` only, so the untiled, the tiled and the stream kernel add
-  in the same order and agree bitwise.
+  ``tile_rows`` only, so all six kernels add in the same order and agree
+  bitwise on one aligned stream.
 * ``FACTOR_ROW_TILE = 8`` and ``STREAM_RANK_SLAB = 16`` — the stream
   kernel's window unit is an 8-row x 16-column factor tile, 512 B: four
   128-byte lines, copied with sixteen 16-byte ``cp.async``. The TPU's
@@ -44,6 +49,7 @@ from . import build as _build
 
 __all__ = [
     "FACTOR_ROW_TILE",
+    "L2_BUDGET_BYTES",
     "RANK_MULTIPLE",
     "RANK_SLAB",
     "ROW_SLOTS",
@@ -51,8 +57,18 @@ __all__ = [
     "STREAM_BACKEND_NAME",
     "STREAM_RANK_SLAB",
     "StreamCarry",
+    "fused_mttkrp_nmode",
+    "fused_mttkrp_nmode_plain",
+    "fused_mttkrp_nmode_tiled",
+    "fused_mttkrp_nmode_tiled_plain",
+    "fused_smem_bytes",
+    "gather_smem_bytes",
     "gather_stream_smem_bytes",
     "padded_rank",
+    "segment_accumulate",
+    "segment_accumulate_plain",
+    "segment_slab",
+    "segment_smem_bytes",
     "fused_mttkrp_nmode_gather",
     "fused_mttkrp_nmode_gather_plain",
     "fused_mttkrp_nmode_gather_stream",
@@ -68,11 +84,21 @@ ROW_SLOTS = 128
 MAX_IN_MODES = 4
 # Dynamic shared memory one CTA may use on an H100 (227 KB).
 SMEM_LIMIT_BYTES = 232_448
+# L2 bytes the gather kernels' factors may take (the residency ladder's
+# default l2_budget): half of the H100's 50 MB L2. B1 and B2 hold no factor
+# in shared memory; they gather rows out of L2, which plays the part VMEM
+# plays on the TPU. Half of it is the reference's half-the-fast-memory rule
+# (its VMEM budget is half a core's VMEM), kept as a rule: the other half
+# serves the nonzero stream, the output tiles and the L2's set conflicts.
+L2_BUDGET_BYTES = 25 * 2**20
 FACTOR_ROW_TILE = 8
 STREAM_RANK_SLAB = 16
 STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
-# Stream slots a CTA stages in shared memory at a time (kChunk in the .cu).
+# Stream slots a CTA of B1-B4 stages in shared memory at a time (kChunk in
+# the .cu files).
 STAGE_SLOTS = 2048
+# Bytes of contribution rows a CTA of B5 stages at a time.
+SEGMENT_STAGE_BYTES = 32 * 1024
 # Elements of one (chunk, R) temporary in the plain version (~256 MB).
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
@@ -96,26 +122,46 @@ def _groups(tile_rows: int) -> int:
     return 1 << (g.bit_length() - 1)
 
 
-def _check_args(vals, idx_stream, factors, local_row_in_tile, tile_of_block,
-                *, rows_cap: int, blk: int, tile_rows: int, slab: int,
-                out_init):
-    """Shapes, dtypes and devices both versions require.
+def _lanes(slab: int) -> int:
+    """Threads of a group: 32 when they split the slab evenly, else 16."""
+    return 32 if slab % 32 == 0 else 16
 
-    Returns ``(factors, R)`` with ``factors`` as a tuple.
+
+def _tile_starts(tile_of_block, num_tiles: int):
+    """``(num_tiles + 1,)`` int32: the first block of each output tile's
+    run (``tile_of_block`` is non-decreasing) and the end of the last."""
+    return torch.searchsorted(
+        tile_of_block,
+        torch.arange(num_tiles + 1, dtype=torch.int32,
+                     device=tile_of_block.device),
+        out_int32=True)
+
+
+def _out_start(out_init, rows_cap: int, rank: int, dev):
+    """The kernels' output buffer: a copy of ``out_init``, or zeros."""
+    if out_init is None:
+        return torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
+    return out_init.contiguous().clone()
+
+
+def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
+                      rank_slab: int | None = None) -> int:
+    """Shared memory of one CTA of the in-kernel-gather kernels (B1, B2).
+
+    The ``groups`` partial output tiles, one slab wide (the padded rank for
+    B1, ``min(rank_padded, rank_slab)`` for B2), and the staged chunk of
+    the stream: value, local row and ``num_in_modes`` indices for each of
+    ``STAGE_SLOTS`` slots. The factors are not held: they are read from
+    device memory (L2). The layout is ``csrc/gather_mttkrp.cu``'s; the
+    launch check and the residency planner read this one number.
     """
-    factors = tuple(factors)
-    if not 1 <= len(factors) <= MAX_IN_MODES:
-        raise ValueError(f"need 1..{MAX_IN_MODES} input-factor matrices "
-                         f"(tensor order 2..5), got {len(factors)}")
-    if vals.dtype != torch.float32 or vals.dim() != 1:
-        raise ValueError(f"vals must be (n_pad,) float32, got "
-                         f"{tuple(vals.shape)} {vals.dtype}")
-    n_pad = vals.shape[0]
-    if idx_stream.shape != (n_pad, len(factors)) \
-            or idx_stream.dtype != torch.int32:
-        raise ValueError(f"idx_stream must be ({n_pad}, {len(factors)}) "
-                         f"int32, got {tuple(idx_stream.shape)} "
-                         f"{idx_stream.dtype}")
+    slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
+    return 4 * (_groups(tile_rows) * tile_rows * slab
+                + STAGE_SLOTS * (2 + num_in_modes))
+
+
+def _check_stream_layout(n_pad: int, local_row_in_tile, tile_of_block, *,
+                         rows_cap: int, blk: int, tile_rows: int):
     if local_row_in_tile.shape != (n_pad,) \
             or local_row_in_tile.dtype != torch.int32:
         raise ValueError("local_row_in_tile must be (n_pad,) int32")
@@ -128,29 +174,73 @@ def _check_args(vals, idx_stream, factors, local_row_in_tile, tile_of_block,
     if rows_cap % tile_rows:
         raise ValueError(f"rows_cap={rows_cap} is not a multiple of "
                          f"tile_rows={tile_rows}")
-    rank = factors[0].shape[1]
-    for f in factors:
-        if f.dim() != 2 or f.shape[1] != rank or f.dtype != torch.float32:
-            raise ValueError("factors must be (rows, R) float32 with one R")
-    if rank % slab or slab % RANK_MULTIPLE:
+
+
+def _check_common(vals, mats, local_row_in_tile, tile_of_block, *,
+                  rows_cap: int, blk: int, tile_rows: int, slab: int | None,
+                  out_init, others=()):
+    """Checks B1–B4 and B6 share: the values, the stream layout, the K
+    ``(·, R)`` float32 matrices (factors or pre-gathered rows) with R a
+    multiple of the slab (``None``: R), ``out_init``, one device for all
+    (``others`` too). Returns ``(mats, R)`` with ``mats`` as a tuple."""
+    mats = tuple(mats)
+    if not 1 <= len(mats) <= MAX_IN_MODES:
+        raise ValueError(f"need 1..{MAX_IN_MODES} input-factor operands "
+                         f"(tensor order 2..5), got {len(mats)}")
+    if vals.dtype != torch.float32 or vals.dim() != 1:
+        raise ValueError(f"vals must be (n_pad,) float32, got "
+                         f"{tuple(vals.shape)} {vals.dtype}")
+    _check_stream_layout(vals.shape[0], local_row_in_tile, tile_of_block,
+                         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    rank = mats[0].shape[-1]
+    for m in mats:
+        if m.dim() != 2 or m.shape[1] != rank or m.dtype != torch.float32:
+            raise ValueError("input-factor operands must be (rows, R) "
+                             "float32 with one R")
+    slab = rank if slab is None else slab
+    if slab <= 0 or rank % slab or slab % RANK_MULTIPLE:
         raise ValueError(
             f"rank {rank} must be a multiple of the slab {slab}, itself a "
             f"multiple of {RANK_MULTIPLE} (pad with ops.pad_rank)")
     if out_init is not None and (out_init.shape != (rows_cap, rank)
                                  or out_init.dtype != torch.float32):
         raise ValueError(f"out_init must be ({rows_cap}, {rank}) float32")
-    tensors = (vals, idx_stream, local_row_in_tile, tile_of_block) \
-        + factors + ((out_init,) if out_init is not None else ())
+    tensors = (vals, local_row_in_tile, tile_of_block) + mats \
+        + tuple(others) + ((out_init,) if out_init is not None else ())
     if any(t.device != vals.device for t in tensors):
         raise ValueError("all operands must be on one device")
+    return mats, rank
+
+
+def _check_args(vals, idx_stream, factors, local_row_in_tile, tile_of_block,
+                *, rows_cap: int, blk: int, tile_rows: int, slab: int,
+                out_init):
+    """Shapes, dtypes and devices B1/B2 and their plain versions require.
+
+    Returns ``(factors, R)`` with ``factors`` as a tuple.
+    """
+    factors, rank = _check_common(
+        vals, factors, local_row_in_tile, tile_of_block, rows_cap=rows_cap,
+        blk=blk, tile_rows=tile_rows, slab=slab, out_init=out_init,
+        others=(idx_stream,))
+    n_pad, k = vals.shape[0], len(factors)
+    if idx_stream.shape != (n_pad, k) or idx_stream.dtype != torch.int32:
+        raise ValueError(f"idx_stream must be ({n_pad}, {k}) int32, got "
+                         f"{tuple(idx_stream.shape)} {idx_stream.dtype}")
     return factors, rank
+
+
+def _stream_rows(tile_of_block, local_row_in_tile, blk: int,
+                 tile_rows: int):
+    """Output row of every slot of a block-aligned stream (int64)."""
+    return (torch.repeat_interleave(tile_of_block.long(), blk) * tile_rows
+            + local_row_in_tile.long())
 
 
 def _plain(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
            rows_cap: int, blk: int, tile_rows: int, out_init):
     rank = factors[0].shape[1]
-    rows = (torch.repeat_interleave(tile_of_block.long(), blk) * tile_rows
-            + local_row_in_tile.long())
+    rows = _stream_rows(tile_of_block, local_row_in_tile, blk, tile_rows)
     out = (torch.zeros(rows_cap, rank, dtype=torch.float32,
                        device=vals.device)
            if out_init is None else out_init.clone())
@@ -170,8 +260,8 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     require_sm90(dev)
     rank = factors[0].shape[1]
     groups = _groups(tile_rows)
-    lanes = 32 if slab % 32 == 0 else 16
-    smem = (groups * tile_rows * slab + STAGE_SLOTS * (2 + len(factors))) * 4
+    lanes = _lanes(slab)
+    smem = gather_smem_bytes(len(factors), rank, tile_rows, rank_slab=slab)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"a {tile_rows} x {slab} output tile with {groups} partials needs "
@@ -181,12 +271,8 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
     num_tiles = rows_cap // tile_rows
-    blk_start = torch.searchsorted(
-        tile_of_block,
-        torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    out = (torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
-           if out_init is None else out_init.contiguous().clone())
+    blk_start = _tile_starts(tile_of_block, num_tiles)
+    out = _out_start(out_init, rows_cap, rank, dev)
     ptrs = [f.data_ptr() for f in factors] + [0] * (MAX_IN_MODES
                                                      - len(factors))
     nrows = [f.shape[0] for f in factors] + [0] * (MAX_IN_MODES
@@ -420,8 +506,7 @@ def _plain_stream(vals, idx_stream, factors, local_row_in_tile,
     block's schedule row (in any input mode) adding nothing."""
     rank = factors[0].shape[1]
     dev = vals.device
-    rows = (torch.repeat_interleave(tile_of_block.long(), blk) * tile_rows
-            + local_row_in_tile.long())
+    rows = _stream_rows(tile_of_block, local_row_in_tile, blk, tile_rows)
     out = (torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
            if out_init is None else out_init.clone())
     width = max(s.shape[1] for s in scheds)
@@ -454,7 +539,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
     require_sm90(dev)
     k, rank = len(factors), factors[0].shape[1]
     groups = _groups(tile_rows)
-    lanes = 32 if slab % 32 == 0 else 16
+    lanes = _lanes(slab)
     windows = tuple(s.shape[1] for s in scheds)
     smem = gather_stream_smem_bytes(k, rank, blk, tile_rows, windows,
                                     frow_tile=frow_tile, rank_slab=slab)
@@ -478,12 +563,8 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
                               or not carry.partials.is_contiguous()):
         raise ValueError(f"carry partials must be {part_shape} float32 on "
                          f"{dev}")
-    blk_start = torch.searchsorted(
-        tile_of_block,
-        torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    out = (torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
-           if out_init is None else out_init.contiguous().clone())
+    blk_start = _tile_starts(tile_of_block, num_tiles)
+    out = _out_start(out_init, rows_cap, rank, dev)
     carry_out = (torch.empty(part_shape, dtype=torch.float32, device=dev)
                  if tail is not None else None)
     pad = [0] * (MAX_IN_MODES - k)
@@ -608,3 +689,309 @@ def fused_mttkrp_nmode_gather_stream_plain(vals, idx_stream, factors,
                          tile_of_block, scheds, rows_cap=rows_cap, blk=blk,
                          tile_rows=tile_rows, frow_tile=frow_tile,
                          out_init=out_init)
+
+
+# ---------------------------------------------------------------------------
+# B3, B4: fused Hadamard + scatter on pre-gathered rows; B5: the scatter of
+# a materialized contribution
+# ---------------------------------------------------------------------------
+
+def fused_smem_bytes(rank_padded: int, tile_rows: int,
+                     rank_slab: int | None = None) -> int:
+    """Shared memory of one CTA of the fused kernels on pre-gathered rows
+    (B3; B4 with ``rank_slab``): the ``groups`` partial output tiles, one
+    slab wide, and the staged values and local rows of ``STAGE_SLOTS``
+    slots. The rows themselves are read from device memory, not staged
+    (``csrc/fused_mttkrp.cu``), so the count does not depend on K."""
+    slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
+    return 4 * (_groups(tile_rows) * tile_rows * slab + STAGE_SLOTS * 2)
+
+
+def segment_slab(rank_padded: int) -> int:
+    """B5's column slab: the padded rank up to ``RANK_SLAB``, else the
+    widest multiple of ``RANK_MULTIPLE`` up to ``RANK_SLAB`` that divides
+    it. B5 splits the columns itself (a grid axis), so it runs at any
+    rank."""
+    if rank_padded % RANK_MULTIPLE:
+        raise ValueError(f"rank {rank_padded} is not a multiple of "
+                         f"{RANK_MULTIPLE}")
+    if rank_padded <= RANK_SLAB:
+        return rank_padded
+    return next(s for s in range(RANK_SLAB, 0, -RANK_MULTIPLE)
+                if rank_padded % s == 0)
+
+
+def _segment_chunk(slab: int) -> int:
+    """Contribution rows B5 stages at a time: ``SEGMENT_STAGE_BYTES`` of
+    rows one slab wide, a multiple of 16 (so of every ``groups``)."""
+    return max(16, SEGMENT_STAGE_BYTES // (4 * slab) // 16 * 16)
+
+
+def segment_smem_bytes(rank_padded: int, tile_rows: int) -> int:
+    """Shared memory of one CTA of B5: the ``groups`` partial tiles and the
+    staged chunk of contribution rows and local rows, one
+    :func:`segment_slab` wide (``csrc/fused_mttkrp.cu``). At most
+    ~97 KB for any rank."""
+    slab = segment_slab(rank_padded)
+    chunk = _segment_chunk(slab)
+    return 4 * (_groups(tile_rows) * tile_rows * slab + chunk * slab + chunk)
+
+
+def _check_fused_args(vals, factor_rows, local_row_in_tile, tile_of_block,
+                      *, rows_cap: int, blk: int, tile_rows: int,
+                      slab: int | None, out_init):
+    """Shapes, dtypes and devices B3/B4 and their plain versions require
+    (``slab=None``: the whole rank). Returns ``(factor_rows, R)``."""
+    rows, rank = _check_common(
+        vals, factor_rows, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=slab,
+        out_init=out_init)
+    if any(r.shape[0] != vals.shape[0] for r in rows):
+        raise ValueError(f"factor_rows must be ({vals.shape[0]}, R): one row "
+                         "per slot")
+    return rows, rank
+
+
+def _plain_fused(vals, rows, local_row_in_tile, tile_of_block, *,
+                 rows_cap: int, blk: int, tile_rows: int, out_init):
+    rank = rows[0].shape[1]
+    out_rows = _stream_rows(tile_of_block, local_row_in_tile, blk, tile_rows)
+    out = (torch.zeros(rows_cap, rank, dtype=torch.float32,
+                       device=vals.device)
+           if out_init is None else out_init.clone())
+    step = max(blk, _PLAIN_CHUNK_ELEMS // rank)
+    for lo in range(0, vals.shape[0], step):
+        contrib = vals[lo:lo + step, None]
+        for r in rows:
+            contrib = contrib * r[lo:lo + step]
+        out.index_add_(0, out_rows[lo:lo + step], contrib)
+    return out
+
+
+def _launch_fused(vals, rows, local_row_in_tile, tile_of_block, *,
+                  rows_cap: int, blk: int, tile_rows: int, slab: int,
+                  out_init):
+    dev = vals.device
+    require_sm90(dev)
+    rank = rows[0].shape[1]
+    smem = fused_smem_bytes(rank, tile_rows, rank_slab=slab)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"a {tile_rows} x {slab} output tile with {_groups(tile_rows)} "
+            f"partials needs {smem} B of shared memory (> "
+            f"{SMEM_LIMIT_BYTES}); use the tiled kernel with a narrower "
+            "rank_slab")
+    if not all(t.is_contiguous()
+               for t in (vals, local_row_in_tile, tile_of_block) + rows):
+        raise ValueError("all operands must be contiguous")
+    num_tiles = rows_cap // tile_rows
+    blk_start = _tile_starts(tile_of_block, num_tiles)
+    out = _out_start(out_init, rows_cap, rank, dev)
+    ptrs = [r.data_ptr() for r in rows] + [0] * (MAX_IN_MODES - len(rows))
+    lib = _build.load("fused_mttkrp")
+    err = lib.fused_mttkrp_launch(
+        vals.data_ptr(), *ptrs, local_row_in_tile.data_ptr(),
+        blk_start.data_ptr(), out.data_ptr(), len(rows), num_tiles,
+        rank // slab, blk, tile_rows, rank, slab, _groups(tile_rows),
+        _lanes(slab), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "fused_mttkrp launch failed: "
+            f"{lib.fused_mttkrp_error_string(err).decode()} ({err})")
+    return out
+
+
+def _fused_dispatch(vals, rows, local_row_in_tile, tile_of_block, *,
+                    slab: int, **kw):
+    """CPU tensor: plain version; CUDA tensor: the kernel. Returns
+    ``(out, launched)``."""
+    if vals.device.type == "cpu":
+        return _plain_fused(vals, rows, local_row_in_tile, tile_of_block,
+                            **kw), False
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    return _launch_fused(vals, rows, local_row_in_tile, tile_of_block,
+                         slab=slab, **kw), True
+
+
+def fused_mttkrp_nmode(vals, factor_rows, local_row_in_tile, tile_of_block,
+                       *, rows_cap: int, blk: int = 512, tile_rows: int = 8,
+                       out_init=None):
+    """Fused Hadamard + scatter on pre-gathered rows (B3).
+
+    Args:
+      vals: ``(n_pad,)`` float32 block-aligned values; padding slots 0.
+      factor_rows: K ``(n_pad, R)`` float32 arrays, the input factors' rows
+        of every slot, block-aligned with ``vals`` (``ops`` gathers them);
+        R a multiple of :data:`RANK_MULTIPLE`.
+      local_row_in_tile: ``(n_pad,)`` int32 row within the block's tile.
+      tile_of_block: ``(n_pad // blk,)`` int32 output tile per block,
+        non-decreasing.
+      rows_cap: output rows, a multiple of ``tile_rows``.
+      out_init: optional ``(rows_cap, R)`` float32 the sum starts from
+        (``None``: zeros). It is not modified.
+
+    A slot whose value is 0 adds nothing. Bitwise equal to B1
+    (:func:`fused_mttkrp_nmode_gather`) when ``factor_rows[w]`` holds the
+    rows B1 gathers. Raises when the output tile's partials do not fit
+    shared memory (:func:`fused_smem_bytes`; R <= 416 at tile_rows=8).
+    Returns ``(rows_cap, R)`` float32.
+    """
+    rows, rank = _check_fused_args(
+        vals, factor_rows, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=None,
+        out_init=out_init)
+    out, launched = _fused_dispatch(
+        vals, rows, local_row_in_tile, tile_of_block, slab=rank,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, out_init=out_init)
+    if launched:
+        fused_mttkrp_nmode.launches += 1
+    return out
+
+
+fused_mttkrp_nmode.launches = 0
+
+
+def fused_mttkrp_nmode_tiled(vals, factor_rows, local_row_in_tile,
+                             tile_of_block, *, rows_cap: int, blk: int = 512,
+                             tile_rows: int = 8, rank_slab: int = RANK_SLAB,
+                             out_init=None):
+    """Rank-slabbed fused kernel on pre-gathered rows (B4).
+
+    :func:`fused_mttkrp_nmode` with R a multiple of ``rank_slab``: a grid
+    axis over column slabs, each CTA holding a ``tile_rows x rank_slab``
+    output tile and reading ``rank_slab`` columns of each row, so the
+    shared memory does not grow with R. Bitwise equal to B3.
+    """
+    rows, _ = _check_fused_args(
+        vals, factor_rows, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=rank_slab,
+        out_init=out_init)
+    out, launched = _fused_dispatch(
+        vals, rows, local_row_in_tile, tile_of_block, slab=rank_slab,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, out_init=out_init)
+    if launched:
+        fused_mttkrp_nmode_tiled.launches += 1
+    return out
+
+
+fused_mttkrp_nmode_tiled.launches = 0
+
+
+def fused_mttkrp_nmode_plain(vals, factor_rows, local_row_in_tile,
+                             tile_of_block, *, rows_cap: int, blk: int = 512,
+                             tile_rows: int = 8, out_init=None):
+    """Plain PyTorch version of B3 (elementwise products + ``index_add_``);
+    runs on any device and agrees with the kernel to fp32 rounding."""
+    rows, _ = _check_fused_args(
+        vals, factor_rows, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=None,
+        out_init=out_init)
+    return _plain_fused(vals, rows, local_row_in_tile, tile_of_block,
+                        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+                        out_init=out_init)
+
+
+def fused_mttkrp_nmode_tiled_plain(vals, factor_rows, local_row_in_tile,
+                                   tile_of_block, *, rows_cap: int,
+                                   blk: int = 512, tile_rows: int = 8,
+                                   rank_slab: int = RANK_SLAB,
+                                   out_init=None):
+    """Plain PyTorch version of B4: B3's, after B4's argument checks."""
+    rows, _ = _check_fused_args(
+        vals, factor_rows, local_row_in_tile, tile_of_block,
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=rank_slab,
+        out_init=out_init)
+    return _plain_fused(vals, rows, local_row_in_tile, tile_of_block,
+                        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+                        out_init=out_init)
+
+
+def _check_segment_args(contrib, local_row_in_tile, tile_of_block, *,
+                        rows_cap: int, blk: int, tile_rows: int) -> None:
+    if contrib.dim() != 2 or contrib.dtype != torch.float32 \
+            or contrib.shape[1] % RANK_MULTIPLE or contrib.shape[1] == 0:
+        raise ValueError(
+            f"contrib must be (n_pad, R) float32 with R a positive multiple "
+            f"of {RANK_MULTIPLE} (pad with ops.pad_rank), got "
+            f"{tuple(contrib.shape)} {contrib.dtype}")
+    _check_stream_layout(contrib.shape[0], local_row_in_tile, tile_of_block,
+                         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    if any(t.device != contrib.device
+           for t in (local_row_in_tile, tile_of_block)):
+        raise ValueError("all operands must be on one device")
+
+
+def _launch_segment(contrib, local_row_in_tile, tile_of_block, *,
+                    rows_cap: int, blk: int, tile_rows: int):
+    dev = contrib.device
+    require_sm90(dev)
+    rank = contrib.shape[1]
+    slab = segment_slab(rank)
+    if not all(t.is_contiguous()
+               for t in (contrib, local_row_in_tile, tile_of_block)):
+        raise ValueError("all operands must be contiguous")
+    if contrib.data_ptr() % 16:
+        raise ValueError("contrib must be 16-byte aligned")
+    num_tiles = rows_cap // tile_rows
+    blk_start = _tile_starts(tile_of_block, num_tiles)
+    out = torch.zeros(rows_cap, rank, dtype=torch.float32, device=dev)
+    lib = _build.load("fused_mttkrp")
+    err = lib.segment_accumulate_launch(
+        contrib.data_ptr(), local_row_in_tile.data_ptr(),
+        blk_start.data_ptr(), out.data_ptr(), num_tiles, rank // slab, blk,
+        tile_rows, rank, slab, _groups(tile_rows), _lanes(slab),
+        _segment_chunk(slab), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "segment_accumulate launch failed: "
+            f"{lib.fused_mttkrp_error_string(err).decode()} ({err})")
+    return out
+
+
+def segment_accumulate(contrib, local_row_in_tile, tile_of_block, *,
+                       rows_cap: int, blk: int = 512, tile_rows: int = 8):
+    """Blocked scatter of a materialized contribution (B5).
+
+    Args:
+      contrib: ``(n_pad, R)`` float32 block-aligned contributions, R a
+        multiple of :data:`RANK_MULTIPLE`; padding rows are zero.
+      local_row_in_tile: ``(n_pad,)`` int32 row within the block's tile.
+      tile_of_block: ``(n_pad // blk,)`` int32 output tile per block,
+        non-decreasing.
+      rows_cap: output rows, a multiple of ``tile_rows``.
+
+    Returns ``(rows_cap, R)`` float32: ``out[r] = Σ contrib[i]`` over the
+    slots of row r. The kernel splits the columns into
+    :func:`segment_slab`-wide slabs itself, so it runs at any rank; it is
+    bitwise equal to B1 when ``contrib`` holds B1's products.
+    """
+    _check_segment_args(contrib, local_row_in_tile, tile_of_block,
+                        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    if contrib.device.type == "cpu":
+        return segment_accumulate_plain(
+            contrib, local_row_in_tile, tile_of_block, rows_cap=rows_cap,
+            blk=blk, tile_rows=tile_rows)
+    if contrib.device.type != "cuda":
+        raise ValueError(f"unsupported device {contrib.device}")
+    out = _launch_segment(contrib, local_row_in_tile, tile_of_block,
+                          rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    segment_accumulate.launches += 1
+    return out
+
+
+segment_accumulate.launches = 0
+
+
+def segment_accumulate_plain(contrib, local_row_in_tile, tile_of_block, *,
+                             rows_cap: int, blk: int = 512,
+                             tile_rows: int = 8):
+    """Plain PyTorch version of B5 (one ``index_add_``); runs on any
+    device and agrees with the kernel to fp32 rounding."""
+    _check_segment_args(contrib, local_row_in_tile, tile_of_block,
+                        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    out = torch.zeros(rows_cap, contrib.shape[1], dtype=torch.float32,
+                      device=contrib.device)
+    return out.index_add_(
+        0, _stream_rows(tile_of_block, local_row_in_tile, blk, tile_rows),
+        contrib)

@@ -1,6 +1,6 @@
 """Block layout construction and per-mode MTTKRP dispatch, in PyTorch.
 
-Port of ``repro/kernels/mttkrp/ops.py`` for this slice:
+Port of ``repro/kernels/mttkrp/ops.py``:
 
 * :func:`build_block_layout` turns the row-sorted nonzero stream into the
   block-aligned layout the kernels require (no block straddles an output
@@ -9,13 +9,19 @@ Port of ``repro/kernels/mttkrp/ops.py`` for this slice:
   slots and ``tile_of_block``.
 * :func:`tile_schedule` lists the factor tiles each block reads, the
   stream kernel's per-block window (equal to the reference's).
+* :func:`select_backend` resolves ``auto`` on the Hopper residency ladder
+  (``oocore.planner.plan_residency``) and passes explicit names through.
 * :func:`mttkrp_device_step` runs one mode step through the backends of
-  :data:`BACKENDS`: ``ref`` (materialized ``index_add_``), the
-  in-kernel-gather kernels ``pallas_fused_gather`` (B1) and
-  ``pallas_fused_gather_tiled`` (B2), and the out-of-core stream kernel
-  ``pallas_fused_gather_stream`` (B6) — the backend names are the JAX
-  package's, the kernels are CUDA. ``auto``, the other JAX backends and
-  bf16 gathers raise ``NotImplementedError`` (ROADMAP A6).
+  :data:`BACKENDS` — the JAX package's names, on CUDA kernels: ``ref``
+  (materialized ``index_add_``), ``pallas`` (materialized contribution,
+  scattered by B5 through :func:`mttkrp_blocked`), ``pallas_fused`` (B3)
+  and ``pallas_fused_tiled`` (B4) on rows gathered here,
+  ``pallas_fused_gather`` (B1) and ``pallas_fused_gather_tiled`` (B2),
+  which gather in the kernel, and the out-of-core stream kernel
+  ``pallas_fused_gather_stream`` (B6). bf16 gathers
+  (``pallas_fused_bf16``, ``pallas_fused_gather_bf16``,
+  ``gather_dtype="bfloat16"``) raise ``NotImplementedError`` (ROADMAP
+  A6b).
 """
 from __future__ import annotations
 
@@ -29,15 +35,24 @@ from . import kernel as _kernel
 from . import ref as _ref
 
 __all__ = [
+    "AUTO_BACKENDS",
     "BACKENDS",
+    "FUSED_BACKENDS",
     "GATHER_BACKENDS",
     "STREAM_BACKEND",
+    "blocked_operands",
     "build_block_layout",
+    "fused_fits_smem",
+    "gather_fits",
     "gather_operands",
+    "gather_stream_fits_smem",
+    "mttkrp_blocked",
     "mttkrp_device_step",
     "n_pad_for",
     "pad_rank",
     "padded_rank",
+    "pregathered_rows",
+    "select_backend",
     "stream_schedules",
     "tile_schedule",
     "tiled_rank_slab",
@@ -46,33 +61,37 @@ __all__ = [
 # Backends this module runs. ``segsum`` is accepted one level up, in
 # core.distributed.device_mttkrp, and runs here as ``ref``.
 STREAM_BACKEND = _kernel.STREAM_BACKEND_NAME
-BACKENDS = ("ref", "pallas_fused_gather", "pallas_fused_gather_tiled",
+BACKENDS = ("ref", "pallas", "pallas_fused", "pallas_fused_tiled",
+            "pallas_fused_gather", "pallas_fused_gather_tiled",
             STREAM_BACKEND)
 GATHER_BACKENDS = ("pallas_fused_gather", "pallas_fused_gather_tiled")
+# The kernels on rows gathered outside them (B3, B4).
+FUSED_BACKENDS = ("pallas_fused", "pallas_fused_tiled")
+# What ``auto`` may resolve to: the reference's AUTO_BACKENDS, every
+# backend but the bf16 gathers, which change the numerics.
+AUTO_BACKENDS = BACKENDS
 
 # JAX backend names the port does not run yet, with the ROADMAP item.
 NOT_PORTED = {
-    "auto": "A6",
-    "pallas": "A6",
-    "pallas_fused": "A6",
-    "pallas_fused_tiled": "A6",
-    "pallas_fused_bf16": "A6",
-    "pallas_fused_gather_bf16": "A6",
+    "pallas_fused_bf16": "A6b",
+    "pallas_fused_gather_bf16": "A6b",
 }
 
 padded_rank = _kernel.padded_rank
 
 
 def check_backend(backend: str, extra: tuple = ()) -> None:
-    """Raise for a backend this port cannot run (``extra``: more it can)."""
-    if backend in BACKENDS or backend in extra:
+    """Raise for a backend this port cannot run (``extra``: more it can;
+    ``auto`` is always accepted)."""
+    if backend == "auto" or backend in BACKENDS or backend in extra:
         return
     if backend in NOT_PORTED:
         raise NotImplementedError(
             f"MTTKRP backend {backend!r} is not ported yet (ROADMAP "
-            f"{NOT_PORTED[backend]}); the port runs {BACKENDS + extra}")
-    raise ValueError(f"unknown MTTKRP backend {backend!r}: expected one of "
-                     f"{BACKENDS + extra}")
+            f"{NOT_PORTED[backend]}); the port runs 'auto' and "
+            f"{BACKENDS + extra}")
+    raise ValueError(f"unknown MTTKRP backend {backend!r}: expected 'auto' "
+                     f"or one of {BACKENDS + extra}")
 
 
 def pad_rank(x, multiple: int = _kernel.RANK_MULTIPLE):
@@ -92,6 +111,70 @@ def tiled_rank_slab(rank: int) -> int:
     """Column slab of the tiled kernel for ``rank``: the padded rank up to
     ``RANK_SLAB`` (a single slab), else ``RANK_SLAB``."""
     return min(padded_rank(rank), _kernel.RANK_SLAB)
+
+
+def fused_fits_smem(nmodes: int, rank: int, blk: int, tile_rows: int,
+                    smem_budget: int = _kernel.SMEM_LIMIT_BYTES, *,
+                    tiled: bool = False) -> bool:
+    """Does a CTA of B3 (``tiled``: B4, one ``RANK_SLAB`` slab) fit
+    ``smem_budget``? Delegates to ``oocore.planner.backend_fits``."""
+    return _planner.backend_fits(
+        "pallas_fused_tiled" if tiled else "pallas_fused", nmodes=nmodes,
+        rank=rank, blk=blk, tile_rows=tile_rows, smem_budget=smem_budget)
+
+
+def gather_fits(nmodes: int, rank: int, blk: int, tile_rows: int,
+                factor_rows, *, l2_budget: int = _kernel.L2_BUDGET_BYTES,
+                smem_budget: int = _kernel.SMEM_LIMIT_BYTES,
+                tiled: bool = False) -> bool:
+    """Do B1's factors (``tiled``: B2's, one slab wide) fit ``l2_budget``
+    and its CTA ``smem_budget``? ``factor_rows``: the input factors' row
+    counts (per mode, or their total). Delegates to the planner."""
+    return _planner.backend_fits(
+        "pallas_fused_gather_tiled" if tiled else "pallas_fused_gather",
+        nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
+        factor_rows=factor_rows, l2_budget=l2_budget,
+        smem_budget=smem_budget)
+
+
+def gather_stream_fits_smem(nmodes: int, rank: int, blk: int,
+                            tile_rows: int, factor_rows,
+                            smem_budget: int = _kernel.SMEM_LIMIT_BYTES
+                            ) -> bool:
+    """Does the stream kernel's data-blind window fit ``smem_budget``?
+    Delegates to the planner (``stream_fits_smem``)."""
+    return _planner.backend_fits(
+        STREAM_BACKEND, nmodes=nmodes, rank=rank, blk=blk,
+        tile_rows=tile_rows, factor_rows=factor_rows,
+        smem_budget=smem_budget)
+
+
+def select_backend(backend: str, *, nmodes: int, rank: int, blk: int = 512,
+                   tile_rows: int = 8,
+                   smem_budget: int = _kernel.SMEM_LIMIT_BYTES,
+                   l2_budget: int = _kernel.L2_BUDGET_BYTES,
+                   table=None, factor_rows=None) -> str:
+    """Resolve ``auto`` to a concrete backend; pass others through.
+
+    ``auto`` takes the first rung of the residency ladder that fits the
+    budgets (``oocore.planner.plan_residency``): B1 → B2 → the stream
+    kernel B6 → B3 → B4 → B5 (``pallas``). The gather and stream rungs
+    need ``factor_rows`` (the input factors' rows, per mode or in total)
+    and are skipped without it. ``auto`` never resolves to a bf16 name;
+    an explicit bf16 name raises ``NotImplementedError`` (ROADMAP A6b),
+    an unknown one ``ValueError``. A calibration ``table`` raises
+    ``NotImplementedError`` (ROADMAP A12).
+    """
+    if table is not None:
+        raise NotImplementedError(
+            "calibration tables are not ported yet (ROADMAP A12)")
+    check_backend(backend)
+    if backend != "auto":
+        return backend
+    return _planner.plan_residency(
+        nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
+        factor_rows=factor_rows, smem_budget=smem_budget,
+        l2_budget=l2_budget).backend
 
 
 def n_pad_for(cap: int, rows_cap: int, blk: int, tile_rows: int) -> int:
@@ -226,6 +309,59 @@ def stream_schedules(idx_stream, blk: int, factor_rows, *,
     return scheds, windows, dcounts
 
 
+def blocked_operands(contrib, local_row, valid, *, rows_cap: int,
+                     blk: int, tile_rows: int):
+    """Block-aligned operands of B5 (``segment_accumulate``) for a sorted
+    stream: ``(contrib, local_row_in_tile, tile_of_block)``.
+
+    ``contrib`` is the ``(cap, R)`` materialized contribution per element
+    (zero-padded here to a multiple of ``RANK_MULTIPLE`` columns),
+    ``local_row`` its output row (ascending among valid elements, invalid
+    ones trailing); invalid elements get zero rows. The reference aligns
+    the whole ``n_pad``-slot stream; here the blocks past the last tile's
+    run, which hold only padding clipped onto the last tile, are cut off:
+    they would add zeros, and B5, which has no values to skip them by,
+    would read them all in the last tile's CTA.
+    """
+    slot, tile_of_block = build_block_layout(
+        local_row, valid, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    used = int(torch.where(valid, slot + 1, 0).max()) if slot.numel() else 0
+    n_used = max(blk, -(-used // blk) * blk)
+    slot = torch.where(slot < n_used, slot, n_used)
+    return (_align_to_blocks(
+                pad_rank(torch.where(valid[:, None], contrib, 0.0).float()),
+                slot, n_used),
+            _align_to_blocks((local_row % tile_rows).to(torch.int32), slot,
+                             n_used),
+            tile_of_block[:n_used // blk].contiguous())
+
+
+def mttkrp_blocked(contrib, local_row, valid, *, rows_cap: int,
+                   blk: int = 512, tile_rows: int = 8,
+                   use_ref: bool = False):
+    """Scatter stage on a sorted stream through B5 (``segment_accumulate``)
+    on :func:`blocked_operands`; invalid elements add nothing.
+    ``use_ref=True`` routes to the plain ``index_add_`` oracle."""
+    if use_ref:
+        masked = torch.where(valid[:, None], contrib, 0.0)
+        row = torch.where(valid, local_row, 0)
+        return _ref.segment_accumulate_ref(masked, row, rows_cap)
+    out = _kernel.segment_accumulate(
+        *blocked_operands(contrib, local_row, valid, rows_cap=rows_cap,
+                          blk=blk, tile_rows=tile_rows),
+        rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    return out[:, :contrib.shape[-1]]
+
+
+def pregathered_rows(idx_stream, factors):
+    """B3/B4's row operands: each input factor's rows gathered by the
+    block-aligned ``(n_pad, K)`` index stream, one ``(n_pad, R)``
+    ``index_select`` per input mode. Padding slots (index 0, value 0)
+    hold row 0; the kernels skip them."""
+    return tuple(f.index_select(0, idx_stream[:, i])
+                 for i, f in enumerate(factors))
+
+
 def gather_operands(idx, val, valid, factors, *, mode: int, rows_cap: int,
                     row_offset: int, blk: int, tile_rows: int, slab: int,
                     ordering: str = "none"):
@@ -268,7 +404,9 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
                        tile_rows: int = 8,
                        backend: str = "pallas_fused_gather",
                        gather_dtype: str = "float32",
-                       ordering: str = "none"):
+                       ordering: str = "none",
+                       smem_budget: int = _kernel.SMEM_LIMIT_BYTES,
+                       l2_budget: int = _kernel.L2_BUDGET_BYTES):
     """Per-device mode step: gather → Hadamard → blocked scatter.
 
     Args:
@@ -280,35 +418,52 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
       mode: output mode.
       rows_cap: owned output rows.
       row_offset: first owned permuted row.
-      backend: one of :data:`BACKENDS`.
-      gather_dtype: only ``"float32"`` (bf16 gathers: ROADMAP A6).
+      backend: ``auto`` or one of :data:`BACKENDS`. ``auto`` resolves
+        through :func:`select_backend` with the input factors' row counts
+        and the budgets ``smem_budget`` and ``l2_budget``.
+      gather_dtype: only ``"float32"`` (bf16 gathers: ROADMAP A6b).
       ordering: ``reorder.ORDERINGS`` policy; anything but ``"none"``
         ranks each output-tile run by factor-tile locality before block
-        alignment, for B1, B2 and B6 alike (one aligned stream, so they
-        stay bitwise equal per ordering); ``ref`` ignores it.
+        alignment, for the fused and gather kernels (B1–B4, B6) alike (one
+        aligned stream, so they stay bitwise equal per ordering); ``ref``
+        and ``pallas`` do not align gathered indices and ignore it, as in
+        the reference.
 
-    The stream backend (B6) tightens each window to the data
-    (:func:`stream_schedules`) and launches once; its window must fit
-    shared memory (the kernel raises otherwise).
+    The fused backends (B3, B4) take the rows of each input factor
+    gathered here, in plain PyTorch as the reference does outside its
+    kernel: one ``(n_pad, R)`` ``index_select`` on the block-aligned index
+    stream per input mode (padding slots hold row 0 and value 0; the
+    kernel skips them). The stream backend (B6) tightens each window to
+    the data (:func:`stream_schedules`) and launches once; its window must
+    fit shared memory (the kernel raises otherwise).
 
     Returns ``(rows_cap, R)`` float32 output rows.
     """
     if gather_dtype != "float32":
         if gather_dtype == "bfloat16":
             raise NotImplementedError(
-                "bf16 gathers are not ported yet (ROADMAP A6)")
+                "bf16 gathers are not ported yet (ROADMAP A6b)")
         raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
     _reorder.validate_ordering(ordering)
-    check_backend(backend)
+    nmodes = idx.shape[1]
     rank = factors[mode].shape[-1]
-    if backend == "ref":
+    backend = select_backend(
+        backend, nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
+        smem_budget=smem_budget, l2_budget=l2_budget,
+        factor_rows=tuple(factors[w].shape[0] for w in range(nmodes)
+                          if w != mode))
+    if backend in ("ref", "pallas"):
         # The per-nonzero contribution is materialized, then scattered.
         local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
-        ell = hadamard_rows(idx, torch.where(valid, val, 0.0), factors, mode)
-        return _ref.segment_accumulate_ref(ell.float(), local_row, rows_cap)
+        safe_idx = torch.where(valid[:, None], idx, 0)
+        ell = hadamard_rows(safe_idx, torch.where(valid, val, 0.0), factors,
+                            mode).float()
+        return mttkrp_blocked(ell, local_row.to(torch.int32), valid,
+                              rows_cap=rows_cap, blk=blk,
+                              tile_rows=tile_rows, use_ref=backend == "ref")
     if backend == STREAM_BACKEND:
         slab = min(padded_rank(rank), _kernel.STREAM_RANK_SLAB)
-    elif backend == "pallas_fused_gather_tiled":
+    elif backend in ("pallas_fused_gather_tiled", "pallas_fused_tiled"):
         slab = tiled_rank_slab(rank)
     else:
         slab = padded_rank(rank)
@@ -317,7 +472,15 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
         row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab,
         ordering=ordering)
     kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
-    if backend == STREAM_BACKEND:
+    if backend in FUSED_BACKENDS:
+        rows = pregathered_rows(idx_al, fmats)
+        del idx_al, fmats
+        if backend == "pallas_fused_tiled":
+            out = _kernel.fused_mttkrp_nmode_tiled(vals, rows, r_al, tob,
+                                                   rank_slab=slab, **kw)
+        else:
+            out = _kernel.fused_mttkrp_nmode(vals, rows, r_al, tob, **kw)
+    elif backend == STREAM_BACKEND:
         fmats = tuple(_pad_factor_rows(f, _kernel.FACTOR_ROW_TILE)
                       for f in fmats)
         scheds, _, _ = stream_schedules(idx_al, blk,

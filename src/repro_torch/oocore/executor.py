@@ -131,7 +131,7 @@ def mttkrp_out_of_core(
     if gather_dtype != "float32":
         if gather_dtype == "bfloat16":
             raise NotImplementedError(
-                "bf16 gathers are not ported yet (ROADMAP A6)")
+                "bf16 gathers are not ported yet (ROADMAP A6b)")
         raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
     _reorder.validate_ordering(ordering)
     dev = resolve_device(device)

@@ -1,16 +1,20 @@
-"""Stream-window and chunk planning for the out-of-core path.
+"""Factor-residency ladder, stream-window and chunk planning.
 
-Port of the stream parts of ``repro/oocore/planner.py``: the window
-bound, the chunk boundaries and per-chunk windows, the chunk byte
-budget, the per-block distinct-tile analysis and the traffic predictor.
-Given the same inputs and geometry (``frow_tile``, ``rank_slab``, the
-rank multiple) every count equals the reference's. The analysis runs
-on the device that holds the stream.
+Port of ``repro/oocore/planner.py``:
+
+* the residency ladder behind ``auto`` — :func:`plan_residency`,
+  :func:`backend_fits`, :class:`ResidencyPlan`, :class:`FactorResidency` —
+  re-derived for Hopper: two budgets, the per-CTA shared memory of each
+  kernel (``smem_budget``) and the L2 that holds the factors the gather
+  kernels read (``l2_budget``), in place of the TPU's one VMEM budget;
+* the stream parts: the window bound, the chunk boundaries and per-chunk
+  windows, the chunk byte budget, the per-block distinct-tile analysis and
+  the traffic predictor. Given the same inputs and geometry
+  (``frow_tile``, ``rank_slab``, the rank multiple) every count equals the
+  reference's. The analysis runs on the device that holds the stream.
 
 :func:`stream_fits_smem` is the Hopper counterpart of the reference's
-``backend_fits(STREAM_BACKEND, ...)``: whether the stream kernel's
-window fits one CTA's shared memory. The residency ladder
-(``plan_residency``) comes with ``auto`` (ROADMAP A6).
+``backend_fits(STREAM_BACKEND, ...)`` and the stream rung's predicate.
 """
 from __future__ import annotations
 
@@ -25,13 +29,20 @@ from ..kernels.mttkrp import ops as _ops
 
 __all__ = [
     "FACTOR_ROW_TILE",
+    "L2_BUDGET_BYTES",
+    "LADDER",
+    "SMEM_BUDGET_BYTES",
     "STREAM_BACKEND",
+    "FactorResidency",
+    "ResidencyPlan",
     "StreamTraffic",
+    "backend_fits",
     "block_tile_analysis",
     "chunk_boundaries",
     "chunk_window_tiles",
     "factor_row_tiles",
     "plan_chunks",
+    "plan_residency",
     "predict_stream_traffic",
     "stream_chunk_bytes",
     "stream_fits_smem",
@@ -76,6 +87,241 @@ def stream_fits_smem(*, nmodes: int, rank: int, blk: int, tile_rows: int,
     return _kernel.gather_stream_smem_bytes(
         k, _kernel.padded_rank(rank, rank_multiple), blk, tile_rows,
         windows, frow_tile=frow_tile, rank_slab=rank_slab) <= smem_budget
+
+
+# ---------------------------------------------------------------------------
+# The residency ladder (what ``auto`` resolves to)
+# ---------------------------------------------------------------------------
+
+# The ladder's default budgets (kernel.py holds them, like the reference's
+# VMEM budget, so that ops and this module, which import each other,
+# read one definition).
+SMEM_BUDGET_BYTES = _kernel.SMEM_LIMIT_BYTES
+L2_BUDGET_BYTES = _kernel.L2_BUDGET_BYTES
+
+# The rungs in order; the first that fits wins.
+LADDER = ("pallas_fused_gather", "pallas_fused_gather_tiled", STREAM_BACKEND,
+          "pallas_fused", "pallas_fused_tiled", "pallas")
+# Rungs that need the factor sizes.
+_FACTOR_RUNGS = LADDER[:3]
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorResidency:
+    """Where one input-factor matrix lives under a :class:`ResidencyPlan`.
+
+    ``policy`` is ``whole`` (the padded rank read out of L2, B1),
+    ``slab`` (one column slab at a time, B2) or ``stream`` (in device
+    memory, ``window_tiles`` tiles of ``FACTOR_ROW_TILE`` rows copied to
+    shared memory per block, B6). ``resident_bytes`` is the L2 the factor
+    takes (``whole``, ``slab``) or its shared-memory window (``stream``).
+    """
+
+    rows: int
+    policy: str
+    window_tiles: int
+    rank_cols: int
+    resident_bytes: int
+
+    @property
+    def row_tiles(self) -> int:
+        """Row tiles of this factor (the stream kernel copies whole ones)."""
+        return factor_row_tiles(self.rows)
+
+    def tile_spans(self) -> list[tuple[int, int]]:
+        """Disjoint ``[start, stop)`` row ranges, one per row tile; they
+        partition ``[0, rows)``."""
+        return [(t * FACTOR_ROW_TILE, min(self.rows, (t + 1) * FACTOR_ROW_TILE))
+                for t in range(self.row_tiles)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidencyPlan:
+    """One mode step's residency decision under the two budgets."""
+
+    backend: str
+    nmodes: int
+    rank: int
+    blk: int
+    tile_rows: int
+    smem_budget: int
+    l2_budget: int
+    smem_bytes: int                     # per-CTA shared memory of the choice
+    l2_bytes: int                       # factor bytes it reads out of L2
+    rank_slabs: int                     # column slabs the choice runs
+    window_tiles: tuple[int, ...]       # per input mode; () unless streaming
+    factors: tuple[FactorResidency, ...]  # () when factor sizes are unknown
+
+    @property
+    def streams(self) -> bool:
+        return self.backend == STREAM_BACKEND
+
+    @property
+    def fits(self) -> bool:
+        """Did the choice fit both budgets? ``pallas`` (B5), the last
+        rung, runs whatever they are."""
+        return self.backend == "pallas" or (
+            self.smem_bytes <= self.smem_budget
+            and self.l2_bytes <= self.l2_budget)
+
+
+def _normalize_factor_rows(factor_rows, num_in_modes: int):
+    """``factor_rows`` as ``(per-mode tuple | None, total | None)``.
+
+    ``None`` (factor sizes unknown), an int total (``Σ I_w``; the stream
+    window is then planned as if every input factor had all the rows), or
+    one count per input mode.
+    """
+    if factor_rows is None:
+        return None, None
+    if isinstance(factor_rows, (list, tuple)):
+        per_mode = tuple(int(r) for r in factor_rows)
+        if len(per_mode) != num_in_modes:
+            raise ValueError(f"{len(per_mode)} factor row counts for "
+                             f"{num_in_modes} input modes")
+        return per_mode, sum(per_mode)
+    return None, int(factor_rows)
+
+
+def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
+               per_mode, total) -> tuple[int, int, tuple]:
+    """``(smem_bytes, l2_bytes, windows)`` of one rung; the gather and
+    stream rungs need ``total`` (not ``None``)."""
+    slab = min(rpad, _kernel.RANK_SLAB)
+    if backend == "pallas_fused_gather":
+        return (_kernel.gather_smem_bytes(k, rpad, tile_rows),
+                total * rpad * 4, ())
+    if backend == "pallas_fused_gather_tiled":
+        return (_kernel.gather_smem_bytes(k, rpad, tile_rows,
+                                          rank_slab=slab),
+                total * slab * 4, ())
+    if backend == STREAM_BACKEND:
+        rows = per_mode if per_mode is not None else (total,) * k
+        windows = tuple(stream_window_tiles(blk, r) for r in rows)
+        return (_kernel.gather_stream_smem_bytes(k, rpad, blk, tile_rows,
+                                                 windows), 0, windows)
+    if backend == "pallas_fused":
+        return _kernel.fused_smem_bytes(rpad, tile_rows), 0, ()
+    if backend == "pallas_fused_tiled":
+        return (_kernel.fused_smem_bytes(rpad, tile_rows, rank_slab=slab),
+                0, ())
+    if backend == "pallas":
+        return _kernel.segment_smem_bytes(rpad, tile_rows), 0, ()
+    raise ValueError(f"{backend!r} is not a rung of the residency ladder")
+
+
+def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
+                 tile_rows: int, factor_rows=None,
+                 smem_budget: int = SMEM_BUDGET_BYTES,
+                 l2_budget: int = L2_BUDGET_BYTES) -> bool:
+    """Does ``backend`` fit the budgets? The ladder's one predicate.
+
+    The gather rungs (B1, B2) fit when their factors (the padded rank,
+    or one ``RANK_SLAB`` slab, of every input factor) fit ``l2_budget``
+    and a CTA fits ``smem_budget``; the stream rung (B6) when its
+    data-blind window fits ``smem_budget``
+    (:func:`stream_fits_smem`); the fused rungs (B3, B4) when a CTA fits
+    ``smem_budget``. These need no L2: each slot's rows are read once.
+    The gather and stream rungs need ``factor_rows`` and do not fit
+    without it. ``pallas`` (B5), ``ref`` and ``segsum`` always fit. Every
+    test is ``bytes <= budget``, so it is monotone in both budgets.
+    """
+    if backend.endswith("_bf16"):
+        raise NotImplementedError(
+            f"{backend!r}: bf16 gathers are not ported yet (ROADMAP A6b)")
+    if backend in ("ref", "segsum", "pallas"):
+        return True
+    k, rpad = nmodes - 1, _kernel.padded_rank(rank)
+    per_mode, total = _normalize_factor_rows(factor_rows, k)
+    if backend in _FACTOR_RUNGS and total is None:
+        return False
+    if backend == STREAM_BACKEND:
+        rows = per_mode if per_mode is not None else (total,) * k
+        return stream_fits_smem(nmodes=nmodes, rank=rank, blk=blk,
+                                tile_rows=tile_rows, factor_rows=rows,
+                                smem_budget=smem_budget)
+    smem, l2, _ = _rung_cost(backend, k=k, rpad=rpad, tile_rows=tile_rows,
+                             blk=blk, per_mode=per_mode, total=total)
+    return smem <= smem_budget and l2 <= l2_budget
+
+
+def _factor_states(per_mode, total, k: int, backend: str, rpad: int,
+                   windows) -> tuple[FactorResidency, ...]:
+    if total is None:
+        return ()
+    rows_list = per_mode if per_mode is not None else (total,) * k
+    slab = min(rpad, _kernel.RANK_SLAB)
+    states = []
+    for i, rows in enumerate(rows_list):
+        if backend == STREAM_BACKEND:
+            w, cols = windows[i], min(rpad, _kernel.STREAM_RANK_SLAB)
+            # A window covering every tile is whole residency in effect.
+            pol = "whole" if w >= factor_row_tiles(rows) else "stream"
+            resident = w * FACTOR_ROW_TILE * cols * 4
+        else:
+            pol = "slab" if backend == "pallas_fused_gather_tiled" else \
+                "whole"
+            cols = slab if pol == "slab" else rpad
+            w, resident = factor_row_tiles(rows), rows * cols * 4
+        states.append(FactorResidency(rows=rows, policy=pol, window_tiles=w,
+                                      rank_cols=cols,
+                                      resident_bytes=resident))
+    return tuple(states)
+
+
+def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
+                   tile_rows: int = 8, factor_rows=None,
+                   smem_budget: int = SMEM_BUDGET_BYTES,
+                   l2_budget: int = L2_BUDGET_BYTES) -> ResidencyPlan:
+    """The residency ladder for one mode step: the first rung of
+    :data:`LADDER` that fits (:func:`backend_fits`) wins.
+
+      1. ``pallas_fused_gather`` (B1): every input factor at the padded
+         rank fits ``l2_budget``, a CTA fits ``smem_budget``;
+      2. ``pallas_fused_gather_tiled`` (B2): the same with one
+         ``RANK_SLAB``-wide slab;
+      3. ``pallas_fused_gather_stream`` (B6): the data-blind window
+         ``min(blk, ceil(rows / FACTOR_ROW_TILE))`` per mode fits
+         ``smem_budget``; no data is read (the mode step then tightens
+         the windows to the data, which only shrinks them);
+      4. ``pallas_fused`` (B3): a CTA at the padded rank fits
+         ``smem_budget``;
+      5. ``pallas_fused_tiled`` (B4): a CTA one slab wide fits;
+      6. ``pallas`` (B5): always — it splits the columns itself.
+
+    Rungs 1–3 need ``factor_rows`` (per input mode, or the total) and are
+    skipped without it. Since every
+    test is ``bytes <= budget``, a larger budget never moves the choice
+    down the ladder. The reference's first rung, ``rank < MIN_MXU_RANK``
+    → ``ref``, is left out: it avoids padding a small rank to the TPU's
+    128-wide MXU, while the port pads to 16 and ``ref`` is plain PyTorch,
+    not a kernel.
+    """
+    k, rpad = nmodes - 1, _kernel.padded_rank(rank)
+    per_mode, total = _normalize_factor_rows(factor_rows, k)
+    fit_kw = dict(nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
+                  factor_rows=factor_rows, smem_budget=smem_budget,
+                  l2_budget=l2_budget)
+    for backend in LADDER:
+        if not backend_fits(backend, **fit_kw):
+            continue
+        smem, l2, windows = _rung_cost(
+            backend, k=k, rpad=rpad, tile_rows=tile_rows, blk=blk,
+            per_mode=per_mode, total=total)
+        slabs = {"pallas_fused_gather_tiled": rpad // min(rpad,
+                                                          _kernel.RANK_SLAB),
+                 STREAM_BACKEND: rpad // min(rpad, _kernel.STREAM_RANK_SLAB),
+                 "pallas_fused_tiled": rpad // min(rpad, _kernel.RANK_SLAB),
+                 "pallas": rpad // _kernel.segment_slab(rpad)}.get(backend, 1)
+        return ResidencyPlan(
+            backend=backend, nmodes=nmodes, rank=rank, blk=blk,
+            tile_rows=tile_rows, smem_budget=smem_budget,
+            l2_budget=l2_budget, smem_bytes=smem, l2_bytes=l2,
+            rank_slabs=slabs, window_tiles=windows,
+            factors=_factor_states(per_mode, total, k, backend, rpad,
+                                   windows)
+            if backend in _FACTOR_RUNGS else ())
+    raise AssertionError("the last rung always fits")
 
 
 # ---------------------------------------------------------------------------

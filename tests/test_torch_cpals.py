@@ -96,7 +96,9 @@ def test_one_sweep_from_reference_state(tensors, mesh):
 
 
 @pytest.mark.parametrize("backend", ["segsum", "pallas_fused_gather",
-                                     "pallas_fused_gather_tiled"])
+                                     "pallas_fused_gather_tiled", "auto",
+                                     "pallas_fused", "pallas_fused_tiled",
+                                     "pallas"])
 def test_cp_als_distributed_matches_jax(tensors, mesh, backend):
     ft, fj = tensors
     got = tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=3, tol=0.0,
@@ -160,10 +162,11 @@ def test_unported_options_raise(tensors):
     ft2 = tfly.build_flycoo(ft.tensor, 2)
     with pytest.raises(NotImplementedError, match="A9"):
         tcpals.cp_als_distributed(ft2, RANK, device="cpu", iters=1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
-                                  backend="auto")
-    with pytest.raises(NotImplementedError, match="A6"):
+    for backend in ("pallas_fused_bf16", "pallas_fused_gather_bf16"):
+        with pytest.raises(NotImplementedError, match="A6b"):
+            tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
+                                      backend=backend)
+    with pytest.raises(NotImplementedError, match="A6b"):
         tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
                                   gather_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="A12"):

@@ -27,10 +27,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _stream(dev, k, rank, cap, rows_cap, seed):
-    """A row-sorted random stream (mode 0 out) and its factors."""
+def _stream(dev, k, rank, cap, rows_cap, seed, frows=None):
+    """A row-sorted random stream (mode 0 out) and its factors (``frows``
+    input-factor rows, random in 50..400 when not given)."""
     rng = np.random.default_rng(seed)
-    frows = [int(x) for x in rng.integers(50, 400, k)]
+    if frows is None:
+        frows = [int(x) for x in rng.integers(50, 400, k)]
     idx = np.stack([np.sort(rng.integers(0, rows_cap, cap))]
                    + [rng.integers(0, f, cap) for f in frows], 1)
     factors = [torch.zeros(rows_cap, rank)] + [
@@ -272,3 +274,196 @@ def test_stream_cp_als_on_card(cuda):
     np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
     for a, b in zip(got.factors, want.factors):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B3, B4 (fused on pre-gathered rows) and B5 (scatter of a contribution)
+# ---------------------------------------------------------------------------
+
+def _fused_args(args):
+    """B3's operands from B1's on the same aligned stream: each input
+    factor's rows gathered by the aligned index stream (as ops does)."""
+    vals, idx_al, fmats, rows, tob = args
+    return vals, ops.pregathered_rows(idx_al, fmats), rows, tob
+
+
+def _contrib(args):
+    """B5's contribution: B1's products, (val * row_0) * row_1 ..."""
+    vals, pre, _, _ = _fused_args(args)
+    out = vals[:, None]
+    for r in pre:
+        out = out * r
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 48, 256])
+def test_fused_match_plain_and_b1_bitwise(cuda, k, rank):
+    args = _operands(cuda, k, rank, rank, seed=20 + k + rank)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    fargs = _fused_args(args)
+    n3, n4 = K.fused_mttkrp_nmode.launches, K.fused_mttkrp_nmode_tiled.launches
+    b3 = K.fused_mttkrp_nmode(*fargs, **kw)
+    b4 = K.fused_mttkrp_nmode_tiled(*fargs, rank_slab=16, **kw)
+    assert K.fused_mttkrp_nmode.launches == n3 + 1
+    assert K.fused_mttkrp_nmode_tiled.launches == n4 + 1
+    plain = K.fused_mttkrp_nmode_plain(*fargs, **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b3, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b3, K.fused_mttkrp_nmode_gather(*args, **kw))
+    assert torch.equal(b4, b3)
+    assert torch.equal(b3, K.fused_mttkrp_nmode(*fargs, **kw))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("rank", [16, 48, 256, 1024])
+def test_segment_accumulate_matches_plain_and_b1_bitwise(cuda, k, rank):
+    args = _operands(cuda, k, rank, min(rank, 128), seed=40 + k + rank)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    contrib = _contrib(args)
+    n5 = K.segment_accumulate.launches
+    b5 = K.segment_accumulate(contrib, args[3], args[4], **kw)
+    assert K.segment_accumulate.launches == n5 + 1
+    plain = K.segment_accumulate_plain(contrib, args[3], args[4], **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b5, plain, rtol=1e-5, atol=1e-5 * scale)
+    # B2 == B1 at any slab; B1 alone does not fit shared memory at 1024.
+    b2 = K.fused_mttkrp_nmode_gather_tiled(*args, rank_slab=min(rank, 128),
+                                           **kw)
+    assert torch.equal(b5, b2)
+    assert torch.equal(b5, K.segment_accumulate(contrib, args[3], args[4],
+                                                **kw))
+
+
+@pytest.mark.parametrize("blk,tile_rows", [(32, 1), (128, 4), (64, 16),
+                                            (256, 3)])
+def test_fused_geometries(cuda, blk, tile_rows):
+    """B3 == B4 == B5 == B1 bitwise over groups of 16, 16, 8 and 16
+    partial tiles and 16- and 32-lane groups."""
+    rows_cap = 128 * tile_rows
+    for rank, slab in ((16, 16), (64, 32)):
+        args = _operands(cuda, 3, rank, rank, cap=20_000, rows_cap=rows_cap,
+                         seed=blk + tile_rows, blk=blk, tile_rows=tile_rows)
+        kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+        b1 = K.fused_mttkrp_nmode_gather(*args, **kw)
+        fargs = _fused_args(args)
+        assert torch.equal(K.fused_mttkrp_nmode(*fargs, **kw), b1)
+        assert torch.equal(K.fused_mttkrp_nmode_tiled(*fargs, rank_slab=slab,
+                                                      **kw), b1)
+        assert torch.equal(K.segment_accumulate(_contrib(args), args[3],
+                                                args[4], **kw), b1)
+
+
+def test_fused_out_init_is_honoured(cuda):
+    args = _operands(cuda, 2, 32, 32, seed=21)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    fargs = _fused_args(args)
+    init = torch.randn(96, 32, device=cuda)
+    keep = init.clone()
+    b3 = K.fused_mttkrp_nmode(*fargs, out_init=init, **kw)
+    b4 = K.fused_mttkrp_nmode_tiled(*fargs, rank_slab=16, out_init=init,
+                                    **kw)
+    assert torch.equal(init, keep)
+    want = K.fused_mttkrp_nmode_plain(*fargs, out_init=init, **kw)
+    assert torch.allclose(b3, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(b3, b4)
+    assert torch.equal(b3, K.fused_mttkrp_nmode_gather(*args, out_init=init,
+                                                       **kw))
+    # Padding only: the output is out_init.
+    zero = torch.zeros_like(fargs[0])
+    assert torch.equal(K.fused_mttkrp_nmode(zero, *fargs[1:], out_init=init,
+                                            **kw), init)
+
+
+def test_fused_wrong_operands_raise(cuda):
+    args = _operands(cuda, 2, 16, 16, seed=22)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    vals, pre, rows, tob = _fused_args(args)
+    with pytest.raises(ValueError):
+        K.fused_mttkrp_nmode(vals.cpu(), pre, rows, tob, **kw)
+    with pytest.raises(ValueError):
+        K.fused_mttkrp_nmode(vals, tuple(p[:, :8] for p in pre), rows, tob,
+                             **kw)
+    strided = torch.stack([pre[0], pre[0]], 2)[..., 0]
+    with pytest.raises(ValueError):
+        K.fused_mttkrp_nmode(vals, (strided, pre[1]), rows, tob, **kw)
+    with pytest.raises(ValueError):
+        K.segment_accumulate(pre[0][1:], rows[1:], tob, **kw)
+    wide = _operands(cuda, 2, 512, 512, seed=23)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.fused_mttkrp_nmode(*_fused_args(wide), **kw)
+
+
+_COUNTERS = {
+    "pallas_fused_gather": K.fused_mttkrp_nmode_gather,
+    "pallas_fused_gather_tiled": K.fused_mttkrp_nmode_gather_tiled,
+    ops.STREAM_BACKEND: K.fused_mttkrp_nmode_gather_stream,
+    "pallas_fused": K.fused_mttkrp_nmode,
+    "pallas_fused_tiled": K.fused_mttkrp_nmode_tiled,
+    "pallas": K.segment_accumulate,
+}
+
+
+@pytest.mark.parametrize("want,rank,frows,blk,budgets", [
+    ("pallas_fused_gather", 16, None, 64, {}),
+    ("pallas_fused_gather_tiled", 256, (300, 200), 64,
+     {"l2_budget": 500 * 128 * 4}),
+    (ops.STREAM_BACKEND, 16, None, 64, {"l2_budget": 0}),
+    ("pallas_fused", 16, (4000, 4000), 512, {"l2_budget": 0}),
+    ("pallas_fused_tiled", 512, (4000, 4000), 512, {"l2_budget": 0}),
+    ("pallas", 16, None, 64, {"l2_budget": 0, "smem_budget": 1000}),
+])
+def test_auto_lands_on_each_rung(cuda, want, rank, frows, blk, budgets):
+    """``auto`` through mttkrp_device_step launches the rung's kernel, and
+    only it, and computes what ``ref`` computes."""
+    idx, val, valid, factors = _stream(cuda, 2, rank, 5000, 96, seed=30,
+                                       frows=frows)
+    kw = dict(mode=0, rows_cap=96, blk=blk, tile_rows=TILE)
+    assert ops.select_backend(
+        "auto", nmodes=3, rank=rank, blk=blk, tile_rows=TILE,
+        factor_rows=[f.shape[0] for f in factors[1:]], **budgets) == want
+    before = {b: c.launches for b, c in _COUNTERS.items()}
+    got = ops.mttkrp_device_step(idx, val, valid, factors, backend="auto",
+                                 **budgets, **kw)
+    moved = {b for b, c in _COUNTERS.items() if c.launches != before[b]}
+    assert moved == {want}
+    assert _COUNTERS[want].launches == before[want] + 1
+    ref = ops.mttkrp_device_step(idx, val, valid, factors, backend="ref",
+                                 **kw)
+    scale = float(ref.abs().max())
+    assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("ordering", ["none", "morton"])
+def test_device_step_backends_bitwise(cuda, ordering):
+    """On one aligned stream the fused and gather backends agree bitwise
+    per ordering; pallas (B5, no ordering) agrees with B1 unordered."""
+    idx, val, valid, factors = _stream(cuda, 3, 16, 6000, 96, seed=31)
+    kw = dict(mode=0, rows_cap=96, blk=BLK, tile_rows=TILE)
+    b1 = ops.mttkrp_device_step(idx, val, valid, factors, ordering=ordering,
+                                backend="pallas_fused_gather", **kw)
+    for backend in ("pallas_fused", "pallas_fused_tiled"):
+        assert torch.equal(b1, ops.mttkrp_device_step(
+            idx, val, valid, factors, ordering=ordering, backend=backend,
+            **kw))
+    if ordering == "none":
+        assert torch.equal(b1, ops.mttkrp_device_step(
+            idx, val, valid, factors, backend="pallas", **kw))
+
+
+def test_fused_cp_als_on_card(cuda):
+    """pallas_fused, pallas_fused_tiled and pallas give B1's fits exactly
+    (bitwise equal kernels) and match the CPU run; auto lands on B1."""
+    t = tensors.random_sparse_tensor((40, 30, 20), 2000, seed=0)
+    ft = flycoo.build_flycoo(t, 1)
+    b1 = cpals.cp_als_distributed(ft, 8, iters=3, tol=0.0,
+                                  backend="pallas_fused_gather")
+    for backend in ("auto", "pallas_fused", "pallas_fused_tiled", "pallas"):
+        got = cpals.cp_als_distributed(ft, 8, iters=3, tol=0.0,
+                                       backend=backend)
+        assert got.fits == b1.fits, backend
+        want = cpals.cp_als_distributed(ft, 8, device="cpu", iters=3,
+                                        tol=0.0, backend=backend)
+        np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
+        for a, b in zip(got.factors, want.factors):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)

@@ -55,11 +55,12 @@ def test_import_leaves_jax_unloaded():
 @pytest.mark.parametrize("module", [
     "repro_torch.reorder.ordering", "repro_torch.oocore.planner",
     "repro_torch.oocore.executor", "repro_torch.kernels.mttkrp.ops",
-    "repro_torch.core.flycoo"])
+    "repro_torch.core.flycoo", "repro_torch.kernels.mttkrp.kernel",
+    "repro_torch.core.distributed"])
 def test_new_modules_import_first_without_jax(module):
-    """Each module of the stream path imports on its own (the package's
-    import cycle between ops, the planner and the orderings resolves in
-    any order) and pulls in no JAX."""
+    """Each module of the stream and dispatch paths imports on its own
+    (the package's import cycle between ops, the planner and the
+    orderings resolves in any order) and pulls in no JAX."""
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "

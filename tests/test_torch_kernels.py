@@ -186,9 +186,7 @@ def test_device_step_matches_jax(nmodes, backend):
 
 
 @pytest.mark.parametrize("backend,item", [
-    ("auto", "A6"), ("pallas", "A6"), ("pallas_fused", "A6"),
-    ("pallas_fused_tiled", "A6"), ("pallas_fused_bf16", "A6"),
-    ("pallas_fused_gather_bf16", "A6"),
+    ("pallas_fused_bf16", "A6"), ("pallas_fused_gather_bf16", "A6"),
 ])
 def test_unported_backends_raise(backend, item):
     _, _, rows_cap, (idx, val, factors) = _case(3, 8, seed=4)
