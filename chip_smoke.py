@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with an H100:
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/mttkrp/csrc``
-     (one ``nvcc`` per source, started together);
+     (one ``nvcc`` per source, started together), and measure the card's
+     L2 read rate with the hand-written probe ``csrc/l2_probe.cu`` (the
+     yardstick of every kernel's L2 bound);
   2. B1 (``fused_mttkrp_nmode_gather``) and B2 (``..._tiled``) against
      their plain PyTorch versions on random streams (K in {2,3}, R in
      {16,256}, blk=512, tile_rows=8): allclose, B1 == B2 bitwise, and a
@@ -15,7 +17,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      random streams (K in {2,3}, R in {16,64}, blk=128, tile_rows=8):
      against its plain version, B6 == B1 bitwise, a rerun bitwise equal,
      and a chunked out-of-core run with mid-tile splits bitwise equal to
-     the single pass;
+     the single pass; with the ring's stage count;
   4. ``[fused-kernels]``: B3 (``fused_mttkrp_nmode``), B4
      (``fused_mttkrp_nmode_tiled``) and B5 (``segment_accumulate``) on
      random streams (K in {2,3}, R in {16,256}, and 1024 for B5): against
@@ -40,10 +42,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      chunks, bitwise equal to B1 on the same permuted stream, predicted
      traffic equal to the counted; then ``cp_als_distributed`` with the
      stream backend and with B1, Morton order, 2 sweeps each: equal fits;
+     per mode B6 single pass with its stage count, and on mode 0 at
+     ``frow_tile`` 4 and 2 (findings: fewer copied bytes per used row);
   8. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
   9. exact recovery of a dense rank-4 tensor (fit > 0.999);
   10. one JSON line with all six kernels, the card's name and power
       limit, and the last line ``{"ok": true, "device": {...}}``.
+
+B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
+factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
+reach, and the L2 bound: those bytes over the measured L2 read rate.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -65,6 +73,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (non-tensor-core) FLOP/s, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# The card's L2 read rate (bytes/s), measured by phase_build.
+L2_BYTES_PER_S = None
 # rtol, and atol as a fraction of max|plain|: the kernel sums in another
 # fp32 order than index_add_.
 RTOL, ATOL_FRAC = 1e-5, 1e-5
@@ -187,6 +197,35 @@ def fused_bound_ms(nnz: int, rank: int, k: int, *, rows_cap: int,
     return bound_ms(nbytes, nnz * rank * max(k + 1, 1))
 
 
+def l2_fields(l2_bytes: int, ms: float) -> tuple[float, float]:
+    """``(TB/s reached, L2 bound ms)`` of ``l2_bytes`` moved in ``ms``."""
+    return l2_bytes / ms / 1e9, l2_bytes / L2_BYTES_PER_S * 1e3
+
+
+def gather_l2_bytes(operands) -> int:
+    """The factor rows B1/B2 gather through L2 in one call: K rows of the
+    padded rank per slot that holds a nonzero."""
+    vals, _, factors, _, _ = operands
+    return int((vals != 0).sum()) * len(factors) * factors[0].shape[1] * 4
+
+
+def stream_copy_bytes(vals, scheds, factors, blk: int,
+                      frow_tile: int, rank_slab: int) -> int:
+    """The factor-tile bytes B6 copies in one call, as the kernel decides
+    them: per block holding a nonzero, per mode, each schedule entry that
+    neither repeats entry 0 nor lies outside the factor, one slab wide,
+    once per slab."""
+    live = (vals.view(-1, blk) != 0).any(1)
+    tiles = 0
+    for s, f in zip(scheds, factors):
+        s = s.long()
+        keep = (s != s[:, :1]) & (s >= 0) & (s < f.shape[0] // frow_tile)
+        keep[:, 0] = (s[:, 0] >= 0) & (s[:, 0] < f.shape[0] // frow_tile)
+        tiles += int((keep & live[:, None]).sum())
+    rank = factors[0].shape[1]
+    return tiles * frow_tile * rank_slab * 4 * (rank // rank_slab)
+
+
 def reset_counts():
     """Every kernel's launch count to 0."""
     from repro_torch.kernels.mttkrp import kernel as K
@@ -229,6 +268,36 @@ def phase_build():
         for ln in report.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"[build]   ptxas: {ln.strip()}")
+
+
+def phase_l2_rate(dev, gpu: str):
+    """The card's L2 read rate: the hand-written probe reads a 16 MiB
+    buffer (it stays in the 50 MB L2) 64 times per launch with 16-byte
+    loads that bypass L1; the best of a few grid shapes, CUDA-event
+    timed. Sets ``L2_BYTES_PER_S``."""
+    global L2_BYTES_PER_S
+    from repro_torch.kernels.mttkrp import build
+    lib = build.load("l2_probe")
+    buf = torch.randn(4 << 20, device=dev)
+    sink = torch.zeros(1, device=dev)
+    n4, passes = buf.numel() // 4, 64
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    best = 0.0
+    for blocks_per_sm, threads in ((4, 512), (8, 256), (2, 1024)):
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count \
+            * blocks_per_sm
+
+        def launch():
+            err = lib.l2_read_launch(buf.data_ptr(), n4, passes, blocks,
+                                     threads, sink.data_ptr(), stream)
+            require(err == 0, "l2_read_launch failed: "
+                    f"{lib.l2_probe_error_string(err).decode()}")
+        ms = cuda_ms(launch, 10)
+        best = max(best, buf.numel() * 4 * passes / ms * 1e3)
+    L2_BYTES_PER_S = best
+    log(f"[gpu] L2 read rate {best / 1e12:.3f} TB/s (16 MiB buffer, "
+        f"{passes} passes per launch, best of 3 grids; HBM peak "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)  [{gpu}]")
 
 
 def random_stream(rng, k: int, rank: int, cap: int, rows_cap: int, dev):
@@ -425,12 +494,19 @@ def phase_stream_kernels(dev):
         bound, by = kernel_bound_ms(b1_ops, rows_cap=rows_cap,
                                     tile_rows=STREAM_TILE_ROWS,
                                     scheds=s_ops[5])
+        stages, mappers = K.stream_ring(k, rank, STREAM_BLK,
+                                        STREAM_TILE_ROWS, windows)
+        copied = stream_copy_bytes(s_ops[0], s_ops[5], s_ops[2], STREAM_BLK,
+                                   K.FACTOR_ROW_TILE, K.STREAM_RANK_SLAB)
+        tbps, l2b = l2_fields(copied, t_b6)
         log(f"[stream-kernels] {what} nnz={cap} blk={STREAM_BLK} windows="
-            f"{windows}: max_abs_err={err:.3e}, B6==B1 bitwise, rerun "
-            f"bitwise, {st2.chunks} chunks with {splits} mid-tile splits == "
-            f"single pass bitwise; B6 {t_b6:.4f} ms, B1 {t_b1:.4f} ms, plain "
-            f"{t_p:.4f} ms, bound {bound:.4f} ms ({by}); distinct tile bytes "
-            f"{st1.distinct_tile_bytes}")
+            f"{windows} stages={stages} mappers={mappers}: max_abs_err="
+            f"{err:.3e}, B6==B1 bitwise, rerun bitwise, {st2.chunks} chunks "
+            f"with {splits} mid-tile splits == single pass bitwise; B6 "
+            f"{t_b6:.4f} ms, B1 {t_b1:.4f} ms, plain {t_p:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); distinct tile bytes "
+            f"{st1.distinct_tile_bytes}, copied {copied} B at {tbps:.3f} "
+            f"TB/s, L2 bound {l2b:.4f} ms")
         del stream, b1_ops, s_ops, b6, b6_again, b1, plain, single, chunked
 
 
@@ -474,6 +550,7 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
                                     tile_rows=rt.tile_rows)
         rows.append(dict(mode=n, err=err, ms=t_k, plain_ms=t_p,
                          bound_ms=bound, bound_by=by,
+                         l2_bytes=gather_l2_bytes(operands),
                          slots=int(operands[0].shape[0])))
         del operands, out, ref
         cur = dist.device_remap(*cur, (n + 1) % rt.nmodes, rt)[:3]
@@ -556,10 +633,12 @@ def phase_main(dev, gpu: str):
 
     b1_rows, _ = check_modes(ft, 16, "pallas_fused_gather", dev)
     for r in b1_rows:
+        tbps, l2b = l2_fields(r["l2_bytes"], r["ms"])
         log(f"[main] B1 mode {r['mode']}: {r['slots']} slots, kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']}, HBM 3.35 TB/s), "
-            f"max_abs_err {r['err']:.3e}  [{gpu}]")
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}, HBM 3.35 TB/s); L2 "
+            f"{r['l2_bytes']} B gathered at {tbps:.3f} TB/s, L2 bound "
+            f"{l2b:.3f} ms; max_abs_err {r['err']:.3e}  [{gpu}]")
     profile_sweep(ft, 16, "pallas_fused_gather", dev)
 
     # --- B2 path (auto's next rung): R=256 in 128-column slabs ---------
@@ -578,10 +657,12 @@ def phase_main(dev, gpu: str):
     b2_rows, _ = check_modes(ft, 256, "pallas_fused_gather_tiled", dev,
                              reps=3)
     for r in b2_rows:
+        tbps, l2b = l2_fields(r["l2_bytes"], r["ms"])
         log(f"[main] B2 mode {r['mode']}: {r['slots']} slots, kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), max_abs_err "
-            f"{r['err']:.3e}  [{gpu}]")
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}); L2 {r['l2_bytes']} "
+            f"B gathered at {tbps:.3f} TB/s, L2 bound {l2b:.3f} ms; "
+            f"max_abs_err {r['err']:.3e}  [{gpu}]")
     return ft, fits, {
         "fused_mttkrp_nmode_gather": (b1_launches, b1_rows),
         "fused_mttkrp_nmode_gather_tiled": (b2_launches, b2_rows)}
@@ -665,7 +746,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
                                    tile_rows=rt.tile_rows)
         rows["fused_mttkrp_nmode"].append(dict(
             mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-            bound_by=by))
+            bound_by=by, l2_bytes=nnz * k * rank * 4))
         log(f"[fused-main] B3 mode {n}: {vals.shape[0]} slots, {nnz} nnz, "
             f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms "
             f"({by}, HBM 3.35 TB/s), max_abs_err {err:.3e}, == B1 bitwise  "
@@ -682,7 +763,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
             vals, pre, r_al, tob, **tkw), 2)
         rows["fused_mttkrp_nmode_tiled"].append(dict(
             mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-            bound_by=by))
+            bound_by=by, l2_bytes=nnz * k * rank * 4))
         log(f"[fused-main] B4 mode {n}: R=16, one slab, kernel {t_k:.3f} ms, "
             f"plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}), max_abs_err "
             f"{err:.3e}, == B1 bitwise  [{gpu}]")
@@ -734,7 +815,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
                                    tile_rows=rt.tile_rows)
         rows["segment_accumulate"].append(dict(
             mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-            bound_by=by, library_ms=t_lib))
+            bound_by=by, library_ms=t_lib, l2_bytes=nnz * rank * 4))
         log(f"[fused-main] B5 mode {n}: {contrib.shape[0]} slots (trailing "
             f"padding cut), kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
             f"index_add_ {t_lib:.3f} ms, bound {bound:.3f} ms ({by}), "
@@ -860,8 +941,14 @@ def phase_stream_main(ft, dev, gpu: str):
             *s_ops, **skw), 1)
         bound, by = kernel_bound_ms(b1_ops, rows_cap=rows_cap,
                                     tile_rows=tile_rows, scheds=s_ops[5])
+        stages, mappers = K.stream_ring(k, ops.padded_rank(rank), blk,
+                                        tile_rows, windows)
         smem = K.gather_stream_smem_bytes(k, ops.padded_rank(rank), blk,
-                                          tile_rows, windows)
+                                          tile_rows, windows, stages=stages,
+                                          mappers=mappers)
+        copied = stream_copy_bytes(s_ops[0], s_ops[5], s_ops[2], blk,
+                                   K.FACTOR_ROW_TILE, K.STREAM_RANK_SLAB)
+        tbps, l2b = l2_fields(copied, t_k)
         log(f"[stream-main] mode {n}: {stats.nnz} nnz, {stats.num_blocks} "
             f"blocks; out-of-core {secs:.2f} s in {stats.chunks} chunks "
             f"{stats.chunk_block_counts[:6]}..., windows {stats.window_tiles}"
@@ -874,12 +961,16 @@ def phase_stream_main(ft, dev, gpu: str):
             f"{stats.presort_distinct_tile_bytes} B; scheduled/distinct "
             f"{stats.presort_scheduled_over_distinct:.4f} as given -> "
             f"{stats.scheduled_over_distinct:.4f} morton  [{gpu}]")
-        log(f"[stream-main] mode {n} single pass: windows {windows} (smem "
-            f"{smem} B); B6 {t_k:.3f} ms, B1 {t_b1:.3f} ms, plain {t_p:.3f} "
-            f"ms, bound {bound:.3f} ms ({by}, HBM 3.35 TB/s), max_abs_err "
+        log(f"[stream-main] mode {n} single pass: windows {windows}, "
+            f"stages {stages}, mappers {mappers} (smem {smem} B); B6 "
+            f"{t_k:.3f} ms, B1 {t_b1:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{bound:.3f} ms ({by}, HBM 3.35 TB/s); L2 {copied} B of tiles "
+            f"copied at {tbps:.3f} TB/s, L2 bound {l2b:.3f} ms; max_abs_err "
             f"{err:.3e}  [{gpu}]")
         rows.append(dict(mode=n, err=err, ms=t_k, plain_ms=t_p,
-                         bound_ms=bound, bound_by=by))
+                         bound_ms=bound, bound_by=by, l2_bytes=copied))
+        if n == 0:
+            frow_findings(b1_ops, b1, blk, tile_rows, rows_cap, gpu)
         del b1_ops, s_ops, b1, b6, plain
         # The same permuted stream in 128-slot blocks, for the choice of blk.
         ops128, windows128 = stream_operands(ops.gather_operands(
@@ -899,6 +990,39 @@ def phase_stream_main(ft, dev, gpu: str):
     profile_sweep(ft, rank, "pallas_fused_gather_stream", dev, blk=blk,
                   tile_rows=tile_rows, ordering="morton")
     return {"fused_mttkrp_nmode_gather_stream": (b6_launches, rows)}
+
+
+def frow_findings(b1_ops, b1, blk: int, tile_rows: int, rows_cap: int,
+                  gpu: str):
+    """B6 on one mode's permuted stream at frow_tile 4 and 2 (the default
+    is 8): fewer copied bytes per row a slot reads, more schedule entries.
+    Findings for the next PR; no default changes. Each run must still be
+    B1's bitwise."""
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    vals, idx_al, fmats, rows, tob = b1_ops
+    k, rank = len(fmats), fmats[0].shape[1]
+    for frow in (4, 2):
+        fm = tuple(ops._pad_factor_rows(f, frow) for f in fmats)
+        scheds, windows, _ = ops.stream_schedules(
+            idx_al, blk, [f.shape[0] for f in fm], frow_tile=frow)
+        kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+                  frow_tile=frow)
+        args = (vals, idx_al, fm, rows, tob, scheds)
+        out = K.fused_mttkrp_nmode_gather_stream(*args, **kw)
+        require(torch.equal(out, b1),
+                f"B6 at frow_tile={frow} differs from B1 bitwise")
+        ms = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(*args, **kw),
+                     3)
+        stages, mappers = K.stream_ring(k, rank, blk, tile_rows, windows,
+                                        frow_tile=frow)
+        copied = stream_copy_bytes(vals, scheds, fm, blk, frow,
+                                   K.STREAM_RANK_SLAB)
+        tbps, l2b = l2_fields(copied, ms)
+        log(f"[stream-frow] mode 0 frow_tile {frow}: windows {windows}, "
+            f"stages {stages}, mappers {mappers}; B6 {ms:.3f} ms, == B1 "
+            f"bitwise; L2 {copied} B of tiles copied at {tbps:.3f} TB/s, "
+            f"L2 bound {l2b:.3f} ms  [{gpu}]")
+        del out, scheds, fm
 
 
 def phase_four_mode(dev):
@@ -944,6 +1068,7 @@ def main() -> int:
     log(f"[gpu] {gpu}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
     phase_build()
+    phase_l2_rate(dev, gpu)
     phase_kernels(dev)
     phase_stream_kernels(dev)
     phase_fused_kernels(dev)
@@ -963,6 +1088,8 @@ def main() -> int:
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
             "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
             "bound_by": rows[0]["bound_by"],
+            "l2_bound_ms": float(np.mean([r["l2_bytes"] for r in rows]))
+            / L2_BYTES_PER_S * 1e3,
             "library_ms": (float(np.mean([r["library_ms"] for r in rows]))
                            if "library_ms" in rows[0] else None),
         })
@@ -970,9 +1097,11 @@ def main() -> int:
             and all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s; "
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
-        "of the main path; library_ms is index_add_ for segment_accumulate "
-        "and null for the others: no single PyTorch call computes "
-        "spMTTKRP")
+        "of the main path; l2_bound_ms is the L2 bytes (rows gathered by "
+        "B1/B2, tiles copied by B6, rows read by B3/B4/B5) over the "
+        f"measured L2 read rate {L2_BYTES_PER_S / 1e12:.3f} TB/s; "
+        "library_ms is index_add_ for segment_accumulate and null for the "
+        "others: no single PyTorch call computes spMTTKRP")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,7 @@ SOURCES = {
     "gather_mttkrp": CSRC / "gather_mttkrp.cu",              # B1, B2
     "gather_stream_mttkrp": CSRC / "gather_stream_mttkrp.cu",  # B6
     "fused_mttkrp": CSRC / "fused_mttkrp.cu",                # B3, B4, B5
+    "l2_probe": CSRC / "l2_probe.cu",          # L2 read-rate yardstick
 }
 HEADERS = (CSRC / "mttkrp_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # <checkout>/build/kernels (this file is src/repro_torch/kernels/mttkrp/).
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library name -> {launch function: argument types}.
 _LAUNCH_ARGTYPES = {
     "gather_mttkrp": {"gather_mttkrp_launch": (
@@ -52,9 +53,9 @@ _LAUNCH_ARGTYPES = {
         + [_P] * 4        # schedule pointers s0..s3
         + [_I] * 4        # schedule widths
         + [_P] * 3        # out, carry_in, carry_out
-        + [_I] * 13       # num_in, num_tiles, num_slabs, blk, tile_rows,
-                          # ld, slab, groups, lanes, frow, carry_in_tile,
-                          # carry_in_phase, carry_out_tile
+        + [_I] * 15       # num_in, num_tiles, num_slabs, blk, tile_rows,
+                          # ld, slab, groups, lanes, frow, stages, mappers,
+                          # carry_in_tile, carry_in_phase, carry_out_tile
         + [_P])},         # stream
     "fused_mttkrp": {
         "fused_mttkrp_launch": (
@@ -70,6 +71,10 @@ _LAUNCH_ARGTYPES = {
                           # groups, lanes, chunk
             + [_P]),      # stream
     },
+    "l2_probe": {"l2_read_launch": (
+        [_P, _L, _I]      # buffer, 16-byte elements, passes
+        + [_I, _I]        # blocks, threads
+        + [_P, _P])},     # sink, stream
 }
 
 

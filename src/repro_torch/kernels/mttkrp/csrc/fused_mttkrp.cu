@@ -120,7 +120,7 @@ __global__ void fused_mttkrp_kernel(const float* __restrict__ vals,
     for (int j0 = g; j0 < kChunk; j0 += groups * kUnroll) {
       float v[kUnroll];
       int r[kUnroll];
-      const float* rowp[kUnroll][K];
+      long long at[kUnroll];  // slot u's row offset in every row array
       bool use[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -130,12 +130,11 @@ __global__ void fused_mttkrp_kernel(const float* __restrict__ vals,
         use[u] = v[u] != 0.0f;
         r[u] = use[u] ? s_row[j] : 0;
         use[u] = use[u] && (unsigned)r[u] < (unsigned)tile_rows;
-        const long long i = use[u] ? base + j : 0;
-#pragma unroll
-        for (int w = 0; w < K; ++w) rowp[u][w] = rs.ptr[w] + i * ld + col0;
+        at[u] = (use[u] ? base + j : 0) * ld + col0;
       }
-      mttkrp_common::add_products<K, kUnroll>(v, r, rowp, use, mine, slab,
-                                              lane, lanes);
+      mttkrp_common::add_products<K, kUnroll>(
+          v, r, [&](int u, int w) { return rs.ptr[w] + at[u]; }, use, mine,
+          slab, lane, lanes);
     }
     __syncthreads();  // the next chunk overwrites the staging buffers
   }

@@ -1,10 +1,11 @@
 // In-kernel-gather fused spMTTKRP for Hopper (sm_90a).
 //
-// Replaces repro/kernels/mttkrp/kernel.py:fused_mttkrp_nmode_gather and
-// fused_mttkrp_nmode_gather_tiled (the two share _fused_gather_body). One
-// device function serves both: the untiled kernel is the case where the
-// column slab is the whole padded rank; the tiled kernel adds a grid axis
-// over column slabs (blockIdx.y).
+// Replaces repro/kernels/mttkrp/kernel.py:fused_mttkrp_nmode_gather (:632,
+// pallas_call :711) and fused_mttkrp_nmode_gather_tiled (:728, pallas_call
+// :799); the two share _fused_gather_body. One device function serves
+// both: the untiled kernel is the case where the column slab is the whole
+// padded rank; the tiled kernel adds a grid axis over column slabs
+// (blockIdx.y).
 //
 // What it computes. For every block b of the block-aligned nonzero stream
 // and every slot i in it:
@@ -17,20 +18,33 @@
 //
 // What bounds it. Per nonzero the stream brings 4 B of value, 4 B of local
 // row and 4 B per input mode of factor index: 16 B/nnz for a 3-mode tensor,
-// read from HBM exactly once. The factor matrices are small next to that (at
-// R=16 every factor of nell-2 is <= 1.9 MB) and stay in the 50 MB L2, and
-// the output is written once. So the kernel is bound by the HBM bytes of
-// the nonzero stream; in practice the random factor-row gathers out of L2
-// are the second limit.
+// read from HBM exactly once (the HBM bound). Each nonzero also gathers K
+// factor rows of `slab` floats per slab (64 B each at R=16) at random out
+// of the 50 MB L2, where the factors stay: nnz * K * R * 4 bytes through L2
+// (the L2 bound, against the card's measured L2 read rate). At R=16 that
+// is 128 B of rows per nonzero beside 16 B of stream, 8x the HBM bytes,
+// so the L2 gathers, their latency and the run's serial phases are what
+// bound the kernel.
 //
 // What the design does about it.
-//  * The stream is read once: a CTA stages kChunk slots at a time into
-//    shared memory with coalesced loads, and a chunk holding only padding
-//    is skipped after reading its values. The factors are gathered straight
-//    from global memory through the read-only path (L2-resident), and the
-//    TPU's one-hot MXU gather and scatter are gone. Each group issues the
-//    factor loads of kUnroll slots before it adds any of them, so several
-//    loads are in flight per thread.
+//  * The stream is read once and staged asynchronously: a CTA copies
+//    kChunk slots at a time (values, local rows, K indices, all of them,
+//    with 16-byte cp.async) into one of kBuffers = 2 shared-memory
+//    buffers, so chunk c+1 lands while chunk c gathers; no HBM round trip
+//    sits between two chunks' gathers. A chunk whose values are all zero
+//    (padding) gathers nothing, decided from the staged values.
+//  * CTAs take the output tiles last first (tile = num_tiles-1-blockIdx.x):
+//    the all-padding blocks of the aligned stream are clipped onto the
+//    last tile, so its run is the longest, and it now starts in the first
+//    wave instead of running alone after the last.
+//  * The factors are gathered straight from global memory through the
+//    read-only path (L2-resident), and the TPU's one-hot MXU gather and
+//    scatter are gone. Each group issues the factor loads of kUnroll slots
+//    before it adds any of them, so several loads are in flight per thread.
+//    A slot's rows are kept as 32-bit offsets into the factors (the
+//    wrapper checks each has fewer than 2^31 elements), not as 64-bit
+//    pointers: the pointers' registers kept CTAs off the SMs, and cutting
+//    them is what moved the time most (bench_torch/kernel_ablation.py).
 //  * One CTA owns one output tile (tile_of_block is non-decreasing, so a
 //    tile's blocks form a contiguous run, found by the wrapper with
 //    searchsorted). The tile lives in shared memory and is written to HBM
@@ -49,6 +63,12 @@
 //    gather. An out-of-range local row or factor index is skipped too, so
 //    a malformed stream cannot write or read out of bounds.
 //
+// Shared memory (kernel.gather_smem_bytes): groups x tile_rows x slab
+// floats of partial tiles, then kBuffers staging buffers, each kChunk
+// values, kChunk local rows and kChunk x K indices (4 bytes each).
+// The wrapper checks that vals, idx and local rows are 16-byte aligned and
+// blk a multiple of 4, so every 16-byte piece is aligned.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ../build.py); bound with ctypes.
 
@@ -57,14 +77,31 @@
 namespace {
 
 using mttkrp_common::FactorSet;
-// Slots of the stream a CTA stages in shared memory at a time (a multiple
-// of every block size the wrapper picks: groups (<= 16) x lanes (16 or
-// 32), powers of two up to 512). No __launch_bounds__: on the H100 it
-// made the wide-slab kernel slower; at <= 96 registers a 512-thread CTA
-// fits, and a refused launch is reported by the wrapper.
-constexpr int kChunk = 2048;
+// Slots of the stream one staging buffer holds (a multiple of every
+// `groups`, <= 16). No __launch_bounds__: on the H100 it made the
+// wide-slab kernel slower; at <= 96 registers a 512-thread CTA fits, and a
+// refused launch is reported by the wrapper.
+constexpr int kChunk = 1024;
+constexpr int kBuffers = 2;
 // Slots of one group whose factor loads are in flight together.
 constexpr int kUnroll = 4;
+
+// Issue the copies of slots [base, base + cnt) (cnt a multiple of 4) into
+// one staging buffer, and commit them as one group.
+template <int K>
+__device__ __forceinline__ void stage_chunk(const float* vals, const int* idx,
+                                            const int* lrow, long long base,
+                                            int cnt, float* s_val, int* s_row,
+                                            int* s_idx) {
+  const int pieces = cnt / 4;
+  for (int p = threadIdx.x; p < pieces; p += blockDim.x) {
+    mttkrp_common::cp_async16(s_val + 4 * p, vals + base + 4 * p);
+    mttkrp_common::cp_async16(s_row + 4 * p, lrow + base + 4 * p);
+  }
+  for (int p = threadIdx.x; p < pieces * K; p += blockDim.x)
+    mttkrp_common::cp_async16(s_idx + 4 * p, idx + base * K + 4 * p);
+  mttkrp_common::cp_async_commit();
+}
 
 template <int K>
 __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
@@ -74,16 +111,15 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
                                      FactorSet fs, float* __restrict__ out,
                                      int blk, int tile_rows, int ld,
                                      int slab, int groups, int lanes) {
-  // Dynamic shared memory: groups x tile_rows x slab partial tiles, then
-  // the staged chunk of the stream (values, local rows, K indices).
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tile_elems = tile_rows * slab;
   float* part = smem;
-  float* s_val = part + (size_t)groups * tile_elems;
-  int* s_row = reinterpret_cast<int*>(s_val + kChunk);
-  int* s_idx = s_row + kChunk;
+  // Staging buffer q: values, local rows, K indices of kChunk slots.
+  float* stage = part + (size_t)groups * tile_elems;
+  constexpr int kBufFloats = kChunk * (2 + K);
 
-  const int t = blockIdx.x;
+  const int t = gridDim.x - 1 - blockIdx.x;  // the last tile first
   const int col0 = blockIdx.y * slab;
   const int b0 = blk_start[t];
   const int b1 = blk_start[t + 1];
@@ -95,27 +131,44 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
   const int g = threadIdx.x / lanes;
   const int lane = threadIdx.x % lanes;
   float* mine = part + (size_t)g * tile_elems;
+  const long long first = (long long)b0 * blk;
   const long long end = (long long)b1 * blk;
-  for (long long base = (long long)b0 * blk; base < end; base += kChunk) {
-    // Stage the chunk with coalesced loads, the independent value loads
-    // first; a padding slot (val == 0) loads nothing else. A chunk without
-    // a nonzero value is skipped as a whole, so the all-padding blocks
-    // clipped onto the last tile cost one coalesced read of their values.
-#pragma unroll 8
-    for (int j = threadIdx.x; j < kChunk; j += blockDim.x) {
-      const long long i = base + j;
-      s_val[j] = i < end ? vals[i] : 0.0f;
+  const int nchunks = (int)((end - first + kChunk - 1) / kChunk);
+  auto buf_val = [&](int q) { return stage + (size_t)q * kBufFloats; };
+  auto buf_row = [&](int q) {
+    return reinterpret_cast<int*>(buf_val(q) + kChunk);
+  };
+  auto buf_idx = [&](int q) { return buf_row(q) + kChunk; };
+  auto count = [&](int c) {
+    const long long left = end - first - (long long)c * kChunk;
+    return (int)(left < kChunk ? left : kChunk);
+  };
+
+  stage_chunk<K>(vals, idx, lrow, first, count(0), buf_val(0), buf_row(0),
+                 buf_idx(0));
+  for (int c = 0; c < nchunks; ++c) {
+    const int q = c % kBuffers;
+    const int cnt = count(c);
+    // Chunk c+1's copies fly while chunk c gathers. Its buffer was last
+    // read in iteration c-1, before that iteration's closing barrier.
+    if (c + 1 < nchunks) {
+      const int qn = (c + 1) % kBuffers;
+      stage_chunk<K>(vals, idx, lrow, first + (long long)(c + 1) * kChunk,
+                     count(c + 1), buf_val(qn), buf_row(qn), buf_idx(qn));
+      mttkrp_common::cp_async_wait<1>();
+    } else {
+      mttkrp_common::cp_async_wait<0>();
     }
+    const float* s_val = buf_val(q);
+    const int* s_row = buf_row(q);
+    const int* s_idx = buf_idx(q);
+    // This thread's own pieces of the values have landed; the vote is also
+    // the barrier after which every thread's pieces are visible. A chunk
+    // of padding only is skipped as a whole.
     int any = 0;
-#pragma unroll 4
-    for (int j = threadIdx.x; j < kChunk; j += blockDim.x) {
-      if (s_val[j] != 0.0f) {  // this thread's own slot: no barrier needed
-        const long long i = base + j;
-        any = 1;
-        s_row[j] = lrow[i];
-#pragma unroll
-        for (int w = 0; w < K; ++w) s_idx[j * K + w] = idx[i * K + w];
-      }
+    for (int p = threadIdx.x; p < cnt / 4; p += blockDim.x) {
+      const float4 v = reinterpret_cast<const float4*>(s_val)[p];
+      any |= (v.x != 0.0f) | (v.y != 0.0f) | (v.z != 0.0f) | (v.w != 0.0f);
     }
     if (!__syncthreads_or(any)) continue;
 
@@ -123,15 +176,15 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
     // multiple of groups, so across chunks it walks every groups-th slot
     // of the tile's run in order), kUnroll slots at a time: the factor
     // loads of a batch are issued before its adds, which run in slot order.
-    for (int j0 = g; j0 < kChunk; j0 += groups * kUnroll) {
+    for (int j0 = g; j0 < cnt; j0 += groups * kUnroll) {
       float v[kUnroll];
       int r[kUnroll];
-      const float* rowp[kUnroll][K];
+      int at[kUnroll][K];  // slot u's row offset in factor w
       bool use[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + u * groups;
-        v[u] = j < kChunk ? s_val[j] : 0.0f;
+        v[u] = j < cnt ? s_val[j] : 0.0f;
         // Padding slots and out-of-range rows or indices add nothing.
         use[u] = v[u] != 0.0f;
         r[u] = use[u] ? s_row[j] : 0;
@@ -140,13 +193,14 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
         for (int w = 0; w < K; ++w) {
           const int ix = use[u] ? s_idx[j * K + w] : 0;
           use[u] = use[u] && (unsigned)ix < (unsigned)fs.rows[w];
-          rowp[u][w] = fs.ptr[w] + (long long)ix * ld + col0;
+          at[u][w] = ix * ld + col0;
         }
       }
-      mttkrp_common::add_products<K, kUnroll>(v, r, rowp, use, mine, slab,
-                                              lane, lanes);
+      mttkrp_common::add_products<K, kUnroll>(
+          v, r, [&](int u, int w) { return fs.ptr[w] + at[u][w]; }, use,
+          mine, slab, lane, lanes);
     }
-    __syncthreads();  // the next chunk overwrites the staging buffers
+    __syncthreads();  // chunk c+2's copies overwrite this buffer
   }
 
   // Fixed-order reduction of the group partials into the output tile.
@@ -162,7 +216,7 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
                      int ld, int slab, int groups, int lanes,
                      cudaStream_t stream) {
   const size_t smem = (size_t)groups * tile_rows * slab * sizeof(float) +
-                      (size_t)kChunk * (2 + K) * sizeof(float);
+                      (size_t)kBuffers * kChunk * (2 + K) * sizeof(float);
   const cudaError_t e =
       mttkrp_common::allow_smem(gather_mttkrp_kernel<K>, smem);
   if (e != cudaSuccess) return e;

@@ -2,11 +2,11 @@
 // kernel (B6).
 //
 // Replaces repro/kernels/mttkrp/kernel.py:fused_mttkrp_nmode_gather_stream
-// (body _fused_gather_stream_body). The factor matrices stay in device
-// memory; per nonzero block and input mode w the kernel copies the W_w
-// factor tiles (frow rows x slab columns) that the block's schedule row
-// names into a window in shared memory, and every slot reads its factor
-// rows from that window.
+// (:868, pallas_call :969; body _fused_gather_stream_body). The factor
+// matrices stay in device memory; per nonzero block and input mode w the
+// kernel copies the W_w factor tiles (frow rows x slab columns) that the
+// block's schedule row names into a window in shared memory, and every
+// slot reads its factor rows from that window.
 //
 // What it computes. For every block b of the block-aligned stream and
 // every slot i in it, with tile(w, i) = idx[i, w] / frow:
@@ -21,30 +21,45 @@
 // resident".
 //
 // What bounds it. Each nonzero's value, local row and K indices are read
-// from device memory once (4 + 4 + 4K bytes), and each block copies the
-// distinct tiles of its schedule rows (frow * slab * 4 bytes each, once
-// per slab). Those tile bytes are what the stream counts as
-// distinct_tile_bytes; on data without locality they exceed B1's row
-// gathers, since a tile brings frow rows for the one a slot reads. The
-// copies come out of the 50 MB L2 where the factors fit, so the kernel is
-// bound by L2-to-shared-memory bandwidth and by the latency of the
-// per-block phases more than by HBM bytes.
+// from device memory once (4 + 4 + 4K bytes: the HBM bound), and each
+// block copies the distinct tiles of its schedule rows (frow * slab * 4
+// bytes each, once per slab): the stream's distinct_tile_bytes, ~56 GB per
+// mode at nell-2 scale under Morton order, ~30x the HBM bytes. They come
+// out of the 50 MB L2, so the L2 bound (tile bytes over the card's
+// measured L2 read rate) is the one the kernel can approach, and the
+// latency of a block's copies is what it must hide.
 //
-// What the design does about it.
+// What the design does about it. The first port ran each block through
+// three phases between three barriers (stage, copy, add), so nothing of
+// block b+1 was in flight while block b added.
+// Now a ring of `stages` window stages (the most that fit 227 KB beside
+// eight mapper warps; the wrapper picks it, kernel.stream_ring) and four
+// roles of warps, synchronised only by mbarriers:
+//  * The meta warp stages each block's values, local rows and indices
+//    (three bulk copies, the TMA's 1-D form) and its K schedule rows
+//    (4-byte cp.async: a row of odd width is not 16-byte aligned) into a
+//    meta slot, stages + mappers + 1 slots deep, well ahead of use.
+//  * Mapper warps (warp q takes blocks q, q + mappers, ...) plan a block
+//    without touching the window: a block of padding only is flagged and
+//    copies nothing; otherwise each schedule entry that repeats entry 0,
+//    or lies outside the factor, reads as kNoTile (never copied, never
+//    matched), each run of consecutive tiles in consecutive window slots
+//    becomes one copy (tiles are contiguous in the factor when
+//    ld == slab), and each slot is mapped to its window rows by a binary
+//    search of the sorted schedule row (a scan when the row is not
+//    sorted). Planning a block is a long chain of dependent shared-memory
+//    reads for one warp, so several warps plan blocks at once.
+//  * Issuer warps take the planned blocks in order: once a stage is free
+//    they issue the block's copies (one bulk copy per run, or per tile
+//    row when ld > slab), each warp announcing its bytes to the stage's
+//    full barrier. A warp's lanes issue their bulk copies one after
+//    another, so four warps share a block's copies.
+//  * Consumer warps wait on a stage's full barrier, add, and release the
+//    stage and the meta slot. So block i's adds overlap the copies of
+//    blocks i+1 ... i+stages-1 and the planning of the blocks after.
 //  * One CTA owns one output tile and walks its contiguous run of blocks
-//    (as in B1); a block holding only padding is skipped after one
-//    coalesced read of its values, so the padding blocks clipped onto the
-//    last tile cost almost nothing.
-//  * Per block, three phases and three barriers: (1) stage the values,
-//    local rows, indices and K schedule rows with independent loads;
-//    (2) issue the tile copies, a warp per tile, with 16-byte cp.async
-//    (no registers held, one commit group), and while they fly map each
-//    slot to its window rows by a binary search of the sorted schedule
-//    row, once per slot rather than once per lane; (3) accumulate. A
-//    schedule entry that repeats entry 0 is never the first match, so
-//    its copy is skipped: the padding of a short row costs nothing.
-//  * The CTA has 512 threads whatever `groups * lanes` is: the extra
-//    warps stage and copy, and only the first groups * lanes threads add.
+//    (as in B1), the last tile first: the padding blocks clipped onto the
+//    last tile make its run the longest.
 //  * Accumulation is B1's: `groups` groups of `lanes` threads, group g
 //    takes the slots whose index in the tile's run is g mod groups, in
 //    order, its lanes split the columns, and it adds with __fmul_rn /
@@ -55,8 +70,21 @@
 //    reducing them, and the next chunk's CTA of the same tile starts from
 //    them (`carry_in`), with the slot phase it hands on, so the adds are
 //    the single pass's, bracketed the same way.
-//  * TMA and a multi-stage mbarrier ring, which would overlap one block's
-//    copies with the previous block's sums, are left for later work.
+//
+// Shared memory (kernel.gather_stream_smem_bytes), in this order:
+//   partial tiles   groups * tile_rows * slab floats
+//   windows         stages x wsum * frow * slab floats (wsum = sum W_w)
+//   meta slots      (stages + mappers + 1) x slot_ints ints: blk values,
+//                   blk local rows, blk * K indices (the mapper writes
+//                   window rows over them), wsum schedule entries padded
+//                   to 16 bytes; then wsum copy-run lengths and a flag
+//                   (the block holds a nonzero), padded to 16 bytes
+//   mbarriers       8 bytes each: full, empty per stage; meta full,
+//                   planned, meta empty per meta slot
+// Threads: the consumers (groups * lanes, rounded up to a warp), the
+// mapper warps, kIssuerWarps issuer warps and the meta warp. The wrapper
+// checks that vals, local rows, indices and factors are 16-byte aligned
+// and blk a multiple of 4, so every bulk copy is aligned.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ../build.py); bound with ctypes.
@@ -66,15 +94,12 @@
 namespace {
 
 using mttkrp_common::FactorSet;
-using mttkrp_common::cp_async16;
-using mttkrp_common::cp_async_commit;
-using mttkrp_common::cp_async_wait_all;
 using mttkrp_common::kMaxInModes;
+using mttkrp_common::mbar_arrive;
+using mttkrp_common::mbar_wait;
+using Barrier = unsigned long long;
 
-// Threads of a CTA: groups * lanes (<= 512) accumulate; all of them stage
-// the block and copy the window.
-constexpr int kThreads = 512;
-// A schedule entry never read: it sorts after every tile.
+// A schedule entry never copied or read: it sorts after every tile.
 constexpr int kNoTile = 0x7fffffff;
 
 // Per input mode: the (num_blocks, width) int32 schedule and its width.
@@ -83,6 +108,29 @@ struct ScheduleSet {
   int width[kMaxInModes];
 };
 
+// Warps of a CTA besides the consumers: one stages the blocks' meta,
+// `mappers` (the wrapper picks 1..8) map blocks' slots and plan their
+// copies (warp q takes the blocks q, q + mappers, ...), and kIssuerWarps
+// issue each block's copies.
+constexpr int kIssuerWarps = 4;
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Ints of one meta slot: the staged block (blk values, blk local rows,
+// blk * K indices, wsum schedule entries), then the block's plan (wsum
+// copy-run lengths and a flag).
+__host__ __device__ inline int meta_slot_ints(int k, int blk, int wsum) {
+  return (2 + k) * blk + round4(wsum) + round4(wsum + 1);
+}
+
+__host__ __device__ inline int meta_slots(int stages, int mappers) {
+  return stages + mappers + 1;
+}
+
+__host__ __device__ inline int consumer_threads(int groups, int lanes) {
+  return (groups * lanes + 31) / 32 * 32;
+}
+
 template <int K>
 __global__ void gather_stream_mttkrp_kernel(
     const float* __restrict__ vals, const int* __restrict__ idx,
@@ -90,10 +138,8 @@ __global__ void gather_stream_mttkrp_kernel(
     FactorSet fs, ScheduleSet ss, float* __restrict__ out,
     const float* __restrict__ carry_in, float* __restrict__ carry_out,
     int blk, int tile_rows, int ld, int slab, int groups, int lanes, int frow,
-    int carry_in_tile, int carry_in_phase, int carry_out_tile) {
-  // Dynamic shared memory (kernel.gather_stream_smem_bytes): the partial
-  // tiles, the window (per mode, width tiles of frow x slab), the staged
-  // values, local rows and window rows, and the schedule rows.
+    int stages, int mappers, int carry_in_tile, int carry_in_phase,
+    int carry_out_tile) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   int woff[K];  // first window tile of each mode
@@ -104,152 +150,274 @@ __global__ void gather_stream_mttkrp_kernel(
     wsum += ss.width[w];
   }
   const int tile_elems = tile_rows * slab;
-  const size_t part_elems = (size_t)groups * tile_elems;
+  const int part_elems = groups * tile_elems;
+  const int win_floats = wsum * frow * slab;
+  const int slot_ints = meta_slot_ints(K, blk, wsum);
+  const int nmeta = meta_slots(stages, mappers);
+  const int plan_off = (2 + K) * blk + round4(wsum);  // run lengths, flag
   float* part = smem;
   float* win = part + part_elems;  // 16-byte aligned: slab % 16 == 0
-  float* s_val = win + (size_t)wsum * frow * slab;
-  int* s_row = reinterpret_cast<int*>(s_val + blk);
-  int* s_loc = s_row + blk;
-  int* s_sched = s_loc + blk * K;
+  int* meta = reinterpret_cast<int*>(win + (size_t)stages * win_floats);
+  Barrier* full = reinterpret_cast<Barrier*>(meta + (size_t)nmeta * slot_ints);
+  Barrier* empty = full + stages;
+  Barrier* mfull = empty + stages;    // the meta landed
+  Barrier* mapped = mfull + nmeta;    // the plan is written
+  Barrier* mempty = mapped + nmeta;   // the consumers are done with it
 
-  const int t = blockIdx.x;
+  const int t = gridDim.x - 1 - blockIdx.x;  // the last tile first
   const int col0 = blockIdx.y * slab;
   const int b0 = blk_start[t];
   const int b1 = blk_start[t + 1];
   if (b0 == b1) return;  // no block maps here: the tile keeps out_init
+  const int nblk = b1 - b0;
+  const int consumers = consumer_threads(groups, lanes);
+  const unsigned consumer_warps = consumers / 32;
+  const int mappers0 = consumers;                    // first mapper thread
+  const int issuers0 = mappers0 + 32 * mappers;  // first issuer thread
+  const int meta0 = issuers0 + 32 * kIssuerWarps;     // the meta warp
 
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mttkrp_common::mbar_init(&full[s], kIssuerWarps);
+      mttkrp_common::mbar_init(&empty[s], consumer_warps);
+    }
+    for (int m = 0; m < nmeta; ++m) {
+      mttkrp_common::mbar_init(&mfull[m], 32 + 1);
+      mttkrp_common::mbar_init(&mapped[m], 1);
+      mttkrp_common::mbar_init(&mempty[m], consumer_warps);
+    }
+    mttkrp_common::mbar_init_fence();
+  }
   const bool carried = t == carry_in_tile;
-  for (size_t e = threadIdx.x; e < part_elems; e += blockDim.x)
-    part[e] = carried ? carry_in[blockIdx.y * part_elems + e] : 0.0f;
+  for (int e = threadIdx.x; e < part_elems; e += blockDim.x)
+    part[e] = carried ? carry_in[(size_t)blockIdx.y * part_elems + e] : 0.0f;
+  __syncthreads();
 
-  // Threads past groups * lanes only stage and copy.
-  const int g = threadIdx.x / lanes;
-  const int lane = threadIdx.x % lanes;
-  float* mine = part + (size_t)g * tile_elems;
-  const int warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  const int segs = slab / 4;  // 16-byte pieces of one tile row
-  const int tile_segs = frow * segs;
-  // Index, within the tile's run, of this block's first slot, mod groups.
-  int phase = carried ? carry_in_phase : 0;
-  for (int b = b0; b < b1; ++b, phase = (phase + blk) % groups) {
-    // Stage the block: values, local rows, indices and schedule rows, all
-    // loads independent. A schedule entry that repeats entry 0, or lies
-    // outside the factor, is stored as kNoTile: it is never the first
-    // match, so its tile is not copied, and the rest of a schedule built
-    // by ops.tile_schedule stays sorted for the binary search below.
-    const long long base = (long long)b * blk;
-    int any = 0;
-    for (int j = threadIdx.x; j < blk; j += blockDim.x) {
-      const float v = vals[base + j];
-      s_val[j] = v;
-      s_row[j] = lrow[base + j];
-#pragma unroll
-      for (int w = 0; w < K; ++w) s_loc[j * K + w] = idx[(base + j) * K + w];
-      any |= v != 0.0f;
-    }
-#pragma unroll
-    for (int w = 0; w < K; ++w) {
-      const int* row = ss.ptr[w] + (long long)b * ss.width[w];
-      const int first = row[0];
-      const int ntiles = fs.rows[w] / frow;
-      for (int j = threadIdx.x; j < ss.width[w]; j += blockDim.x) {
-        const int tile = row[j];
-        s_sched[woff[w] + j] =
-            (j > 0 && tile == first) || (unsigned)tile >= (unsigned)ntiles
-                ? kNoTile
-                : tile;
-      }
-    }
-    if (!__syncthreads_or(any)) continue;  // padding only: adds nothing
-
-    // Copy the scheduled tiles into the window, one slab wide: a warp per
-    // tile, a 16-byte piece per lane.
-#pragma unroll
-    for (int w = 0; w < K; ++w) {
-      const int* sch = s_sched + woff[w];
-      for (int j = warp; j < ss.width[w]; j += nwarps) {
-        const int tile = sch[j];
-        if (tile == kNoTile) continue;
-        const float* src = fs.ptr[w] + (long long)tile * frow * ld + col0;
-        float* dst = win + (size_t)(woff[w] + j) * frow * slab;
-        for (int p = threadIdx.x % 32; p < tile_segs; p += 32) {
-          const int r = p / segs;
-          const int s4 = (p - r * segs) * 4;
-          cp_async16(dst + r * slab + s4, src + (long long)r * ld + s4);
-        }
-      }
-    }
-    cp_async_commit();
-
-    // While the copies fly: each slot's window row per mode (-1: the slot
-    // adds nothing), and its local row (-1 likewise). A binary search
-    // finds the tile in a sorted schedule; a schedule in another order
-    // falls back to a scan. Any slot that holds the tile holds the same
-    // rows, so the first match's rows are read.
-    for (int j = threadIdx.x; j < blk; j += blockDim.x) {
-      int r = -1;
-      if (s_val[j] != 0.0f) {
-        r = s_row[j];
-        if ((unsigned)r >= (unsigned)tile_rows) r = -1;
-      }
+  const int pl = threadIdx.x % 32;
+  const unsigned tile_bytes = frow * slab * 4;
+  if (threadIdx.x >= meta0) {
+    // ---- the meta warp: each block's values, local rows and indices (3
+    // bulk copies) and schedule rows (4-byte cp.async) into its slot ----
+    for (int i = 0; i < nblk; ++i) {
+      const int m = i % nmeta;
+      mbar_wait(&mempty[m], ((i / nmeta) & 1) ^ 1);
+      int* sl = meta + (size_t)m * slot_ints;
+      const long long b = b0 + i;
+      int* s_sched = sl + (2 + K) * blk;
 #pragma unroll
       for (int w = 0; w < K; ++w) {
-        int loc = -1;
-        if (r >= 0) {
-          const int ix = s_loc[j * K + w];
-          if ((unsigned)ix < (unsigned)fs.rows[w]) {
-            const int tile = ix / frow;
-            const int* sch = s_sched + woff[w];
-            int lo = 0;
-            int hi = ss.width[w];
-            while (lo < hi) {
-              const int mid = (lo + hi) >> 1;
-              if (sch[mid] < tile)
-                lo = mid + 1;
-              else
-                hi = mid;
-            }
-            int q = lo < ss.width[w] && sch[lo] == tile ? lo : -1;
-            for (int u = 0; q < 0 && u < ss.width[w]; ++u)
-              if (sch[u] == tile) q = u;
-            if (q >= 0) loc = (woff[w] + q) * frow + ix % frow;
+        const int* row = ss.ptr[w] + b * ss.width[w];
+        for (int j = pl; j < ss.width[w]; j += 32)
+          mttkrp_common::cp_async4(s_sched + woff[w] + j, row + j);
+      }
+      mttkrp_common::cp_async_mbar_arrive_noinc(&mfull[m]);
+      if (pl == 0) {
+        mttkrp_common::mbar_arrive_expect_tx(&mfull[m], (2 + K) * blk * 4);
+        mttkrp_common::bulk_g2s(sl, vals + b * blk, blk * 4, &mfull[m]);
+        mttkrp_common::bulk_g2s(sl + blk, lrow + b * blk, blk * 4, &mfull[m]);
+        mttkrp_common::bulk_g2s(sl + 2 * blk, idx + b * blk * K, blk * K * 4,
+                                &mfull[m]);
+      }
+    }
+  } else if (threadIdx.x >= issuers0) {
+    // ---- the issuer warps: block by block, once its plan is written and
+    // its stage is free, each issues its share of the planned copies ----
+    const int iw = (threadIdx.x - issuers0) / 32;
+    const int step = 32 * kIssuerWarps;
+    for (int i = 0; i < nblk; ++i) {
+      const int s = i % stages;
+      const int m = i % nmeta;
+      mbar_wait(&mapped[m], (i / nmeta) & 1);
+      mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+      const int* sl = meta + (size_t)m * slot_ints;
+      const int* s_sched = sl + (2 + K) * blk;
+      const int* runs = sl + plan_off;
+      if (runs[wsum]) {
+        // Entry e = pl * kIssuerWarps + iw + k * step of the window.
+        unsigned bytes = 0;
+        for (int e = pl * kIssuerWarps + iw; e < wsum; e += step)
+          bytes += runs[e] * tile_bytes;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+        if (pl == 0) mttkrp_common::mbar_expect_tx(&full[s], bytes);
+        __syncwarp();
+        float* wins = win + (size_t)s * win_floats;
+        for (int e = pl * kIssuerWarps + iw; e < wsum; e += step) {
+          const int len = runs[e];
+          if (len == 0) continue;
+          const float* base = fs.ptr[0];
+#pragma unroll
+          for (int w = 1; w < K; ++w)
+            if (e >= woff[w]) base = fs.ptr[w];
+          const float* src = base + (long long)s_sched[e] * frow * ld + col0;
+          float* dst = wins + (size_t)e * frow * slab;
+          if (ld == slab) {
+            mttkrp_common::bulk_g2s(dst, src, len * tile_bytes, &full[s]);
+          } else {
+            for (int r = 0; r < frow; ++r)
+              mttkrp_common::bulk_g2s(dst + r * slab, src + (long long)r * ld,
+                                      slab * 4, &full[s]);
           }
-          if (loc < 0) r = -1;
-        }
-        s_loc[j * K + w] = loc;
-      }
-      s_row[j] = r;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // B1's accumulation: group g takes the slots j with
-    // (phase + j) % groups == g, in order.
-    if (g < groups) {
-      for (int j = (g - phase + groups) % groups; j < blk; j += groups) {
-        const int r = s_row[j];
-        if (r < 0) continue;
-        const float v = s_val[j];
-        const float* rowp[K];
-#pragma unroll
-        for (int w = 0; w < K; ++w)
-          rowp[w] = win + (size_t)s_loc[j * K + w] * slab;
-        for (int c = lane; c < slab; c += lanes) {
-          float p = v;
-#pragma unroll
-          for (int w = 0; w < K; ++w) p = __fmul_rn(p, rowp[w][c]);
-          float* dst = mine + r * slab + c;
-          *dst = __fadd_rn(*dst, p);
         }
       }
+      __syncwarp();
+      if (pl == 0) mbar_arrive(&full[s]);
     }
-    __syncthreads();  // the next block overwrites the staging and window
+  } else if (threadIdx.x >= mappers0) {
+    // ---- the mapper warps: warp q plans the blocks q, q + mappers, ...:
+    // which copies to make, and each slot's window rows ----
+    const int q = (threadIdx.x - mappers0) / 32;
+    for (int i = q; i < nblk; i += mappers) {
+      const int m = i % nmeta;
+      mbar_wait(&mfull[m], (i / nmeta) & 1);
+      int* sl = meta + (size_t)m * slot_ints;
+      const float* s_val = reinterpret_cast<const float*>(sl);
+      int* s_row = sl + blk;
+      int* s_loc = sl + 2 * blk;  // indices in, window rows out
+      const int* s_sched = sl + (2 + K) * blk;
+      int* runs = sl + plan_off;
+      int any = 0;
+      for (int j = pl; j < blk; j += 32) any |= s_val[j] != 0.0f;
+      any = __any_sync(0xffffffffu, any);
+      if (any) {
+        // Entry j of a schedule row as the kernel reads it: an entry that
+        // repeats entry 0, or lies outside the factor, is kNoTile (never
+        // copied, never matched; a row built by ops.tile_schedule stays
+        // sorted for the binary search below).
+        int first[K];
+        int ntiles[K];
+#pragma unroll
+        for (int w = 0; w < K; ++w) {
+          first[w] = s_sched[woff[w]];
+          ntiles[w] = fs.rows[w] / frow;
+        }
+        auto entry = [&](int w, int j) {
+          const int tile = s_sched[woff[w] + j];
+          return (j > 0 && tile == first[w]) ||
+                         (unsigned)tile >= (unsigned)ntiles[w]
+                     ? kNoTile
+                     : tile;
+        };
+        // The copies: one per run of consecutive tiles in consecutive
+        // window slots (contiguous in both places when ld == slab), else
+        // one per tile; runs[e] is the run's length at its first entry.
+#pragma unroll
+        for (int w = 0; w < K; ++w) {
+          for (int j = pl; j < ss.width[w]; j += 32) {
+            const int tile = entry(w, j);
+            int len = 0;
+            if (tile != kNoTile) {
+              len = 1;
+              if (ld == slab) {
+                if (j > 0 && entry(w, j - 1) == tile - 1) {
+                  len = 0;  // inside a run
+                } else {
+                  while (j + len < ss.width[w] &&
+                         entry(w, j + len) == tile + len)
+                    ++len;
+                }
+              }
+            }
+            runs[woff[w] + j] = len;
+          }
+        }
+        // Each slot's window row per mode (-1: the slot adds nothing), and
+        // its local row (-1 likewise), in place. A binary search finds the
+        // tile in a sorted schedule row; a row in another order falls back
+        // to a scan. Any entry that holds the tile holds the same rows.
+        for (int j = pl; j < blk; j += 32) {
+          int r = -1;
+          if (s_val[j] != 0.0f) {
+            r = s_row[j];
+            if ((unsigned)r >= (unsigned)tile_rows) r = -1;
+          }
+#pragma unroll
+          for (int w = 0; w < K; ++w) {
+            int loc = -1;
+            if (r >= 0) {
+              const int ix = s_loc[j * K + w];
+              if ((unsigned)ix < (unsigned)fs.rows[w]) {
+                const int tile = ix / frow;
+                const int width = ss.width[w];
+                int lo = 0;
+                int hi = width;
+                while (lo < hi) {
+                  const int mid = (lo + hi) >> 1;
+                  if (entry(w, mid) < tile)
+                    lo = mid + 1;
+                  else
+                    hi = mid;
+                }
+                int hit = lo < width && entry(w, lo) == tile ? lo : -1;
+                for (int u = 0; hit < 0 && u < width; ++u)
+                  if (entry(w, u) == tile) hit = u;
+                if (hit >= 0) loc = (woff[w] + hit) * frow + ix % frow;
+              }
+              if (loc < 0) r = -1;
+            }
+            s_loc[j * K + w] = loc;
+          }
+          s_row[j] = r;
+        }
+        // These in-place writes precede, through the barriers, the next
+        // bulk copy into this meta slot (another proxy).
+        mttkrp_common::fence_proxy_async_smem();
+      }
+      __syncwarp();
+      if (pl == 0) {
+        runs[wsum] = any;
+        mbar_arrive(&mapped[m]);
+      }
+    }
+  } else {
+    // ---- the consumer warps: B1's accumulation ----
+    const int g = threadIdx.x / lanes;
+    const int lane = threadIdx.x % lanes;
+    const bool adds = g < groups;
+    float* mine = part + (size_t)g * tile_elems;
+    // Index, within the tile's run, of the block's first slot, mod groups.
+    int phase = carried ? carry_in_phase : 0;
+    for (int i = 0; i < nblk; ++i, phase = (phase + blk) % groups) {
+      const int s = i % stages;
+      const int m = i % nmeta;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const int* sl = meta + (size_t)m * slot_ints;
+      const float* s_val = reinterpret_cast<const float*>(sl);
+      const int* s_row = sl + blk;
+      const int* s_loc = sl + 2 * blk;
+      if (adds && sl[plan_off + wsum]) {
+        const float* wins = win + (size_t)s * win_floats;
+        // Group g adds its slots in order (B1's order).
+        for (int j = (g - phase + groups) % groups; j < blk; j += groups) {
+          const int r = s_row[j];
+          if (r < 0) continue;
+          const float v = s_val[j];
+          const float* rowp[K];
+#pragma unroll
+          for (int w = 0; w < K; ++w)
+            rowp[w] = wins + (size_t)s_loc[j * K + w] * slab;
+          for (int c = lane; c < slab; c += lanes) {
+            float p = v;
+#pragma unroll
+            for (int w = 0; w < K; ++w) p = __fmul_rn(p, rowp[w][c]);
+            float* dst = mine + r * slab + c;
+            *dst = __fadd_rn(*dst, p);
+          }
+        }
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) {
+        mbar_arrive(&empty[s]);
+        mbar_arrive(&mempty[m]);
+      }
+    }
   }
+  __syncthreads();
 
   if (t == carry_out_tile) {  // the run goes on in the next chunk
-    for (size_t e = threadIdx.x; e < part_elems; e += blockDim.x)
-      carry_out[blockIdx.y * part_elems + e] = part[e];
+    for (int e = threadIdx.x; e < part_elems; e += blockDim.x)
+      carry_out[(size_t)blockIdx.y * part_elems + e] = part[e];
     return;
   }
   mttkrp_common::reduce_partials_into(
@@ -263,21 +431,28 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
                      const ScheduleSet& ss, float* out, const float* carry_in,
                      float* carry_out, int num_tiles, int num_slabs, int blk,
                      int tile_rows, int ld, int slab, int groups, int lanes,
-                     int frow, int carry_in_tile, int carry_in_phase,
-                     int carry_out_tile, cudaStream_t stream) {
-  size_t wsum = 0;
+                     int frow, int stages, int mappers, int carry_in_tile,
+                     int carry_in_phase, int carry_out_tile,
+                     cudaStream_t stream) {
+  int wsum = 0;
   for (int w = 0; w < K; ++w) wsum += ss.width[w];
   const size_t smem =
       sizeof(float) * ((size_t)groups * tile_rows * slab +
-                       wsum * frow * slab + wsum + (size_t)blk * (2 + K));
+                       (size_t)stages * wsum * frow * slab +
+                       (size_t)meta_slots(stages, mappers) *
+                           meta_slot_ints(K, blk, wsum)) +
+      sizeof(Barrier) *
+          (2 * (size_t)stages + 3 * (size_t)meta_slots(stages, mappers));
   const cudaError_t e =
       mttkrp_common::allow_smem(gather_stream_mttkrp_kernel<K>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
-  gather_stream_mttkrp_kernel<K><<<grid, kThreads, smem, stream>>>(
+  const int threads = consumer_threads(groups, lanes) +
+                      32 * (mappers + kIssuerWarps + 1);
+  gather_stream_mttkrp_kernel<K><<<grid, threads, smem, stream>>>(
       vals, idx, lrow, blk_start, fs, ss, out, carry_in, carry_out, blk,
-      tile_rows, ld, slab, groups, lanes, frow, carry_in_tile,
-      carry_in_phase, carry_out_tile);
+      tile_rows, ld, slab, groups, lanes, frow, stages, mappers,
+      carry_in_tile, carry_in_phase, carry_out_tile);
   return cudaGetLastError();
 }
 
@@ -293,8 +468,9 @@ extern "C" int gather_stream_mttkrp_launch(
     const void* s2, const void* s3, int width0, int width1, int width2,
     int width3, void* out, const void* carry_in, void* carry_out, int num_in,
     int num_tiles, int num_slabs, int blk, int tile_rows, int ld, int slab,
-    int groups, int lanes, int frow, int carry_in_tile, int carry_in_phase,
-    int carry_out_tile, void* stream) {
+    int groups, int lanes, int frow, int stages, int mappers,
+    int carry_in_tile, int carry_in_phase, int carry_out_tile,
+    void* stream) {
   const FactorSet fs = mttkrp_common::make_factor_set(
       f0, f1, f2, f3, rows0, rows1, rows2, rows3);
   ScheduleSet ss;
@@ -304,6 +480,7 @@ extern "C" int gather_stream_mttkrp_launch(
     ss.ptr[w] = static_cast<const int*>(sp[w]);
     ss.width[w] = widths[w];
   }
+  if (stages < 1 || mappers < 1) return (int)cudaErrorInvalidValue;
   const float* v = static_cast<const float*>(vals);
   const int* ix = static_cast<const int*>(idx);
   const int* lr = static_cast<const int*>(lrow);
@@ -314,8 +491,8 @@ extern "C" int gather_stream_mttkrp_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH_K(KK)                                                         \
   launch_k<KK>(v, ix, lr, bs, fs, ss, o, ci, co, num_tiles, num_slabs, blk,  \
-               tile_rows, ld, slab, groups, lanes, frow, carry_in_tile,      \
-               carry_in_phase, carry_out_tile, st)
+               tile_rows, ld, slab, groups, lanes, frow, stages, mappers,    \
+               carry_in_tile, carry_in_phase, carry_out_tile, st)
   switch (num_in) {
     case 1:
       return LAUNCH_K(1);

@@ -1,8 +1,9 @@
 // Device code shared by the spMTTKRP kernels (gather_mttkrp.cu: B1, B2;
 // gather_stream_mttkrp.cu: B6; fused_mttkrp.cu: B3, B4, B5): the factor set
 // passed by value, the per-group product-and-add of a batch of slots, the
-// fixed-order reduction of a CTA's private partial tiles, 16-byte cp.async,
-// and the opt-in to more than 48 KB of dynamic shared memory. Every kernel
+// fixed-order reduction of a CTA's private partial tiles, cp.async, bulk
+// copies and mbarriers, and the opt-in to more than 48 KB of dynamic
+// shared memory. Every kernel
 // adds in one order and ends with the same epilogue, so B1 == B2 == B3 ==
 // B4 == B5 == B6 bitwise on one aligned stream.
 #pragma once
@@ -34,16 +35,16 @@ inline FactorSet make_factor_set(const void* f0, const void* f1,
 }
 
 // One group's adds for a batch of U slots: for each of this lane's columns
-// c, the product v[u] * rowp[u][0][c] * ... * rowp[u][K-1][c] (multiplied
-// left to right with __fmul_rn) is added with __fadd_rn into row r[u] of
-// the group's partial tile `mine`, in the order u = 0..U-1. A slot with
-// use[u] false loads nothing and adds nothing. All loads of the batch are
-// issued before its first add. B1, B2 and B3, B4 call this with the rows
-// they gather or are given, so their sums are one sequence of operations.
-template <int K, int U>
+// c, the product v[u] * row(u,0)[c] * ... * row(u,K-1)[c] (multiplied left
+// to right with __fmul_rn) is added with __fadd_rn into row r[u] of the
+// group's partial tile `mine`, in the order u = 0..U-1. `row(u, w)` gives
+// slot u's row of input mode w. A slot with use[u] false loads nothing and
+// adds nothing. All loads of the batch are issued before its first add.
+// B1, B2 and B3, B4 call this with the rows they gather or are given, so
+// their sums are one sequence of operations.
+template <int K, int U, typename RowFn>
 __device__ __forceinline__ void add_products(const float (&v)[U],
-                                             const int (&r)[U],
-                                             const float* (&rowp)[U][K],
+                                             const int (&r)[U], RowFn row,
                                              const bool (&use)[U],
                                              float* mine, int slab, int lane,
                                              int lanes) {
@@ -54,7 +55,7 @@ __device__ __forceinline__ void add_products(const float (&v)[U],
       p[u] = v[u];
 #pragma unroll
       for (int w = 0; w < K; ++w)
-        p[u] = __fmul_rn(p[u], use[u] ? __ldg(rowp[u][w] + c) : 0.0f);
+        p[u] = __fmul_rn(p[u], use[u] ? __ldg(row(u, w) + c) : 0.0f);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -99,6 +100,106 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte asynchronous copy (no alignment beyond 4 bytes needed).
+__device__ __forceinline__ void cp_async4(void* smem_dst,
+                                          const void* gmem_src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem_dst)),
+               "l"(gmem_src)
+               : "memory");
+}
+
+// mbarriers in shared memory: init (one thread, then a fence and a
+// __syncthreads), arrive, arrive with an expected byte count, and a wait
+// on the phase of parity `parity` having completed.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Raise the barrier's expected byte count without arriving.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The barrier's arrival, once this thread's earlier cp.asyncs have landed
+// (counted in the barrier's init count).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(
+    unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Bulk copy (the TMA's 1-D form) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory; its bytes
+// complete the transaction count of `bar`.
+__device__ __forceinline__ void bulk_g2s(void* smem_dst, const void* gmem_src,
+                                         unsigned bytes,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (bulk copy) writes to the same bytes.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A launch above 48 KB of dynamic shared memory needs this opt-in first.

@@ -27,16 +27,17 @@ Geometry is re-derived for Hopper, not copied from the TPU:
   bitwise on one aligned stream.
 * ``FACTOR_ROW_TILE = 8`` and ``STREAM_RANK_SLAB = 16`` — the stream
   kernel's window unit is an 8-row x 16-column factor tile, 512 B: four
-  128-byte lines, copied with sixteen 16-byte ``cp.async``. The TPU's
-  128 x 128 tile (64 KiB) suits a DMA engine and 64 MiB of VMEM; a CTA
-  here has 227 KB of shared memory. With these, a block of ``blk <= 128``
-  nonzeros and K <= 3 input modes fits the data-blind window bound
-  ``min(blk, ceil(rows / 8))`` per mode (3 x 128 tiles = 192 KiB plus
-  8 KiB of partial tiles and the staged block) for any index data, so the
-  stream rung never needs an ordering to run; an ordering shrinks the
-  window and the bytes copied. A taller tile copies more rows that no
-  nonzero of the block reads; a shorter one lengthens the schedules the
-  kernel scans for every nonzero.
+  128-byte lines, one bulk copy (runs of consecutive tiles go in one).
+  The TPU's 128 x 128 tile (64 KiB) suits a DMA engine and 64 MiB of
+  VMEM; a CTA here has 227 KB of shared memory. With these, a block of
+  ``blk <= 128`` nonzeros and K <= 3 input modes fits the data-blind
+  window bound ``min(blk, ceil(rows / 8))`` per mode (3 x 128 tiles =
+  192 KiB plus 8 KiB of partial tiles and three meta slots) in a CTA of
+  one ring stage for any index data, so the stream rung never needs an
+  ordering to run; an ordering shrinks the window, and the kernel then
+  takes as many ring stages as fit (:func:`stream_ring`). A taller tile
+  copies more rows that no nonzero of the block reads; a shorter one
+  lengthens the schedules the kernel searches for every nonzero.
 """
 from __future__ import annotations
 
@@ -56,6 +57,8 @@ __all__ = [
     "SMEM_LIMIT_BYTES",
     "STREAM_BACKEND_NAME",
     "STREAM_RANK_SLAB",
+    "MAX_STREAM_MAPPERS",
+    "MAX_STREAM_STAGES",
     "StreamCarry",
     "fused_mttkrp_nmode",
     "fused_mttkrp_nmode_plain",
@@ -64,6 +67,7 @@ __all__ = [
     "fused_smem_bytes",
     "gather_smem_bytes",
     "gather_stream_smem_bytes",
+    "stream_ring",
     "padded_rank",
     "segment_accumulate",
     "segment_accumulate_plain",
@@ -94,9 +98,16 @@ L2_BUDGET_BYTES = 25 * 2**20
 FACTOR_ROW_TILE = 8
 STREAM_RANK_SLAB = 16
 STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
-# Stream slots a CTA of B1-B4 stages in shared memory at a time (kChunk in
-# the .cu files).
+# Stream slots a CTA of B1-B4 stages in shared memory at a time: B3 and B4
+# in one buffer (kChunk in fused_mttkrp.cu), B1 and B2 in STAGE_BUFFERS
+# buffers of STAGE_SLOTS // STAGE_BUFFERS (kBuffers, kChunk in
+# gather_mttkrp.cu).
 STAGE_SLOTS = 2048
+STAGE_BUFFERS = 2
+# Most ring stages and mapper warps the stream kernel (B6) is given (each
+# mapper warp holds one more block's meta slot).
+MAX_STREAM_STAGES = 8
+MAX_STREAM_MAPPERS = 8
 # Bytes of contribution rows a CTA of B5 stages at a time.
 SEGMENT_STAGE_BYTES = 32 * 1024
 # Elements of one (chunk, R) temporary in the plain version (~256 MB).
@@ -149,15 +160,34 @@ def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
     """Shared memory of one CTA of the in-kernel-gather kernels (B1, B2).
 
     The ``groups`` partial output tiles, one slab wide (the padded rank for
-    B1, ``min(rank_padded, rank_slab)`` for B2), and the staged chunk of
-    the stream: value, local row and ``num_in_modes`` indices for each of
-    ``STAGE_SLOTS`` slots. The factors are not held: they are read from
-    device memory (L2). The layout is ``csrc/gather_mttkrp.cu``'s; the
-    launch check and the residency planner read this one number.
+    B1, ``min(rank_padded, rank_slab)`` for B2), then ``STAGE_BUFFERS``
+    staging buffers of ``STAGE_SLOTS // STAGE_BUFFERS`` slots each: value,
+    local row and ``num_in_modes`` indices per slot (chunk c+1 lands in one
+    while chunk c gathers from the other). The factors are not held: they
+    are read from device memory (L2). The layout is
+    ``csrc/gather_mttkrp.cu``'s; the launch check and the residency planner
+    read this one number.
     """
     slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
+    chunk = STAGE_SLOTS // STAGE_BUFFERS
     return 4 * (_groups(tile_rows) * tile_rows * slab
-                + STAGE_SLOTS * (2 + num_in_modes))
+                + STAGE_BUFFERS * chunk * (2 + num_in_modes))
+
+
+def _check_async_operands(blk: int, **operands) -> None:
+    """The asynchronous copies of B1, B2 and B6 move 16-byte pieces: every
+    named operand must start on a 16-byte boundary and ``blk`` be a
+    multiple of 4 (so every block, and every chunk of blocks, starts on
+    one). Raises ``ValueError`` naming the first operand that does not;
+    there is no unaligned fallback."""
+    if blk % 4:
+        raise ValueError(f"blk={blk} is not a multiple of 4: the kernel's "
+                         "16-byte copies of a block would be misaligned")
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (data_ptr "
+                             f"{t.data_ptr():#x}); pass a fresh contiguous "
+                             "tensor")
 
 
 def _check_stream_layout(n_pad: int, local_row_in_tile, tile_of_block, *,
@@ -270,6 +300,11 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     tensors = (vals, idx_stream, local_row_in_tile, tile_of_block) + factors
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
+    _check_async_operands(blk, vals=vals, idx_stream=idx_stream,
+                          local_row_in_tile=local_row_in_tile)
+    if any(f.numel() >= 2**31 for f in factors):
+        raise ValueError("a factor matrix of 2**31 or more elements: the "
+                         "kernel keeps 32-bit row offsets")
     num_tiles = rows_cap // tile_rows
     blk_start = _tile_starts(tile_of_block, num_tiles)
     out = _out_start(out_init, rows_cap, rank, dev)
@@ -415,28 +450,65 @@ def fused_mttkrp_nmode_gather_tiled_plain(vals, idx_stream, factors,
 def gather_stream_smem_bytes(num_in_modes: int, rank_padded: int, blk: int,
                              tile_rows: int, window_tiles,
                              frow_tile: int = FACTOR_ROW_TILE,
-                             rank_slab: int = STREAM_RANK_SLAB) -> int:
-    """Shared memory of one CTA of the stream kernel (B6).
+                             rank_slab: int = STREAM_RANK_SLAB,
+                             stages: int = 1, mappers: int = 1) -> int:
+    """Shared memory of one CTA of the stream kernel (B6) with a ring of
+    ``stages`` stages and ``mappers`` mapper warps.
 
-    The Hopper counterpart of the reference's ``gather_stream_vmem_bytes``:
-    the ``groups`` partial output tiles, the factor-tile window (per
+    The Hopper counterpart of the reference's ``gather_stream_vmem_bytes``,
+    byte for byte the layout of ``csrc/gather_stream_mttkrp.cu``: the
+    ``groups`` partial output tiles; per stage a factor-tile window (per
     input mode ``window_tiles`` tiles of ``frow_tile`` rows, one slab
-    wide), the window's schedule row, and the staged block (value, local
-    row and one window row per input mode for each of ``blk`` slots).
+    wide); ``stages + mappers + 1`` meta slots, each the staged
+    block (value, local row and one index per input mode for each of
+    ``blk`` slots, and the schedule rows, padded to 16 bytes) and its plan
+    (a copy-run length per schedule entry and a flag, padded to 16 bytes);
+    and 8-byte mbarriers, two per stage and three per meta slot.
     ``window_tiles`` is an int for every mode or a per-mode sequence.
-    The layout is the kernel's (``csrc/gather_stream_mttkrp.cu``).
+    ``stages=1, mappers=1`` is the smallest CTA, the one the residency
+    ladder asks about (:func:`oocore.planner.stream_fits_smem`).
     """
     if isinstance(window_tiles, int):
         window_tiles = (window_tiles,) * num_in_modes
     if len(window_tiles) != num_in_modes:
         raise ValueError(f"{len(window_tiles)} window widths for "
                          f"{num_in_modes} input modes")
+    if stages < 1 or mappers < 1:
+        raise ValueError(f"stages={stages}, mappers={mappers}: both must be "
+                         ">= 1")
     slab = min(rank_padded, rank_slab)
     wsum = sum(int(w) for w in window_tiles)
-    return 4 * (_groups(tile_rows) * tile_rows * slab
-                + wsum * frow_tile * slab
-                + wsum
-                + blk * (2 + num_in_modes))
+    slot = ((2 + num_in_modes) * blk + padded_rank(wsum, 4)
+            + padded_rank(wsum + 1, 4))
+    slots = stages + mappers + 1
+    return (4 * (_groups(tile_rows) * tile_rows * slab
+                 + stages * wsum * frow_tile * slab + slots * slot)
+            + 8 * (2 * stages + 3 * slots))
+
+
+def stream_ring(num_in_modes: int, rank_padded: int, blk: int,
+                tile_rows: int, window_tiles,
+                frow_tile: int = FACTOR_ROW_TILE,
+                rank_slab: int = STREAM_RANK_SLAB,
+                smem_budget: int = SMEM_LIMIT_BYTES) -> tuple[int, int]:
+    """``(stages, mappers)`` the stream kernel runs with: the most stages,
+    up to :data:`MAX_STREAM_STAGES`, whose CTA fits ``smem_budget`` bytes
+    (:func:`gather_stream_smem_bytes`) with :data:`MAX_STREAM_MAPPERS`
+    mapper warps; where not even one stage fits with them, one stage and
+    the most mapper warps that fit. ``(0, 0)`` when the smallest CTA does
+    not fit. Both counts are monotone in the budget."""
+    def fits(stages, mappers):
+        return gather_stream_smem_bytes(
+            num_in_modes, rank_padded, blk, tile_rows, window_tiles,
+            frow_tile=frow_tile, rank_slab=rank_slab, stages=stages,
+            mappers=mappers) <= smem_budget
+    for stages in range(MAX_STREAM_STAGES, 0, -1):
+        if fits(stages, MAX_STREAM_MAPPERS):
+            return stages, MAX_STREAM_MAPPERS
+    for mappers in range(MAX_STREAM_MAPPERS - 1, 0, -1):
+        if fits(1, mappers):
+            return 1, mappers
+    return 0, 0
 
 
 class StreamCarry(NamedTuple):
@@ -541,9 +613,11 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
     groups = _groups(tile_rows)
     lanes = _lanes(slab)
     windows = tuple(s.shape[1] for s in scheds)
-    smem = gather_stream_smem_bytes(k, rank, blk, tile_rows, windows,
-                                    frow_tile=frow_tile, rank_slab=slab)
-    if smem > SMEM_LIMIT_BYTES:
+    stages, mappers = stream_ring(k, rank, blk, tile_rows, windows,
+                                  frow_tile=frow_tile, rank_slab=slab)
+    if stages < 1:
+        smem = gather_stream_smem_bytes(k, rank, blk, tile_rows, windows,
+                                        frow_tile=frow_tile, rank_slab=slab)
         raise ValueError(
             f"the stream kernel's window of {windows} tiles of {frow_tile} "
             f"x {slab} floats per input mode, with blk={blk} and "
@@ -554,8 +628,10 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
         + factors + scheds
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    if any(f.data_ptr() % 16 for f in factors):
-        raise ValueError("factor matrices must be 16-byte aligned")
+    _check_async_operands(
+        blk, vals=vals, idx_stream=idx_stream,
+        local_row_in_tile=local_row_in_tile,
+        **{f"factors[{w}]": f for w, f in enumerate(factors)})
     num_tiles, num_slabs = rows_cap // tile_rows, rank // slab
     part_shape = (num_slabs, groups, tile_rows, slab)
     if carry is not None and (tuple(carry.partials.shape) != part_shape
@@ -578,7 +654,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
         carry.partials.data_ptr() if carry is not None else 0,
         carry_out.data_ptr() if carry_out is not None else 0,
         k, num_tiles, num_slabs, blk, tile_rows, rank, slab, groups, lanes,
-        frow_tile,
+        frow_tile, stages, mappers,
         carry.tile if carry is not None else -1,
         carry.slots % groups if carry is not None else 0,
         tail[0] if tail is not None else -1,

@@ -73,8 +73,10 @@ def stream_fits_smem(*, nmodes: int, rank: int, blk: int, tile_rows: int,
                      rank_slab: int = _kernel.STREAM_RANK_SLAB,
                      rank_multiple: int = _kernel.RANK_MULTIPLE,
                      smem_budget: int = _kernel.SMEM_LIMIT_BYTES) -> bool:
-    """Does the stream kernel's CTA fit ``smem_budget`` bytes of shared
-    memory? Windows default to the data-blind bound per input mode;
+    """Does the stream kernel's smallest CTA (one ring stage, one mapper
+    warp) fit ``smem_budget`` bytes of shared memory? The kernel adds
+    stages and mapper warps as the budget allows (``kernel.stream_ring``).
+    Windows default to the data-blind bound per input mode;
     ``window_tiles`` (e.g. :attr:`StreamTraffic.window_tiles`) gives
     measured ones. Monotone in the budget."""
     k = nmodes - 1

@@ -467,3 +467,191 @@ def test_fused_cp_als_on_card(cuda):
         np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
         for a, b in zip(got.factors, want.factors):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned B6 ring and B1/B2 staging: edges of runs, rings and chunks
+# ---------------------------------------------------------------------------
+
+def _runs_operands(dev, k, rank, runs, *, blk=BLK, seed=0, pad_blocks=(),
+                   frows=(200, 300, 150, 90)):
+    """A block-aligned stream with ``runs[t]`` blocks for output tile t
+    (random slots; the blocks in ``pad_blocks`` hold padding only) and
+    its factors. Returns ``(vals, idx, factors, rows, tob), rows_cap``."""
+    rng = np.random.default_rng(seed)
+    n = int(sum(runs)) * blk
+    vals = rng.standard_normal(n).astype(np.float32)
+    for b in pad_blocks:
+        vals[b * blk:(b + 1) * blk] = 0.0
+    idx = np.stack([rng.integers(0, frows[w], n) for w in range(k)], 1)
+    factors = [torch.from_numpy(rng.standard_normal(
+        (frows[w], rank)).astype(np.float32)).to(dev) for w in range(k)]
+    tob = np.repeat(np.arange(len(runs)), runs).astype(np.int32)
+    rows = rng.integers(0, TILE, n).astype(np.int32)
+    args = (torch.from_numpy(vals).to(dev),
+            torch.from_numpy(idx.astype(np.int32)).to(dev), factors,
+            torch.from_numpy(rows).to(dev), torch.from_numpy(tob).to(dev))
+    return args, len(runs) * TILE
+
+
+def _b6_args(args, blk=BLK, widths=None):
+    """B6's operands; ``widths`` widens each schedule row to that many
+    entries with entries that repeat entry 0 (which the kernel skips)."""
+    vals, idx, factors, rows, tob = args
+    fm = tuple(ops._pad_factor_rows(f, K.FACTOR_ROW_TILE) for f in factors)
+    scheds, windows, _ = ops.stream_schedules(idx, blk,
+                                              [f.shape[0] for f in fm])
+    if widths is not None:
+        scheds = tuple(torch.cat([s, s[:, :1].expand(-1, w - s.shape[1])],
+                                 1).contiguous()
+                       for s, w in zip(scheds, widths))
+        windows = tuple(widths)
+    return (vals, idx, fm, rows, tob, scheds), tuple(windows)
+
+
+def _check_b6(args6, rows_cap, *, blk=BLK, rank_slab=16):
+    """B6 == B1 bitwise, close to its plain version; returns B6."""
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=TILE)
+    b6 = K.fused_mttkrp_nmode_gather_stream(*args6, rank_slab=rank_slab,
+                                            **kw)
+    assert torch.equal(b6, K.fused_mttkrp_nmode_gather(*args6[:5], **kw))
+    plain = K.fused_mttkrp_nmode_gather_stream_plain(
+        *args6, rank_slab=rank_slab, **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b6, plain, rtol=1e-5, atol=1e-5 * scale)
+    return b6
+
+
+def _ring_stages(k, rank, windows):
+    return K.stream_ring(k, rank, BLK, TILE, windows)[0]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 64])
+def test_stream_runs_around_the_ring_depth(cuda, k, rank):
+    """Tiles with runs of 1, S-1, S and S+1 blocks (S the ring's stages),
+    an empty tile, and a run of 2S+1 blocks; R=64 copies each tile row
+    on its own (ld > slab)."""
+    # Schedules widened to the data-blind width min(blk, ceil(rows / 8)),
+    # so the ring's depth is known before the stream is drawn.
+    widths = [min(BLK, -(-r // K.FACTOR_ROW_TILE))
+              for r in (200, 300, 150, 90)[:k]]
+    s = _ring_stages(k, rank, widths)
+    runs = [r for r in (1, s - 1, s, s + 1, 0, 2 * s + 1)]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, seed=10 + k)
+    _check_b6(_b6_args(args, widths=widths)[0], rows_cap)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_stream_chunk_ends_at_every_ring_phase(cuda, k):
+    """A chunk ending after each of the first S+1 blocks of a tile's run
+    (every ring phase, and past the ring) hands on its partials, and the
+    two calls give the single pass's bits."""
+    args, rows_cap = _runs_operands(cuda, k, 16, [2, 40, 3], seed=20 + k)
+    args6, windows = _b6_args(args)
+    s = _ring_stages(k, 16, windows)
+    single = _check_b6(args6, rows_cap)
+    vals, idx, fm, rows, tob, scheds = args6
+    kw = dict(rows_cap=rows_cap, blk=BLK, tile_rows=TILE)
+    nb = tob.shape[0]
+    for cut in range(3, 3 + s + 1):
+        a, b = slice(0, cut * BLK), slice(cut * BLK, nb * BLK)
+        out, carry = K.fused_mttkrp_nmode_gather_stream_chunk(
+            vals[a], idx[a], fm, rows[a], tob[:cut],
+            tuple(x[:cut].contiguous() for x in scheds), split_tail=True,
+            **kw)
+        assert carry is not None and carry.tile == 1
+        out, carry = K.fused_mttkrp_nmode_gather_stream_chunk(
+            vals[b], idx[b], fm, rows[b], tob[cut:],
+            tuple(x[cut:].contiguous() for x in scheds), out_init=out,
+            carry=carry, **kw)
+        assert carry is None
+        assert torch.equal(out, single), cut
+
+
+@pytest.mark.parametrize("rank", [16, 64])
+def test_stream_padding_blocks_between_real_ones(cuda, rank):
+    """Blocks of padding only inside runs (one, and three in a row) copy
+    nothing and add nothing; the bits are B1's."""
+    args, rows_cap = _runs_operands(cuda, 3, rank, [10, 12, 6], seed=30,
+                                    pad_blocks=(3, 11, 12, 13, 27))
+    _check_b6(_b6_args(args)[0], rows_cap)
+
+
+@pytest.mark.parametrize("width", ["one", "blk"])
+@pytest.mark.parametrize("rank", [16, 64])
+def test_stream_schedule_widths_one_and_blk(cuda, width, rank):
+    """Every block reads one tile per mode (width 1), or every slot a
+    tile of its own (width blk, no runs to merge when the tiles are
+    spread)."""
+    args, rows_cap = _runs_operands(cuda, 2, rank, [3, 5, 2], seed=40,
+                                    frows=(8 * 2 * BLK, 8 * 2 * BLK))
+    vals, idx, factors, rows, tob = args
+    rng = np.random.default_rng(41)
+    nb = tob.shape[0]
+    if width == "one":
+        tiles = rng.integers(0, 2 * BLK, (nb, 1, 2))
+        new = tiles * 8 + rng.integers(0, 8, (nb, BLK, 2))
+    else:
+        tiles = np.stack([np.stack([rng.permutation(2 * BLK)[:BLK]
+                                    for _ in range(2)], 1)
+                          for _ in range(nb)])
+        new = tiles * 8 + rng.integers(0, 8, (nb, BLK, 2))
+    idx = torch.from_numpy(new.reshape(-1, 2).astype(np.int32)).to(cuda)
+    args6, windows = _b6_args((vals, idx, factors, rows, tob))
+    assert windows == ((1, 1) if width == "one" else (BLK, BLK))
+    _check_b6(args6, rows_cap)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("extra", [1, 2, 3])
+def test_stream_odd_schedule_widths(cuda, k, extra):
+    """Schedule rows widened by entries that repeat entry 0 (so of odd and
+    even widths, not 16-byte aligned): the same bits."""
+    args, rows_cap = _runs_operands(cuda, k, 16, [4, 6, 3], seed=50 + k)
+    windows = _b6_args(args)[1]
+    widths = [w + extra + (w + extra + 1) % 2 for w in windows]
+    assert all(w % 2 for w in widths)
+    _check_b6(_b6_args(args, widths=widths)[0], rows_cap)
+
+
+def _check_b1_b2(args, rows_cap, rank, *, blk):
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=TILE)
+    slab = ops.tiled_rank_slab(rank)
+    b1 = K.fused_mttkrp_nmode_gather(*args, **kw)
+    plain = K.fused_mttkrp_nmode_gather_plain(*args, **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b1, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b1, K.fused_mttkrp_nmode_gather_tiled(
+        *args, rank_slab=slab, **kw))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 32, 256])
+def test_gather_runs_at_the_staging_edge(cuda, k, rank):
+    """Runs ending one block before, at and one block after a staging
+    buffer's edge (blk=4), and a run whose last nonzero sits one slot
+    before, at and after the edge (padding behind it)."""
+    chunk = K.STAGE_SLOTS // K.STAGE_BUFFERS
+    blk = 4
+    runs = [chunk // blk - 1, chunk // blk, chunk // blk + 1,
+            2 * chunk // blk + 3]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, blk=blk,
+                                    seed=60 + k)
+    _check_b1_b2(args, rows_cap, rank, blk=blk)
+    start = sum(runs[:3]) * blk
+    for last in (chunk - 1, chunk, chunk + 1):
+        vals = args[0].clone()
+        vals[start + last:] = 0.0
+        _check_b1_b2((vals,) + args[1:], rows_cap, rank, blk=blk)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 32, 256])
+def test_gather_padding_chunks_on_the_last_tile(cuda, k, rank):
+    """The last tile's run ends in many staging buffers of padding only
+    (as the aligned stream's clipped blocks do)."""
+    runs = [5, 3, 120]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, seed=70 + k,
+                                    pad_blocks=range(12, 128))
+    _check_b1_b2(args, rows_cap, rank, blk=BLK)

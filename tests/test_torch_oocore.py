@@ -175,10 +175,12 @@ def test_predict_stream_traffic_equal(ordering, budget):
 # ---------------------------------------------------------------------------
 
 def test_gather_stream_smem_bytes_layout():
-    # groups=16 partial 8x16 tiles, 2 modes x 5 tiles of 8x16, schedules,
-    # and 128 slots x (value, row, 2 window rows), all 4 bytes.
+    # groups=16 partial 8x16 tiles; one stage: 2 modes x 5 tiles of 8x16;
+    # one mapper warp, so 1 + 1 + 1 meta slots, each 128 slots x (value,
+    # row, 2 indices), the 10 schedule entries (padded to 12) and 10 run
+    # lengths and a flag (padded to 12); 2 + 3 * 3 eight-byte mbarriers.
     assert tk.gather_stream_smem_bytes(2, 16, 128, 8, (5, 5)) == 4 * (
-        16 * 8 * 16 + 10 * 8 * 16 + 10 + 128 * 4)
+        16 * 8 * 16 + 10 * 8 * 16 + 3 * (128 * 4 + 12 + 12)) + 8 * 11
     assert tk.gather_stream_smem_bytes(2, 16, 128, 8, 5) \
         == tk.gather_stream_smem_bytes(2, 16, 128, 8, (5, 5))
 
