@@ -74,8 +74,8 @@ VARIANTS = {
         "gather_mttkrp", B1,
         [("fs.ptr[w] + at[u][w]; }, use,",
           "fs.ptr[w] + at[u][w]; }, use, /* cg */")],
-        [("p[u] = __fmul_rn(p[u], use[u] ? __ldg(row(u, w) + c) : 0.0f);",
-          "p[u] = __fmul_rn(p[u], use[u] ? __ldcg(row(u, w) + c) : 0.0f);")]),
+        [("float ldg_f32(const float* p) { return __ldg(p); }",
+          "float ldg_f32(const float* p) { return __ldcg(p); }")]),
     "b6": ("gather_stream_mttkrp", B6, []),
     "b6 one bulk copy per tile (no runs)": (
         "gather_stream_mttkrp", B6,

@@ -46,12 +46,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      ``frow_tile`` 4 and 2 (findings: fewer copied bytes per used row);
   8. a 4-mode tensor (``frostt_like("enron")``), kernel vs plain per mode;
   9. exact recovery of a dense rank-4 tensor (fit > 0.999);
-  10. one JSON line with all six kernels, the card's name and power
-      limit, and the last line ``{"ok": true, "device": {...}}``.
+  10. ``[bf16-kernels]``: the bf16 variants of B1, B2, B3, B4 (K in
+      {2,3}, R in {16,256}) and B6 (R in {16,64}) on random streams, bf16
+      factor operands with fp32 sums: against their plain versions,
+      B2 == B3 == B4 == B6 == B1 bitwise, reruns bitwise, and a chunked
+      bf16 out-of-core run with mid-tile splits == its single pass;
+  11. ``[bf16-main]`` on the nell-2 stand-in at R=16:
+      ``cp_als_distributed`` with ``pallas_fused_gather_bf16`` (2 sweeps,
+      the bf16 B1 only), per mode the bf16 mode steps of B2 (R=256, two
+      slabs), B3, B4 (``mttkrp_device_step``) and the bf16 out-of-core run
+      (B6, Morton, blk=64), then each bf16 kernel at its path's inputs
+      against its
+      plain version and the bf16 B1 bitwise, timed beside the fp32
+      kernel on the same inputs, with HBM and L2 bounds at bf16 bytes;
+      a profiled bf16 sweep;
+  12. ``[bf16-fit]``: CP-ALS (B1, seed 1, tol 0) in fp32 and in bf16 on a
+      generated low-rank tensor: both fit traces and their gaps;
+  13. one JSON line with all six kernels and the five bf16 variants, the
+      card's name and power limit, and the last line
+      ``{"ok": true, "device": {...}}``.
 
 B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
 factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
 reach, and the L2 bound: those bytes over the measured L2 read rate.
+bf16 variants count their factor bytes at 2 per element.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -107,6 +125,16 @@ REPLACES = {
     "fused_mttkrp_nmode_gather_stream":
         "src/repro/kernels/mttkrp/kernel.py:868",
 }
+# The bf16 variants: the same TPU kernels on bf16 factor operands (the
+# reference's pallas_fused_bf16 / gather_dtype="bfloat16"), the same
+# sources, counted apart (each wrapper's ``launches_bf16``). B5 has none:
+# its contribution is fp32 on every path.
+BF16 = "[bf16]"
+for _name in ("fused_mttkrp_nmode_gather", "fused_mttkrp_nmode_gather_tiled",
+              "fused_mttkrp_nmode", "fused_mttkrp_nmode_tiled",
+              "fused_mttkrp_nmode_gather_stream"):
+    SOURCE[_name + BF16] = SOURCE[_name]
+    REPLACES[_name + BF16] = REPLACES[_name]
 # The backend name of each kernel, and the wrapper whose count it keeps.
 BACKEND_OF = {
     "fused_mttkrp_nmode_gather": "pallas_fused_gather",
@@ -184,14 +212,15 @@ def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
 
 
 def fused_bound_ms(nnz: int, rank: int, k: int, *, rows_cap: int,
-                   tile_rows: int) -> tuple[float, str]:
+                   tile_rows: int, itemsize: int = 4) -> tuple[float, str]:
     """Least time for one call of B3/B4 (``k`` pre-gathered rows) or, with
     ``k=0``, of B5 (one contribution row), on the ``nnz`` slots that hold
     a nonzero: B3 reads per slot its value, local row and K rows of
-    ``rank`` floats and does K multiplies and one add per column; B5 reads
-    the local row and one row and does one add per column. Both read the
-    per-tile block starts and write the output once."""
-    per_slot = 4 + (4 + 4 * k * rank if k else 4 * rank)
+    ``rank`` elements of ``itemsize`` bytes (2 for its bf16 variant) and
+    does K multiplies and one add per column; B5 reads the local row and
+    one fp32 row and does one add per column. Both read the per-tile block
+    starts and write the fp32 output once."""
+    per_slot = 4 + (4 + itemsize * k * rank if k else 4 * rank)
     nbytes = nnz * per_slot + (rows_cap // tile_rows + 1) * 4 \
         + rows_cap * rank * 4
     return bound_ms(nbytes, nnz * rank * max(k + 1, 1))
@@ -204,9 +233,10 @@ def l2_fields(l2_bytes: int, ms: float) -> tuple[float, float]:
 
 def gather_l2_bytes(operands) -> int:
     """The factor rows B1/B2 gather through L2 in one call: K rows of the
-    padded rank per slot that holds a nonzero."""
+    padded rank per slot that holds a nonzero, at the factors' itemsize."""
     vals, _, factors, _, _ = operands
-    return int((vals != 0).sum()) * len(factors) * factors[0].shape[1] * 4
+    return (int((vals != 0).sum()) * len(factors) * factors[0].shape[1]
+            * factors[0].element_size())
 
 
 def stream_copy_bytes(vals, scheds, factors, blk: int,
@@ -214,7 +244,7 @@ def stream_copy_bytes(vals, scheds, factors, blk: int,
     """The factor-tile bytes B6 copies in one call, as the kernel decides
     them: per block holding a nonzero, per mode, each schedule entry that
     neither repeats entry 0 nor lies outside the factor, one slab wide,
-    once per slab."""
+    once per slab, at the factors' itemsize."""
     live = (vals.view(-1, blk) != 0).any(1)
     tiles = 0
     for s, f in zip(scheds, factors):
@@ -222,20 +252,29 @@ def stream_copy_bytes(vals, scheds, factors, blk: int,
         keep = (s != s[:, :1]) & (s >= 0) & (s < f.shape[0] // frow_tile)
         keep[:, 0] = (s[:, 0] >= 0) & (s[:, 0] < f.shape[0] // frow_tile)
         tiles += int((keep & live[:, None]).sum())
-    rank = factors[0].shape[1]
-    return tiles * frow_tile * rank_slab * 4 * (rank // rank_slab)
+    rank, item = factors[0].shape[1], factors[0].element_size()
+    return tiles * frow_tile * rank_slab * item * (rank // rank_slab)
+
+
+def _counter(name: str) -> tuple[str, str]:
+    """(wrapper, attribute) that holds kernel ``name``'s launch count."""
+    if name.endswith(BF16):
+        return name[:-len(BF16)], "launches_bf16"
+    return name, "launches"
 
 
 def reset_counts():
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0, the bf16 variants' too."""
     from repro_torch.kernels.mttkrp import kernel as K
     for name in SOURCE:
-        getattr(K, name).launches = 0
+        wrapper, attr = _counter(name)
+        setattr(getattr(K, wrapper), attr, 0)
 
 
 def counts() -> dict:
     from repro_torch.kernels.mttkrp import kernel as K
-    return {name: getattr(K, name).launches for name in SOURCE}
+    return {name: getattr(getattr(K, _counter(name)[0]), _counter(name)[1])
+            for name in SOURCE}
 
 
 def require_only(launched: dict, name: str, want: int, what: str):
@@ -317,13 +356,14 @@ def random_stream(rng, k: int, rank: int, cap: int, rows_cap: int, dev):
 
 
 def random_operands(rng, k: int, rank: int, cap: int, rows_cap: int,
-                    slab: int, dev):
-    """A row-sorted random stream through the port's own block layout."""
+                    slab: int, dev, dtype=torch.float32):
+    """A row-sorted random stream through the port's own block layout,
+    the factors in ``dtype``."""
     from repro_torch.kernels.mttkrp import ops
     return ops.gather_operands(
         *random_stream(rng, k, rank, cap, rows_cap, dev), mode=0,
         rows_cap=rows_cap, row_offset=0, blk=BLK, tile_rows=TILE_ROWS,
-        slab=slab)
+        slab=slab, dtype=dtype)
 
 
 def stream_operands(operands, blk: int):
@@ -1025,6 +1065,388 @@ def frow_findings(b1_ops, b1, blk: int, tile_rows: int, rows_cap: int,
         del out, scheds, fm
 
 
+def phase_bf16_kernels(dev):
+    """The bf16 variants on random streams: B1, B2, B3, B4 (R in {16,256})
+    and B6 (R in {16,64}) against their plain versions, each == the bf16
+    B1 bitwise, reruns bitwise; a chunked bf16 out-of-core run with
+    mid-tile splits == its single pass == the direct launch."""
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    from repro_torch.oocore import executor, planner
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    cap, rows_cap = 1 << 20, 16_384
+    kw = dict(rows_cap=rows_cap, blk=BLK, tile_rows=TILE_ROWS)
+    for k, rank in itertools.product((2, 3), (16, 256)):
+        slab = min(rank, 128)
+        ops_ = random_operands(rng, k, rank, cap, rows_cap, slab, dev,
+                               dtype=bf16)
+        vals, idx_al, fmats, rows, tob = ops_
+        require(fmats[0].dtype == bf16, "bf16 operands expected")
+        what = f"K={k} R={rank}"
+        b1 = K.fused_mttkrp_nmode_gather(*ops_, **kw)
+        b1_again = K.fused_mttkrp_nmode_gather(*ops_, **kw)
+        b2 = K.fused_mttkrp_nmode_gather_tiled(*ops_, rank_slab=slab, **kw)
+        pre = ops.pregathered_rows(idx_al, fmats)
+        b3 = K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw)
+        b4 = K.fused_mttkrp_nmode_tiled(vals, pre, rows, tob, rank_slab=16,
+                                        **kw)
+        torch.cuda.synchronize()
+        err1 = compare(b1, K.fused_mttkrp_nmode_gather_plain(*ops_, **kw),
+                       f"B1-bf16 {what}")
+        err2 = compare(b2, K.fused_mttkrp_nmode_gather_tiled_plain(
+            *ops_, rank_slab=slab, **kw), f"B2-bf16 {what}")
+        err3 = compare(b3, K.fused_mttkrp_nmode_plain(vals, pre, rows, tob,
+                                                      **kw), f"B3-bf16 {what}")
+        err4 = compare(b4, K.fused_mttkrp_nmode_tiled_plain(
+            vals, pre, rows, tob, rank_slab=16, **kw), f"B4-bf16 {what}")
+        require(torch.equal(b1, b1_again), f"B1-bf16 {what}: rerun differs")
+        for name, out in (("B2", b2), ("B3", b3), ("B4", b4)):
+            require(torch.equal(out, b1),
+                    f"{name}-bf16 {what}: differs from B1-bf16 bitwise")
+        require(torch.equal(b3, K.fused_mttkrp_nmode(vals, pre, rows, tob,
+                                                     **kw)),
+                f"B3-bf16 {what}: rerun differs")
+        t1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*ops_, **kw), 5)
+        t3 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw),
+                     5)
+        log(f"[bf16-kernels] {what} nnz={cap}: max_abs_err B1 {err1:.3e} "
+            f"B2 {err2:.3e} B3 {err3:.3e} B4 {err4:.3e}; B2==B3==B4==B1 "
+            f"bitwise, reruns bitwise; B1-bf16 {t1:.4f} ms, B3-bf16 "
+            f"{t3:.4f} ms")
+        del ops_, pre, b1, b1_again, b2, b3, b4
+    cap, rows_cap = 1 << 20, 1024
+    kw = dict(rows_cap=rows_cap, blk=STREAM_BLK, tile_rows=STREAM_TILE_ROWS)
+    for k, rank in itertools.product((2, 3), (16, 64)):
+        stream = random_stream(rng, k, rank, cap, rows_cap, dev)
+        b1_ops = ops.gather_operands(*stream, mode=0, row_offset=0,
+                                     slab=rank, dtype=bf16, **kw)
+        s_ops, windows = stream_operands(b1_ops, STREAM_BLK)
+        what = f"K={k} R={rank}"
+        b6 = K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw)
+        b6_again = K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw)
+        b1 = K.fused_mttkrp_nmode_gather(*b1_ops, **kw)
+        torch.cuda.synchronize()
+        err = compare(b6, K.fused_mttkrp_nmode_gather_stream_plain(
+            *s_ops, **kw), f"B6-bf16 {what}")
+        require(torch.equal(b6, b6_again), f"B6-bf16 {what}: rerun differs")
+        require(torch.equal(b6, b1),
+                f"B6-bf16 {what}: differs from B1-bf16 bitwise")
+        okw = dict(mode=0, gather_dtype="bfloat16", **kw)
+        single, st1 = executor.mttkrp_out_of_core(*stream, **okw)
+        budget = 48 * planner.stream_chunk_bytes(STREAM_BLK, k,
+                                                 st1.window_tiles)
+        chunked, st2 = executor.mttkrp_out_of_core(
+            *stream, max_chunk_bytes=budget, **okw)
+        torch.cuda.synchronize()
+        splits = mid_tile_splits(b1_ops[4], st2.chunk_block_counts)
+        require(st2.chunks >= 4 and splits > 0,
+                f"B6-bf16 {what}: {st2.chunks} chunks, {splits} mid-tile "
+                "splits")
+        require(torch.equal(chunked, single),
+                f"B6-bf16 {what}: chunked run differs from the single pass")
+        require(torch.equal(single, b6),
+                f"B6-bf16 {what}: the executor differs from the launch")
+        stages, mappers = K.stream_ring(k, rank, STREAM_BLK, STREAM_TILE_ROWS,
+                                        windows, gather_itemsize=2)
+        t6 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw),
+                     3)
+        log(f"[bf16-kernels] B6 {what} nnz={cap} blk={STREAM_BLK} windows="
+            f"{windows} stages={stages} mappers={mappers}: max_abs_err "
+            f"{err:.3e}, B6==B1 bitwise, rerun bitwise, {st2.chunks} chunks "
+            f"with {splits} mid-tile splits == single pass bitwise; tile "
+            f"bytes {st1.distinct_tile_bytes} (bf16); B6-bf16 {t6:.4f} ms")
+        del stream, b1_ops, s_ops, b6, b6_again, b1, single, chunked
+    torch.cuda.empty_cache()
+
+
+def bf16_path_rows(kern, plain, args, kw, *, what, reps=5, l2_bytes,
+                   bound):
+    """Time ``kern`` and ``plain`` on ``args`` (CUDA events) and compare
+    them; returns the row of the kernels JSON for one mode."""
+    out = kern(*args, **kw)
+    ref = plain(*args, **kw)
+    err = compare(out, ref, what)
+    t_k = cuda_ms(lambda: kern(*args, **kw), reps)
+    t_p = cuda_ms(lambda: plain(*args, **kw), 1)
+    del ref
+    return out, dict(err=err, ms=t_k, plain_ms=t_p, bound_ms=bound[0],
+                     bound_by=bound[1], l2_bytes=l2_bytes)
+
+
+def phase_bf16_main(ft, dev, gpu: str):
+    """The bf16 main path on the nell-2 stand-in that phase_main built, at
+    R=16: ``cp_als_distributed`` with ``pallas_fused_gather_bf16`` (the
+    bf16 B1 only); per mode the bf16 mode steps of B2 (R=256), B3, B4 and
+    the bf16 out-of-core run (B6), each driven with the counts zeroed just
+    before and read just after; then every bf16 kernel at its path's
+    inputs against its plain version and the bf16 B1 bitwise, timed beside
+    the fp32 kernel on the same inputs; a profiled bf16 sweep."""
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    from repro_torch.oocore import executor, planner
+    from repro_torch.reorder import reorder_stream
+    rank, bf16 = 16, torch.bfloat16
+    t_phase = time.perf_counter()
+    # --- the main bf16 path: counts zeroed just before, read just after --
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = cpals.cp_als_distributed(ft, rank,
+                                   backend="pallas_fused_gather_bf16",
+                                   iters=2, tol=0.0)
+    launched = counts()
+    require_only(launched, "fused_mttkrp_nmode_gather" + BF16, 6,
+                 "pallas_fused_gather_bf16 (the bf16 B1 on every mode)")
+    require(all(np.isfinite(res.fits)) and max(res.fits) <= 1.0,
+            f"bf16 fits {res.fits}")
+    for f in res.factors:
+        require(bool(np.isfinite(f).all()), "non-finite bf16 factor")
+    log(f"[bf16-main] cp_als_distributed R={rank} pallas_fused_gather_bf16: "
+        f"fits {res.fits}; ms per sweep "
+        f"{[round(x * 1e3, 2) for x in res.sweep_seconds]}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bf16 B1 "
+        f"launches {launched['fused_mttkrp_nmode_gather' + BF16]}")
+    launches = {"fused_mttkrp_nmode_gather" + BF16:
+                launched["fused_mttkrp_nmode_gather" + BF16]}
+    del res
+
+    rt, packed = dist.prepare_runtime(ft, rank, gather_dtype="bfloat16")
+    stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
+                                                  device=dev)
+    del packed
+    sweep = cpals.als_sweep(stream, factors, lam, x2, rt, sweep0=True,
+                            backend="pallas_fused_gather_bf16")
+    nmodes, k = rt.nmodes, rt.nmodes - 1
+    blk, sblk, tile_rows = rt.blk, MAIN_STREAM_BLK, rt.tile_rows
+    # B2's path runs at R=256 (where auto takes B2 on this tensor's modes
+    # 0 and 1), on seeded random factors in the same row spaces.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f256 = [torch.randn(rt.i_pad[w], 256, generator=gen, device=dev)
+            for w in range(nmodes)]
+    rows = {name + BF16: [] for name in (
+        "fused_mttkrp_nmode_gather", "fused_mttkrp_nmode_gather_tiled",
+        "fused_mttkrp_nmode", "fused_mttkrp_nmode_tiled",
+        "fused_mttkrp_nmode_gather_stream")}
+    cur = stream
+    for n in range(nmodes):
+        rows_cap = rt.rows_cap[n]
+        facs = list(sweep.factors[:n]) + list(factors[n:])
+        frows = tuple(facs[w].shape[0] for w in range(nmodes) if w != n)
+        okw = dict(mode=n, rows_cap=rows_cap, row_offset=0, blk=blk,
+                   tile_rows=tile_rows)
+        # --- driven bf16 paths of B2 (R=256, two slabs), B3, B4 and B6
+        # (counted) ---
+        for backend, name in (
+                ("pallas_fused", "fused_mttkrp_nmode"),
+                ("pallas_fused_tiled", "fused_mttkrp_nmode_tiled")):
+            reset_counts()
+            out = ops.mttkrp_device_step(*cur, facs, backend=backend,
+                                         gather_dtype="bfloat16", **okw)
+            launched = counts()
+            require_only(launched, name + BF16, 1,
+                         f"mode {n} {backend} bf16 step")
+            require(torch.equal(out, sweep.mttkrp[n]),
+                    f"mode {n} {backend} bf16 step differs from B1-bf16")
+            launches[name + BF16] = launches.get(name + BF16, 0) + 1
+            del out
+        reset_counts()
+        out2 = ops.mttkrp_device_step(*cur, f256, gather_dtype="bfloat16",
+                                      backend="pallas_fused_gather_tiled",
+                                      **okw)
+        launched = counts()
+        require_only(launched, "fused_mttkrp_nmode_gather_tiled" + BF16, 1,
+                     f"mode {n} pallas_fused_gather_tiled bf16 step (R=256)")
+        launches["fused_mttkrp_nmode_gather_tiled" + BF16] = launches.get(
+            "fused_mttkrp_nmode_gather_tiled" + BF16, 0) + 1
+        num_blocks = ops.n_pad_for(cur[0].shape[0], rows_cap, sblk,
+                                   tile_rows) // sblk
+        budget = num_blocks * planner.stream_chunk_bytes(sblk, k,
+                                                         (1,) * k) // 5
+        reset_counts()
+        t0 = time.perf_counter()
+        out6, stats = executor.mttkrp_out_of_core(
+            *cur, facs, mode=n, rows_cap=rows_cap, blk=sblk,
+            tile_rows=tile_rows, max_chunk_bytes=budget, ordering="morton",
+            gather_dtype="bfloat16")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counts()
+        require_only(launched, "fused_mttkrp_nmode_gather_stream" + BF16,
+                     stats.chunks, f"mode {n} bf16 out-of-core run")
+        launches["fused_mttkrp_nmode_gather_stream" + BF16] = launches.get(
+            "fused_mttkrp_nmode_gather_stream" + BF16, 0) + stats.chunks
+
+        # --- each bf16 kernel at its path's inputs (launches not counted) --
+        nnz = int(cur[2].sum())
+        b1_ops = ops.gather_operands(*cur, facs, slab=rank, dtype=bf16,
+                                     **okw)
+        kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+        bound = kernel_bound_ms(b1_ops, rows_cap=rows_cap, tile_rows=tile_rows)
+        l2b = gather_l2_bytes(b1_ops)
+        b1, row = bf16_path_rows(
+            K.fused_mttkrp_nmode_gather,
+            K.fused_mttkrp_nmode_gather_plain, b1_ops, kw,
+            what=f"B1-bf16 mode {n}", l2_bytes=l2b, bound=bound)
+        require(torch.equal(b1[:, :rank], sweep.mttkrp[n]),
+                f"mode {n}: rebuilt inputs do not reproduce the bf16 sweep")
+        rows["fused_mttkrp_nmode_gather" + BF16].append(row)
+        f32_ops = ops.gather_operands(*cur, facs, slab=rank, **okw)
+        t_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*f32_ops, **kw), 5)
+        log(f"[bf16-main] B1-bf16 mode {n}: {nnz} nnz, kernel "
+            f"{row['ms']:.3f} ms (fp32 B1 {t_f32:.3f} ms, same inputs), plain "
+            f"{row['plain_ms']:.3f} ms, HBM bound {bound[0]:.3f} ms "
+            f"({bound[1]}); L2 {l2b} B gathered at "
+            f"{l2_fields(l2b, row['ms'])[0]:.3f} TB/s, L2 bound "
+            f"{l2_fields(l2b, row['ms'])[1]:.3f} ms (fp32 "
+            f"{gather_l2_bytes(f32_ops)} B); max_abs_err {row['err']:.3e}, "
+            f"== the bf16 sweep bitwise  [{gpu}]")
+        del f32_ops
+        # B2-bf16 at its path's inputs: R=256 in two 128-column slabs,
+        # == the path's output and == B1-bf16 at R=256 bitwise.
+        ops256 = ops.gather_operands(*cur, f256, slab=256, dtype=bf16, **okw)
+        tkw = dict(rank_slab=128, **kw)
+        l2b256 = gather_l2_bytes(ops256)
+        bound256 = kernel_bound_ms(ops256, rows_cap=rows_cap,
+                                   tile_rows=tile_rows)
+        b2, row = bf16_path_rows(
+            K.fused_mttkrp_nmode_gather_tiled,
+            K.fused_mttkrp_nmode_gather_tiled_plain, ops256, tkw,
+            what=f"B2-bf16 mode {n}", reps=3, l2_bytes=l2b256,
+            bound=bound256)
+        require(torch.equal(b2, out2), f"mode {n}: B2-bf16 differs from its "
+                "path's output")
+        require(torch.equal(b2, K.fused_mttkrp_nmode_gather(*ops256, **kw)),
+                f"mode {n}: B2-bf16 differs from B1-bf16 at R=256")
+        rows["fused_mttkrp_nmode_gather_tiled" + BF16].append(row)
+        f32_256 = ops.gather_operands(*cur, f256, slab=256, **okw)
+        t2_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_tiled(
+            *f32_256, **tkw), 3)
+        tbps, l2bound = l2_fields(l2b256, row["ms"])
+        log(f"[bf16-main] B2-bf16 mode {n}: R=256, 2 slabs, kernel "
+            f"{row['ms']:.3f} ms (fp32 B2 {t2_f32:.3f} ms, same inputs), plain "
+            f"{row['plain_ms']:.3f} ms, bound {bound256[0]:.3f} ms "
+            f"({bound256[1]}); L2 {l2b256} B gathered at {tbps:.3f} TB/s, L2 "
+            f"bound {l2bound:.3f} ms; max_abs_err {row['err']:.3e}, == B1-bf16"
+            f" at R=256 bitwise  [{gpu}]")
+        del b2, out2, ops256, f32_256
+        # B3-bf16 / B4-bf16 on rows pre-gathered in bf16 (timed: the gather
+        # of (n_pad, 16) bf16 rows, 32 B each).
+        vals, idx_al, fmats, r_al, tob = b1_ops
+        t_pre = cuda_ms(lambda: ops.pregathered_rows(idx_al, fmats), 3)
+        pre = ops.pregathered_rows(idx_al, fmats)
+        f32_fm = tuple(f.float() for f in fmats)
+        t_pre32 = cuda_ms(lambda: ops.pregathered_rows(idx_al, f32_fm), 3)
+        fbound = fused_bound_ms(nnz, rank, k, rows_cap=rows_cap,
+                                tile_rows=tile_rows, itemsize=2)
+        fl2 = nnz * k * rank * 2
+        b3, row = bf16_path_rows(
+            K.fused_mttkrp_nmode, K.fused_mttkrp_nmode_plain,
+            (vals, pre, r_al, tob), kw, what=f"B3-bf16 mode {n}",
+            l2_bytes=fl2, bound=fbound)
+        require(torch.equal(b3, b1), f"mode {n}: B3-bf16 differs from B1-bf16")
+        rows["fused_mttkrp_nmode" + BF16].append(row)
+        del f32_fm
+        pre32 = ops.pregathered_rows(idx_al, tuple(f.float() for f in fmats))
+        t3_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre32, r_al, tob,
+                                                      **kw), 5)
+        del pre32
+        log(f"[bf16-main] B3-bf16 mode {n}: kernel {row['ms']:.3f} ms (fp32 "
+            f"B3 {t3_f32:.3f} ms on the same values' fp32 rows), plain "
+            f"{row['plain_ms']:.3f} ms, HBM bound {fbound[0]:.3f} ms "
+            f"({fbound[1]}, 72 B per nonzero); pregathered_rows bf16 "
+            f"{t_pre:.3f} ms vs fp32 {t_pre32:.3f} ms; max_abs_err "
+            f"{row['err']:.3e}, == B1-bf16 bitwise  [{gpu}]")
+        b4, row = bf16_path_rows(
+            K.fused_mttkrp_nmode_tiled,
+            K.fused_mttkrp_nmode_tiled_plain, (vals, pre, r_al, tob),
+            dict(rank_slab=16, **kw), what=f"B4-bf16 mode {n}",
+            l2_bytes=fl2, bound=fbound)
+        require(torch.equal(b4, b1), f"mode {n}: B4-bf16 differs from B1-bf16")
+        rows["fused_mttkrp_nmode_tiled" + BF16].append(row)
+        log(f"[bf16-main] B4-bf16 mode {n}: one slab, kernel {row['ms']:.3f} "
+            f"ms, plain {row['plain_ms']:.3f} ms, == B1-bf16 bitwise  [{gpu}]")
+        del b1_ops, vals, idx_al, fmats, r_al, tob, pre, b1, b3, b4
+        # B6-bf16 at the stream path's inputs: the Morton-permuted stream
+        # in 64-slot blocks; == the bf16 B1 on that stream and == the
+        # out-of-core run.
+        ridx, rval, rvalid, _ = reorder_stream(
+            *cur, mode=n, ordering="morton", tile_rows=tile_rows,
+            max_rows=max(frows))
+        m_ops = ops.gather_operands(ridx, rval, rvalid, facs, slab=rank,
+                                    dtype=bf16, **dict(okw, blk=sblk))
+        del ridx, rval, rvalid
+        skw = dict(rows_cap=rows_cap, blk=sblk, tile_rows=tile_rows)
+        b1m = K.fused_mttkrp_nmode_gather(*m_ops, **skw)
+        require(torch.equal(out6, b1m[:, :rank]),
+                f"mode {n}: bf16 out-of-core output differs from B1-bf16")
+        s_ops, windows = stream_operands(m_ops, sblk)
+        copied = stream_copy_bytes(s_ops[0], s_ops[5], s_ops[2], sblk,
+                                   K.FACTOR_ROW_TILE, K.STREAM_RANK_SLAB)
+        sbound = kernel_bound_ms(m_ops, rows_cap=rows_cap,
+                                 tile_rows=tile_rows, scheds=s_ops[5])
+        b6, row = bf16_path_rows(
+            K.fused_mttkrp_nmode_gather_stream,
+            K.fused_mttkrp_nmode_gather_stream_plain, s_ops, skw,
+            what=f"B6-bf16 mode {n}", reps=3, l2_bytes=copied, bound=sbound)
+        require(torch.equal(b6, b1m), f"mode {n}: B6-bf16 differs from B1-bf16")
+        rows["fused_mttkrp_nmode_gather_stream" + BF16].append(row)
+        f32_s = s_ops[:2] + (tuple(f.float() for f in s_ops[2]),) + s_ops[3:]
+        t6_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *f32_s, **skw), 3)
+        stages, mappers = K.stream_ring(k, rank, sblk, tile_rows, windows,
+                                        gather_itemsize=2)
+        tbps, l2bound = l2_fields(copied, row["ms"])
+        log(f"[bf16-main] B6-bf16 mode {n}: Morton, blk={sblk}, out-of-core "
+            f"{secs:.2f} s in {stats.chunks} chunks == B1-bf16 bitwise, tile "
+            f"bytes counted {stats.distinct_tile_bytes} (bf16); single pass "
+            f"windows {windows}, stages {stages}, mappers {mappers}: kernel "
+            f"{row['ms']:.3f} ms (fp32 B6 {t6_f32:.3f} ms, same stream), "
+            f"plain {row['plain_ms']:.3f} ms, HBM bound {sbound[0]:.3f} ms "
+            f"({sbound[1]}); L2 {copied} B of tiles copied at {tbps:.3f} "
+            f"TB/s, L2 bound {l2bound:.3f} ms; max_abs_err {row['err']:.3e}  "
+            f"[{gpu}]")
+        del m_ops, s_ops, f32_s, b1m, b6, out6
+        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+    del cur, stream, factors, sweep, f256
+    torch.cuda.empty_cache()
+    profile_sweep(ft, rank, "pallas_fused_gather_bf16", dev)
+    log(f"[bf16-main] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {name: (launches[name], rows[name]) for name in rows}
+
+
+def phase_bf16_fit(gpu: str):
+    """The reference's bench_bf16_convergence as one line: the same CP-ALS
+    (B1, seed 1, tol 0) in fp32 and with bf16 gathers on a generated
+    low-rank tensor (the nell-2 stand-in's random values carry no signal);
+    both fit traces, the final gap and the largest per-sweep gap. The
+    reference's bench calls bf16 converged when the final gap is below
+    1e-2; the (N-1)*2^-8 bound is per mode step and is printed beside the
+    largest relative gap, not required of a whole run (bf16 may settle on
+    another fixed point)."""
+    from repro_torch.core import cpals, flycoo, tensors
+    shape, true_rank, nnz, rank, sweeps = (600, 500, 400), 16, 10_000_000, \
+        16, 10
+    t, _ = tensors.low_rank_sparse_tensor(shape, true_rank, nnz, seed=0)
+    ft = flycoo.build_flycoo(t, 1)
+    kw = dict(iters=sweeps, seed=1, tol=0.0, backend="pallas_fused_gather")
+    fits = {}
+    for gd in ("float32", "bfloat16"):
+        res = cpals.cp_als_distributed(ft, rank, gather_dtype=gd, **kw)
+        require(len(res.fits) == sweeps and all(np.isfinite(res.fits)),
+                f"{gd} fits {res.fits}")
+        fits[gd] = res.fits
+    gaps = [abs(a - b) for a, b in zip(fits["float32"], fits["bfloat16"])]
+    rel = max(g / abs(a) for g, a in zip(gaps, fits["float32"]))
+    bound = (len(shape) - 1) * 2.0 ** -8
+    log(f"[bf16-fit] low_rank_sparse_tensor shape={shape} true rank "
+        f"{true_rank} nnz={t.nnz} (seed 0), CP-ALS R={rank} B1 seed 1 tol 0, "
+        f"{sweeps} sweeps: fits fp32 {fits['float32']}; fits bf16 "
+        f"{fits['bfloat16']}; final gap {gaps[-1]:.3e}, largest per-sweep "
+        f"gap {max(gaps):.3e} (largest relative {rel:.3e}; one mode step's "
+        f"bound (N-1)*2^-8 = {bound:.3e})  [{gpu}]")
+    require(gaps[-1] < 1e-2, f"bf16 did not converge within 1e-2 of fp32: "
+            f"final gap {gaps[-1]}")
+
+
 def phase_four_mode(dev):
     from repro_torch.core import flycoo, tensors
     t = tensors.frostt_like("enron")
@@ -1075,9 +1497,12 @@ def main() -> int:
     ft, b1_fits, main_rows = phase_main(dev, gpu)
     main_rows.update(phase_fused_main(ft, b1_fits, dev, gpu))
     main_rows.update(phase_stream_main(ft, dev, gpu))
+    main_rows.update(phase_bf16_main(ft, dev, gpu))
     del ft
     phase_four_mode(dev)
     phase_recovery()
+    phase_bf16_kernels(dev)
+    phase_bf16_fit(gpu)
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
@@ -1093,12 +1518,14 @@ def main() -> int:
             "library_ms": (float(np.mean([r["library_ms"] for r in rows]))
                            if "library_ms" in rows[0] else None),
         })
-    require(len(kernels) == len(SOURCE)
+    # The six fp32 kernels and the five bf16 variants, each launched.
+    require(len(kernels) == len(SOURCE) == 11
             and all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s; "
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
         "of the main path; l2_bound_ms is the L2 bytes (rows gathered by "
-        "B1/B2, tiles copied by B6, rows read by B3/B4/B5) over the "
+        "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
+        "factor element for the [bf16] variants) over the "
         f"measured L2 read rate {L2_BYTES_PER_S / 1e12:.3f} TB/s; "
         "library_ms is index_add_ for segment_accumulate and null for the "
         "others: no single PyTorch call computes spMTTKRP")

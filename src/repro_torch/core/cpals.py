@@ -166,6 +166,7 @@ def als_sweep(stream, factors, lam, x_norm_sq, rt: dist.DynasorRuntime, *,
     MTTKRP → guarded solve → column normalization (2-norm on the first
     sweep, max-norm floored at 1 after) → remap into the next mode's
     order, as the reference's ``make_als_sweep`` does at one worker.
+    The mode steps gather in ``rt.gather_dtype``.
     """
     idx, val, mask = stream
     factors = list(factors)
@@ -225,9 +226,11 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     ``ref``, ``auto`` (per mode the first rung of the residency ladder
     that fits, ``ops.select_backend``), ``pallas_fused_gather`` (B1),
     ``pallas_fused_gather_tiled`` (B2), ``pallas_fused`` (B3),
-    ``pallas_fused_tiled`` (B4), ``pallas`` (B5) or
-    ``pallas_fused_gather_stream`` (B6); the bf16 names raise
-    ``NotImplementedError`` (ROADMAP A6b). ``ordering``
+    ``pallas_fused_tiled`` (B4), ``pallas`` (B5),
+    ``pallas_fused_gather_stream`` (B6), or the bf16 names
+    ``pallas_fused_bf16`` (B3) and ``pallas_fused_gather_bf16`` (B1).
+    ``gather_dtype="bfloat16"`` runs every fused-family mode step (B1–B4,
+    B6) on bf16 factor operands with fp32 products and sums; ``ordering``
     (``reorder.ORDERINGS``; ``None`` inherits ``ft.ordering``) ranks each
     mode step's output-tile runs by factor-tile locality.
     """

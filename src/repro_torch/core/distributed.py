@@ -52,14 +52,16 @@ class DynasorRuntime:
     # Per-transition exchange capacities (entry n bounds mode n -> n+1);
     # None means bucket_cap for every transition.
     bucket_caps: tuple[int, ...] | None = None
+    # The element type the fused family gathers factor rows in, "float32"
+    # or "bfloat16" (bf16 gathers, fp32 products and sums): threaded to
+    # every mode step, never chosen by ``auto``.
     gather_dtype: str = "float32"
     ordering: str = "none"
 
     def __post_init__(self):
-        if self.gather_dtype != "float32":
-            raise NotImplementedError(
-                f"gather_dtype={self.gather_dtype!r} is not ported yet "
-                "(ROADMAP A6b)")
+        # Checked here, as in the reference: the ref and pallas mode steps
+        # never read it, so a typo would otherwise pass silently.
+        kops.check_gather_dtype(self.gather_dtype)
         from ..reorder import validate_ordering  # deferred: reorder→kernels
         validate_ordering(self.ordering)
 
@@ -77,7 +79,9 @@ def prepare_runtime(
 ) -> tuple[DynasorRuntime, tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Runtime metadata + the initial mode-0 packed layout (H_0), numpy.
 
-    ``table`` (calibration tables, ROADMAP A12) must be ``None``.
+    ``gather_dtype`` (``"float32"`` or ``"bfloat16"``) goes to every mode
+    step through the runtime. ``table`` (calibration tables, ROADMAP A12)
+    must be ``None``.
     """
     if table is not None:
         raise NotImplementedError(
@@ -159,9 +163,9 @@ def device_mttkrp(idx, val, mask, factors, mode: int, rt: DynasorRuntime,
 
     ``backend`` is ``segsum`` (gather + ``index_add_``), ``auto`` (the
     residency ladder, ``ops.select_backend``) or one of ``ops.BACKENDS``
-    (``ref``, and B1–B6 behind the JAX package's names); the bf16 names
-    raise ``NotImplementedError`` (ROADMAP A6b). The runtime's
-    ``ordering`` applies to the fused and gather kernels.
+    (``ref``, and B1–B6 behind the JAX package's names, the bf16 ones
+    among them). The runtime's ``gather_dtype`` and ``ordering`` apply to
+    the fused and gather kernels.
     """
     kops.check_backend(backend, extra=("segsum",))
     _require_one_worker(rt)

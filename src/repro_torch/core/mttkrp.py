@@ -6,6 +6,9 @@ Port of ``repro/core/mttkrp.py``:
   2. :func:`mttkrp` / :func:`mttkrp_sorted` — gather input factor rows
      (``index_select``), Hadamard-product them, scale by the value and
      ``index_add_`` into the output rows.
+  3. :func:`mttkrp_fused` — one device, through the kernels' mode step
+     (``kernels.mttkrp.ops.mttkrp_device_step``), in fp32 or with bf16
+     gathers.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ __all__ = [
     "mttkrp_elementwise_ref",
     "hadamard_rows",
     "mttkrp",
+    "mttkrp_fused",
     "mttkrp_sorted",
 ]
 
@@ -69,3 +73,28 @@ def mttkrp_sorted(indices, values, factors, mode: int, out_rows: int):
     reference's API.
     """
     return mttkrp(indices, values, factors, mode, out_rows)
+
+
+def mttkrp_fused(indices, values, factors, mode: int, out_rows: int, *,
+                 blk: int = 512, tile_rows: int = 8, backend: str = "auto",
+                 gather_dtype: str = "float32"):
+    """Single-device spMTTKRP through the kernels' mode step.
+
+    Sorts the nonzeros by output row (stable, the FLYCOO precondition),
+    rounds the output up to whole row tiles and runs
+    ``ops.mttkrp_device_step`` with ``backend`` (``auto``: the residency
+    ladder) on the device that holds the tensors. ``gather_dtype=
+    "bfloat16"`` makes the fused family gather bf16 factor rows (fp32
+    products and sums). Returns ``(out_rows, R)`` float32.
+    """
+    from ..kernels.mttkrp import ops as kops  # deferred: ops imports this
+    order = torch.argsort(indices[:, mode], stable=True)
+    idx = indices[order].to(torch.int32)
+    val = values[order]
+    valid = torch.ones(val.shape, dtype=torch.bool, device=val.device)
+    rows_cap = -(-out_rows // tile_rows) * tile_rows
+    out = kops.mttkrp_device_step(
+        idx, val, valid, list(factors), mode=mode, rows_cap=rows_cap,
+        row_offset=0, blk=blk, tile_rows=tile_rows, backend=backend,
+        gather_dtype=gather_dtype)
+    return out[:out_rows]

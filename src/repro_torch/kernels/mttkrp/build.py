@@ -36,35 +36,44 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# Library name -> {launch function: argument types}.
+_GATHER_ARGS = (
+    [_P] * 4          # vals, idx, local rows, block starts
+    + [_P] * 4        # factor pointers f0..f3
+    + [_I] * 4        # factor row counts
+    + [_P]            # out
+    + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
+                      # slab, groups, lanes
+    + [_P])           # stream
+_STREAM_ARGS = (
+    [_P] * 4          # vals, idx, local rows, block starts
+    + [_P] * 4        # factor pointers f0..f3
+    + [_I] * 4        # factor row counts (multiples of frow)
+    + [_P] * 4        # schedule pointers s0..s3
+    + [_I] * 4        # schedule widths
+    + [_P] * 3        # out, carry_in, carry_out
+    + [_I] * 15       # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
+                      # slab, groups, lanes, frow, stages, mappers,
+                      # carry_in_tile, carry_in_phase, carry_out_tile
+    + [_P])           # stream
+_FUSED_ARGS = (
+    [_P]              # vals
+    + [_P] * 4        # pre-gathered row arrays r0..r3
+    + [_P] * 3        # local rows, block starts, out
+    + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
+                      # slab, groups, lanes
+    + [_P])           # stream
+# Library name -> {launch function: argument types}. B1/B2, B3/B4 and B6
+# each have a float and a bf16 entry point (the factor or row element
+# type); their arguments are the same.
 _LAUNCH_ARGTYPES = {
-    "gather_mttkrp": {"gather_mttkrp_launch": (
-        [_P] * 4          # vals, idx, local rows, block starts
-        + [_P] * 4        # factor pointers f0..f3
-        + [_I] * 4        # factor row counts
-        + [_P]            # out
-        + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows,
-                          # ld, slab, groups, lanes
-        + [_P])},         # stream
-    "gather_stream_mttkrp": {"gather_stream_mttkrp_launch": (
-        [_P] * 4          # vals, idx, local rows, block starts
-        + [_P] * 4        # factor pointers f0..f3
-        + [_I] * 4        # factor row counts (multiples of frow)
-        + [_P] * 4        # schedule pointers s0..s3
-        + [_I] * 4        # schedule widths
-        + [_P] * 3        # out, carry_in, carry_out
-        + [_I] * 15       # num_in, num_tiles, num_slabs, blk, tile_rows,
-                          # ld, slab, groups, lanes, frow, stages, mappers,
-                          # carry_in_tile, carry_in_phase, carry_out_tile
-        + [_P])},         # stream
+    "gather_mttkrp": {"gather_mttkrp_launch": _GATHER_ARGS,
+                      "gather_mttkrp_bf16_launch": _GATHER_ARGS},
+    "gather_stream_mttkrp": {
+        "gather_stream_mttkrp_launch": _STREAM_ARGS,
+        "gather_stream_mttkrp_bf16_launch": _STREAM_ARGS},
     "fused_mttkrp": {
-        "fused_mttkrp_launch": (
-            [_P]          # vals
-            + [_P] * 4    # pre-gathered row arrays r0..r3
-            + [_P] * 3    # local rows, block starts, out
-            + [_I] * 9    # num_in, num_tiles, num_slabs, blk, tile_rows,
-                          # ld, slab, groups, lanes
-            + [_P]),      # stream
+        "fused_mttkrp_launch": _FUSED_ARGS,
+        "fused_mttkrp_bf16_launch": _FUSED_ARGS,
         "segment_accumulate_launch": (
             [_P] * 4      # contrib, local rows, block starts, out
             + [_I] * 9    # num_tiles, num_slabs, blk, tile_rows, ld, slab,

@@ -20,8 +20,16 @@
 // gathered by the caller (ops: index_select on the aligned index stream);
 // contrib is the materialized product (val * row_0) * row_1 ... .
 //
+// Element types. B3/B4's rows are float, or bf16 (the reference's bf16
+// gathers, kernel.py:453 and :607: ops casts the factor matrix to bf16
+// before the gather, the kernel multiplies and adds in fp32). The kernel is
+// instantiated for both (fused_mttkrp_launch, fused_mttkrp_bf16_launch); a
+// bf16 element becomes fp32 as it is loaded (add_products), exactly, so the
+// bf16 B3 == B4 == the bf16 B1 bitwise. B5 takes only fp32: on the bf16
+// path its contribution is made in fp32 (the reference's ops.py:619-628).
+//
 // What bounds them. Per nonzero B3 reads 4 B of value, 4 B of local row
-// and K rows of R floats (K * 64 B at R=16); B5 reads 4 B of local row and
+// and K rows of R elements (K * 64 B at R=16, K * 32 B in bf16); B5 reads 4 B of local row and
 // one contribution row (64 B at R=16). Both are bound by these HBM bytes:
 // the rows are read once, in slot order, with no reuse.
 //
@@ -66,14 +74,16 @@ constexpr int kChunk = 2048;
 // Slots of one group whose row loads are in flight together (as in B1).
 constexpr int kUnroll = 4;
 
-// The K pre-gathered row arrays, each (n_pad, ld) row-major.
+// The K pre-gathered row arrays, each (n_pad, ld) row-major, of float or
+// bf16 elements.
+template <typename T>
 struct RowSet {
-  const float* ptr[kMaxInModes];
+  const T* ptr[kMaxInModes];
 };
 
-template <int K>
+template <int K, typename T>
 __global__ void fused_mttkrp_kernel(const float* __restrict__ vals,
-                                    RowSet rs, const int* __restrict__ lrow,
+                                    RowSet<T> rs, const int* __restrict__ lrow,
                                     const int* __restrict__ blk_start,
                                     float* __restrict__ out, int blk,
                                     int tile_rows, int ld, int slab,
@@ -212,8 +222,8 @@ __global__ void segment_accumulate_kernel(const float* __restrict__ contrib,
       out + (long long)t * tile_rows * ld + col0, ld);
 }
 
-template <int K>
-cudaError_t launch_fused_k(const float* vals, const RowSet& rs,
+template <int K, typename T>
+cudaError_t launch_fused_k(const float* vals, const RowSet<T>& rs,
                            const int* lrow, const int* blk_start, float* out,
                            int num_tiles, int num_slabs, int blk,
                            int tile_rows, int ld, int slab, int groups,
@@ -221,51 +231,69 @@ cudaError_t launch_fused_k(const float* vals, const RowSet& rs,
   const size_t smem = (size_t)groups * tile_rows * slab * sizeof(float) +
                       (size_t)kChunk * 2 * sizeof(float);
   const cudaError_t e =
-      mttkrp_common::allow_smem(fused_mttkrp_kernel<K>, smem);
+      mttkrp_common::allow_smem(fused_mttkrp_kernel<K, T>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
-  fused_mttkrp_kernel<K><<<grid, groups * lanes, smem, stream>>>(
+  fused_mttkrp_kernel<K, T><<<grid, groups * lanes, smem, stream>>>(
       vals, rs, lrow, blk_start, out, blk, tile_rows, ld, slab, groups,
       lanes);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// B3/B4. Launch on `stream`; returns the cudaError_t of the launch (0 =
-// success). r1..r3 are ignored beyond `num_in` input modes.
-extern "C" int fused_mttkrp_launch(const void* vals, const void* r0,
-                                   const void* r1, const void* r2,
-                                   const void* r3, const void* lrow,
-                                   const void* blk_start, void* out,
-                                   int num_in, int num_tiles, int num_slabs,
-                                   int blk, int tile_rows, int ld, int slab,
-                                   int groups, int lanes, void* stream) {
-  RowSet rs;
+template <typename T>
+int launch_fused(const void* vals, const void* r0, const void* r1,
+                 const void* r2, const void* r3, const void* lrow,
+                 const void* blk_start, void* out, int num_in, int num_tiles,
+                 int num_slabs, int blk, int tile_rows, int ld, int slab,
+                 int groups, int lanes, void* stream) {
+  RowSet<T> rs;
   const void* ptrs[kMaxInModes] = {r0, r1, r2, r3};
   for (int w = 0; w < kMaxInModes; ++w)
-    rs.ptr[w] = static_cast<const float*>(ptrs[w]);
+    rs.ptr[w] = static_cast<const T*>(ptrs[w]);
   const float* v = static_cast<const float*>(vals);
   const int* lr = static_cast<const int*>(lrow);
   const int* bs = static_cast<const int*>(blk_start);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_K(KK)                                                      \
+  launch_fused_k<KK, T>(v, rs, lr, bs, o, num_tiles, num_slabs, blk,      \
+                        tile_rows, ld, slab, groups, lanes, s)
   switch (num_in) {
     case 1:
-      return launch_fused_k<1>(v, rs, lr, bs, o, num_tiles, num_slabs, blk,
-                               tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(1);
     case 2:
-      return launch_fused_k<2>(v, rs, lr, bs, o, num_tiles, num_slabs, blk,
-                               tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(2);
     case 3:
-      return launch_fused_k<3>(v, rs, lr, bs, o, num_tiles, num_slabs, blk,
-                               tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(3);
     case 4:
-      return launch_fused_k<4>(v, rs, lr, bs, o, num_tiles, num_slabs, blk,
-                               tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(4);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef LAUNCH_K
+}
+
+}  // namespace
+
+// B3/B4. Launch on `stream`; returns the cudaError_t of the launch (0 =
+// success). r1..r3 are ignored beyond `num_in` input modes. The rows are
+// float (fused_mttkrp_launch) or bf16 (fused_mttkrp_bf16_launch); every
+// other argument is the same.
+#define FUSED_ARGS                                                        \
+  const void *vals, const void *r0, const void *r1, const void *r2,       \
+      const void *r3, const void *lrow, const void *blk_start, void *out, \
+      int num_in, int num_tiles, int num_slabs, int blk, int tile_rows,   \
+      int ld, int slab, int groups, int lanes, void *stream
+#define FUSED_PASS                                                        \
+  vals, r0, r1, r2, r3, lrow, blk_start, out, num_in, num_tiles,          \
+      num_slabs, blk, tile_rows, ld, slab, groups, lanes, stream
+
+extern "C" int fused_mttkrp_launch(FUSED_ARGS) {
+  return launch_fused<float>(FUSED_PASS);
+}
+
+extern "C" int fused_mttkrp_bf16_launch(FUSED_ARGS) {
+  return launch_fused<__nv_bfloat16>(FUSED_PASS);
 }
 
 // B5. `chunk` contribution rows are staged at a time (a multiple of

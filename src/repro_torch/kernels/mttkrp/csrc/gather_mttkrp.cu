@@ -16,15 +16,24 @@
 // accumulated in fp32 on top of the caller's out_init (the wrapper passes
 // `out` already holding out_init or zeros).
 //
+// Element types. The factors are float, or bf16 (the reference's bf16
+// gathers, kernel.py:664: bf16 factor operands, fp32 products and sums).
+// Each kernel is instantiated for both, with one entry point each
+// (gather_mttkrp_launch, gather_mttkrp_bf16_launch); only the factor loads
+// differ: a bf16 element becomes fp32 as it is loaded (exact), so the bf16
+// variants of B1 and B2 agree bitwise with each other and with the bf16
+// variants of B3, B4 and B6 on one aligned stream. The stream (values,
+// local rows, indices) and the partial tiles are the same in both.
+//
 // What bounds it. Per nonzero the stream brings 4 B of value, 4 B of local
 // row and 4 B per input mode of factor index: 16 B/nnz for a 3-mode tensor,
 // read from HBM exactly once (the HBM bound). Each nonzero also gathers K
-// factor rows of `slab` floats per slab (64 B each at R=16) at random out
-// of the 50 MB L2, where the factors stay: nnz * K * R * 4 bytes through L2
-// (the L2 bound, against the card's measured L2 read rate). At R=16 that
-// is 128 B of rows per nonzero beside 16 B of stream, 8x the HBM bytes,
-// so the L2 gathers, their latency and the run's serial phases are what
-// bound the kernel.
+// factor rows of `slab` elements per slab (64 B each at R=16 in fp32; 32 B,
+// one sector, in bf16) at random out of the 50 MB L2, where the factors
+// stay: nnz * K * R * itemsize bytes through L2 (the L2 bound, against the
+// card's measured L2 read rate). At R=16 in fp32 that is 128 B of rows per
+// nonzero beside 16 B of stream, 8x the HBM bytes, so the L2 gathers,
+// their latency and the run's serial phases are what bound the kernel.
 //
 // What the design does about it.
 //  * The stream is read once and staged asynchronously: a CTA copies
@@ -41,8 +50,8 @@
 //    read-only path (L2-resident), and the TPU's one-hot MXU gather and
 //    scatter are gone. Each group issues the factor loads of kUnroll slots
 //    before it adds any of them, so several loads are in flight per thread.
-//    A slot's rows are kept as 32-bit offsets into the factors (the
-//    wrapper checks each has fewer than 2^31 elements), not as 64-bit
+//    A slot's rows are kept as 32-bit offsets into the factors, counted
+//    in elements (the wrapper checks each has fewer than 2^31), not as 64-bit
 //    pointers: the pointers' registers kept CTAs off the SMs, and cutting
 //    them is what moved the time most (bench_torch/kernel_ablation.py).
 //  * One CTA owns one output tile (tile_of_block is non-decreasing, so a
@@ -76,7 +85,8 @@
 
 namespace {
 
-using mttkrp_common::FactorSet;
+template <typename T>
+using FactorSet = mttkrp_common::FactorSet<T>;
 // Slots of the stream one staging buffer holds (a multiple of every
 // `groups`, <= 16). No __launch_bounds__: on the H100 it made the
 // wide-slab kernel slower; at <= 96 registers a 512-thread CTA fits, and a
@@ -103,12 +113,12 @@ __device__ __forceinline__ void stage_chunk(const float* vals, const int* idx,
   mttkrp_common::cp_async_commit();
 }
 
-template <int K>
+template <int K, typename T>
 __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
                                      const int* __restrict__ idx,
                                      const int* __restrict__ lrow,
                                      const int* __restrict__ blk_start,
-                                     FactorSet fs, float* __restrict__ out,
+                                     FactorSet<T> fs, float* __restrict__ out,
                                      int blk, int tile_rows, int ld,
                                      int slab, int groups, int lanes) {
   extern __shared__ float4 smem4[];
@@ -209,35 +219,32 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
       out + (long long)t * tile_rows * ld + col0, ld);
 }
 
-template <int K>
+template <int K, typename T>
 cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
-                     const int* blk_start, const FactorSet& fs, float* out,
+                     const int* blk_start, const FactorSet<T>& fs, float* out,
                      int num_tiles, int num_slabs, int blk, int tile_rows,
                      int ld, int slab, int groups, int lanes,
                      cudaStream_t stream) {
   const size_t smem = (size_t)groups * tile_rows * slab * sizeof(float) +
                       (size_t)kBuffers * kChunk * (2 + K) * sizeof(float);
   const cudaError_t e =
-      mttkrp_common::allow_smem(gather_mttkrp_kernel<K>, smem);
+      mttkrp_common::allow_smem(gather_mttkrp_kernel<K, T>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
-  gather_mttkrp_kernel<K><<<grid, groups * lanes, smem, stream>>>(
+  gather_mttkrp_kernel<K, T><<<grid, groups * lanes, smem, stream>>>(
       vals, idx, lrow, blk_start, fs, out, blk, tile_rows, ld, slab, groups,
       lanes);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// f1..f3 / rows1..rows3 are ignored beyond `num_in` input modes.
-extern "C" int gather_mttkrp_launch(
-    const void* vals, const void* idx, const void* lrow, const void* blk_start,
-    const void* f0, const void* f1, const void* f2, const void* f3, int rows0,
-    int rows1, int rows2, int rows3, void* out, int num_in, int num_tiles,
-    int num_slabs, int blk, int tile_rows, int ld, int slab, int groups,
-    int lanes, void* stream) {
-  const FactorSet fs = mttkrp_common::make_factor_set(
+template <typename T>
+int launch(const void* vals, const void* idx, const void* lrow,
+           const void* blk_start, const void* f0, const void* f1,
+           const void* f2, const void* f3, int rows0, int rows1, int rows2,
+           int rows3, void* out, int num_in, int num_tiles, int num_slabs,
+           int blk, int tile_rows, int ld, int slab, int groups, int lanes,
+           void* stream) {
+  const FactorSet<T> fs = mttkrp_common::make_factor_set<T>(
       f0, f1, f2, f3, rows0, rows1, rows2, rows3);
   const float* v = static_cast<const float*>(vals);
   const int* ix = static_cast<const int*>(idx);
@@ -245,22 +252,48 @@ extern "C" int gather_mttkrp_launch(
   const int* bs = static_cast<const int*>(blk_start);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_K(KK)                                                       \
+  launch_k<KK, T>(v, ix, lr, bs, fs, o, num_tiles, num_slabs, blk,         \
+                  tile_rows, ld, slab, groups, lanes, s)
   switch (num_in) {
     case 1:
-      return launch_k<1>(v, ix, lr, bs, fs, o, num_tiles, num_slabs, blk,
-                         tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(1);
     case 2:
-      return launch_k<2>(v, ix, lr, bs, fs, o, num_tiles, num_slabs, blk,
-                         tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(2);
     case 3:
-      return launch_k<3>(v, ix, lr, bs, fs, o, num_tiles, num_slabs, blk,
-                         tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(3);
     case 4:
-      return launch_k<4>(v, ix, lr, bs, fs, o, num_tiles, num_slabs, blk,
-                         tile_rows, ld, slab, groups, lanes, s);
+      return LAUNCH_K(4);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef LAUNCH_K
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// f1..f3 / rows1..rows3 are ignored beyond `num_in` input modes. The
+// factors are float (gather_mttkrp_launch) or bf16
+// (gather_mttkrp_bf16_launch); every other argument is the same.
+#define GATHER_ARGS                                                        \
+  const void *vals, const void *idx, const void *lrow,                     \
+      const void *blk_start, const void *f0, const void *f1,               \
+      const void *f2, const void *f3, int rows0, int rows1, int rows2,     \
+      int rows3, void *out, int num_in, int num_tiles, int num_slabs,      \
+      int blk, int tile_rows, int ld, int slab, int groups, int lanes,     \
+      void *stream
+#define GATHER_PASS                                                        \
+  vals, idx, lrow, blk_start, f0, f1, f2, f3, rows0, rows1, rows2, rows3,  \
+      out, num_in, num_tiles, num_slabs, blk, tile_rows, ld, slab, groups, \
+      lanes, stream
+
+extern "C" int gather_mttkrp_launch(GATHER_ARGS) {
+  return launch<float>(GATHER_PASS);
+}
+
+extern "C" int gather_mttkrp_bf16_launch(GATHER_ARGS) {
+  return launch<__nv_bfloat16>(GATHER_PASS);
 }
 
 extern "C" const char* gather_mttkrp_error_string(int code) {

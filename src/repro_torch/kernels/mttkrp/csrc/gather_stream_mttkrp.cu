@@ -20,10 +20,19 @@
 // B6 == B1 bitwise on the same stream: the reference's "streamed ==
 // resident".
 //
+// Element types. The factors, and so the window's tiles, are float or
+// bf16 (the reference's bf16 gathers, kernel.py:868: bf16 window tiles,
+// fp32 products and sums). The kernel is instantiated for both
+// (gather_stream_mttkrp_launch, gather_stream_mttkrp_bf16_launch). A bf16
+// tile is half the bytes: 256 B at frow 8 and slab 16, and a per-row copy
+// slab * 2 = 32 B, both still multiples of 16. The consumers turn each
+// element into fp32 as they read it (exact), so the bf16 B6 == the bf16 B1
+// bitwise.
+//
 // What bounds it. Each nonzero's value, local row and K indices are read
 // from device memory once (4 + 4 + 4K bytes: the HBM bound), and each
-// block copies the distinct tiles of its schedule rows (frow * slab * 4
-// bytes each, once per slab): the stream's distinct_tile_bytes, ~56 GB per
+// block copies the distinct tiles of its schedule rows (frow * slab *
+// itemsize bytes each, once per slab): the stream's distinct_tile_bytes, ~56 GB per
 // mode at nell-2 scale under Morton order, ~30x the HBM bytes. They come
 // out of the 50 MB L2, so the L2 bound (tile bytes over the card's
 // measured L2 read rate) is the one the kernel can approach, and the
@@ -73,7 +82,8 @@
 //
 // Shared memory (kernel.gather_stream_smem_bytes), in this order:
 //   partial tiles   groups * tile_rows * slab floats
-//   windows         stages x wsum * frow * slab floats (wsum = sum W_w)
+//   windows         stages x wsum * frow * slab elements of the factors'
+//                   type (wsum = sum W_w); a multiple of 16 bytes
 //   meta slots      (stages + mappers + 1) x slot_ints ints: blk values,
 //                   blk local rows, blk * K indices (the mapper writes
 //                   window rows over them), wsum schedule entries padded
@@ -93,7 +103,8 @@
 
 namespace {
 
-using mttkrp_common::FactorSet;
+template <typename T>
+using FactorSet = mttkrp_common::FactorSet<T>;
 using mttkrp_common::kMaxInModes;
 using mttkrp_common::mbar_arrive;
 using mttkrp_common::mbar_wait;
@@ -131,11 +142,11 @@ __host__ __device__ inline int consumer_threads(int groups, int lanes) {
   return (groups * lanes + 31) / 32 * 32;
 }
 
-template <int K>
+template <int K, typename T>
 __global__ void gather_stream_mttkrp_kernel(
     const float* __restrict__ vals, const int* __restrict__ idx,
     const int* __restrict__ lrow, const int* __restrict__ blk_start,
-    FactorSet fs, ScheduleSet ss, float* __restrict__ out,
+    FactorSet<T> fs, ScheduleSet ss, float* __restrict__ out,
     const float* __restrict__ carry_in, float* __restrict__ carry_out,
     int blk, int tile_rows, int ld, int slab, int groups, int lanes, int frow,
     int stages, int mappers, int carry_in_tile, int carry_in_phase,
@@ -151,13 +162,14 @@ __global__ void gather_stream_mttkrp_kernel(
   }
   const int tile_elems = tile_rows * slab;
   const int part_elems = groups * tile_elems;
-  const int win_floats = wsum * frow * slab;
+  const int win_elems = wsum * frow * slab;
   const int slot_ints = meta_slot_ints(K, blk, wsum);
   const int nmeta = meta_slots(stages, mappers);
   const int plan_off = (2 + K) * blk + round4(wsum);  // run lengths, flag
   float* part = smem;
-  float* win = part + part_elems;  // 16-byte aligned: slab % 16 == 0
-  int* meta = reinterpret_cast<int*>(win + (size_t)stages * win_floats);
+  // 16-byte aligned: slab % 16 == 0, and so is every tile's byte count.
+  T* win = reinterpret_cast<T*>(part + part_elems);
+  int* meta = reinterpret_cast<int*>(win + (size_t)stages * win_elems);
   Barrier* full = reinterpret_cast<Barrier*>(meta + (size_t)nmeta * slot_ints);
   Barrier* empty = full + stages;
   Barrier* mfull = empty + stages;    // the meta landed
@@ -194,7 +206,7 @@ __global__ void gather_stream_mttkrp_kernel(
   __syncthreads();
 
   const int pl = threadIdx.x % 32;
-  const unsigned tile_bytes = frow * slab * 4;
+  const unsigned tile_bytes = frow * slab * sizeof(T);
   if (threadIdx.x >= meta0) {
     // ---- the meta warp: each block's values, local rows and indices (3
     // bulk copies) and schedule rows (4-byte cp.async) into its slot ----
@@ -242,22 +254,22 @@ __global__ void gather_stream_mttkrp_kernel(
           bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
         if (pl == 0) mttkrp_common::mbar_expect_tx(&full[s], bytes);
         __syncwarp();
-        float* wins = win + (size_t)s * win_floats;
+        T* wins = win + (size_t)s * win_elems;
         for (int e = pl * kIssuerWarps + iw; e < wsum; e += step) {
           const int len = runs[e];
           if (len == 0) continue;
-          const float* base = fs.ptr[0];
+          const T* base = fs.ptr[0];
 #pragma unroll
           for (int w = 1; w < K; ++w)
             if (e >= woff[w]) base = fs.ptr[w];
-          const float* src = base + (long long)s_sched[e] * frow * ld + col0;
-          float* dst = wins + (size_t)e * frow * slab;
+          const T* src = base + (long long)s_sched[e] * frow * ld + col0;
+          T* dst = wins + (size_t)e * frow * slab;
           if (ld == slab) {
             mttkrp_common::bulk_g2s(dst, src, len * tile_bytes, &full[s]);
           } else {
             for (int r = 0; r < frow; ++r)
               mttkrp_common::bulk_g2s(dst + r * slab, src + (long long)r * ld,
-                                      slab * 4, &full[s]);
+                                      slab * sizeof(T), &full[s]);
           }
         }
       }
@@ -387,20 +399,21 @@ __global__ void gather_stream_mttkrp_kernel(
       const int* s_row = sl + blk;
       const int* s_loc = sl + 2 * blk;
       if (adds && sl[plan_off + wsum]) {
-        const float* wins = win + (size_t)s * win_floats;
+        const T* wins = win + (size_t)s * win_elems;
         // Group g adds its slots in order (B1's order).
         for (int j = (g - phase + groups) % groups; j < blk; j += groups) {
           const int r = s_row[j];
           if (r < 0) continue;
           const float v = s_val[j];
-          const float* rowp[K];
+          const T* rowp[K];
 #pragma unroll
           for (int w = 0; w < K; ++w)
             rowp[w] = wins + (size_t)s_loc[j * K + w] * slab;
           for (int c = lane; c < slab; c += lanes) {
             float p = v;
 #pragma unroll
-            for (int w = 0; w < K; ++w) p = __fmul_rn(p, rowp[w][c]);
+            for (int w = 0; w < K; ++w)
+              p = __fmul_rn(p, mttkrp_common::to_f32(rowp[w][c]));
             float* dst = mine + r * slab + c;
             *dst = __fadd_rn(*dst, p);
           }
@@ -425,9 +438,9 @@ __global__ void gather_stream_mttkrp_kernel(
       out + (long long)t * tile_rows * ld + col0, ld);
 }
 
-template <int K>
+template <int K, typename T>
 cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
-                     const int* blk_start, const FactorSet& fs,
+                     const int* blk_start, const FactorSet<T>& fs,
                      const ScheduleSet& ss, float* out, const float* carry_in,
                      float* carry_out, int num_tiles, int num_slabs, int blk,
                      int tile_rows, int ld, int slab, int groups, int lanes,
@@ -438,40 +451,36 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
   for (int w = 0; w < K; ++w) wsum += ss.width[w];
   const size_t smem =
       sizeof(float) * ((size_t)groups * tile_rows * slab +
-                       (size_t)stages * wsum * frow * slab +
                        (size_t)meta_slots(stages, mappers) *
                            meta_slot_ints(K, blk, wsum)) +
+      sizeof(T) * (size_t)stages * wsum * frow * slab +
       sizeof(Barrier) *
           (2 * (size_t)stages + 3 * (size_t)meta_slots(stages, mappers));
   const cudaError_t e =
-      mttkrp_common::allow_smem(gather_stream_mttkrp_kernel<K>, smem);
+      mttkrp_common::allow_smem(gather_stream_mttkrp_kernel<K, T>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
   const int threads = consumer_threads(groups, lanes) +
                       32 * (mappers + kIssuerWarps + 1);
-  gather_stream_mttkrp_kernel<K><<<grid, threads, smem, stream>>>(
+  gather_stream_mttkrp_kernel<K, T><<<grid, threads, smem, stream>>>(
       vals, idx, lrow, blk_start, fs, ss, out, carry_in, carry_out, blk,
       tile_rows, ld, slab, groups, lanes, frow, stages, mappers,
       carry_in_tile, carry_in_phase, carry_out_tile);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// Arguments past `num_in` input modes are ignored. carry_in / carry_out
-// may be null when carry_in_tile / carry_out_tile is -1.
-extern "C" int gather_stream_mttkrp_launch(
-    const void* vals, const void* idx, const void* lrow, const void* blk_start,
-    const void* f0, const void* f1, const void* f2, const void* f3, int rows0,
-    int rows1, int rows2, int rows3, const void* s0, const void* s1,
-    const void* s2, const void* s3, int width0, int width1, int width2,
-    int width3, void* out, const void* carry_in, void* carry_out, int num_in,
-    int num_tiles, int num_slabs, int blk, int tile_rows, int ld, int slab,
-    int groups, int lanes, int frow, int stages, int mappers,
-    int carry_in_tile, int carry_in_phase, int carry_out_tile,
-    void* stream) {
-  const FactorSet fs = mttkrp_common::make_factor_set(
+template <typename T>
+int launch(const void* vals, const void* idx, const void* lrow,
+           const void* blk_start, const void* f0, const void* f1,
+           const void* f2, const void* f3, int rows0, int rows1, int rows2,
+           int rows3, const void* s0, const void* s1, const void* s2,
+           const void* s3, int width0, int width1, int width2, int width3,
+           void* out, const void* carry_in, void* carry_out, int num_in,
+           int num_tiles, int num_slabs, int blk, int tile_rows, int ld,
+           int slab, int groups, int lanes, int frow, int stages,
+           int mappers, int carry_in_tile, int carry_in_phase,
+           int carry_out_tile, void* stream) {
+  const FactorSet<T> fs = mttkrp_common::make_factor_set<T>(
       f0, f1, f2, f3, rows0, rows1, rows2, rows3);
   ScheduleSet ss;
   const void* sp[kMaxInModes] = {s0, s1, s2, s3};
@@ -489,10 +498,11 @@ extern "C" int gather_stream_mttkrp_launch(
   const float* ci = static_cast<const float*>(carry_in);
   float* co = static_cast<float*>(carry_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH_K(KK)                                                         \
-  launch_k<KK>(v, ix, lr, bs, fs, ss, o, ci, co, num_tiles, num_slabs, blk,  \
-               tile_rows, ld, slab, groups, lanes, frow, stages, mappers,    \
-               carry_in_tile, carry_in_phase, carry_out_tile, st)
+#define LAUNCH_K(KK)                                                        \
+  launch_k<KK, T>(v, ix, lr, bs, fs, ss, o, ci, co, num_tiles, num_slabs,   \
+                  blk, tile_rows, ld, slab, groups, lanes, frow, stages,    \
+                  mappers, carry_in_tile, carry_in_phase, carry_out_tile,   \
+                  st)
   switch (num_in) {
     case 1:
       return LAUNCH_K(1);
@@ -506,6 +516,39 @@ extern "C" int gather_stream_mttkrp_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH_K
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// Arguments past `num_in` input modes are ignored. carry_in / carry_out
+// may be null when carry_in_tile / carry_out_tile is -1. The factors are
+// float (gather_stream_mttkrp_launch) or bf16
+// (gather_stream_mttkrp_bf16_launch); every other argument is the same.
+#define STREAM_ARGS                                                         \
+  const void *vals, const void *idx, const void *lrow,                      \
+      const void *blk_start, const void *f0, const void *f1,                \
+      const void *f2, const void *f3, int rows0, int rows1, int rows2,      \
+      int rows3, const void *s0, const void *s1, const void *s2,            \
+      const void *s3, int width0, int width1, int width2, int width3,       \
+      void *out, const void *carry_in, void *carry_out, int num_in,         \
+      int num_tiles, int num_slabs, int blk, int tile_rows, int ld,         \
+      int slab, int groups, int lanes, int frow, int stages, int mappers,   \
+      int carry_in_tile, int carry_in_phase, int carry_out_tile,            \
+      void *stream
+#define STREAM_PASS                                                         \
+  vals, idx, lrow, blk_start, f0, f1, f2, f3, rows0, rows1, rows2, rows3,   \
+      s0, s1, s2, s3, width0, width1, width2, width3, out, carry_in,        \
+      carry_out, num_in, num_tiles, num_slabs, blk, tile_rows, ld, slab,    \
+      groups, lanes, frow, stages, mappers, carry_in_tile, carry_in_phase,  \
+      carry_out_tile, stream
+
+extern "C" int gather_stream_mttkrp_launch(STREAM_ARGS) {
+  return launch<float>(STREAM_PASS);
+}
+
+extern "C" int gather_stream_mttkrp_bf16_launch(STREAM_ARGS) {
+  return launch<__nv_bfloat16>(STREAM_PASS);
 }
 
 extern "C" const char* gather_stream_mttkrp_error_string(int code) {

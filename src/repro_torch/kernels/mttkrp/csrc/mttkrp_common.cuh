@@ -1,47 +1,72 @@
 // Device code shared by the spMTTKRP kernels (gather_mttkrp.cu: B1, B2;
 // gather_stream_mttkrp.cu: B6; fused_mttkrp.cu: B3, B4, B5): the factor set
-// passed by value, the per-group product-and-add of a batch of slots, the
+// passed by value, the loads that turn a factor element (float or bf16)
+// into fp32, the per-group product-and-add of a batch of slots, the
 // fixed-order reduction of a CTA's private partial tiles, cp.async, bulk
 // copies and mbarriers, and the opt-in to more than 48 KB of dynamic
 // shared memory. Every kernel
 // adds in one order and ends with the same epilogue, so B1 == B2 == B3 ==
-// B4 == B5 == B6 bitwise on one aligned stream.
+// B4 == B5 == B6 bitwise on one aligned stream, and likewise the bf16
+// variants of B1, B2, B3, B4 and B6 among themselves.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mttkrp_common {
 
 constexpr int kMaxInModes = 4;
 
-// The K input-factor matrices (row-major, `ld` floats per row) and their
-// row counts, passed to a kernel by value.
+// The K input-factor matrices (row-major, `ld` elements of type T per row;
+// T is float, or __nv_bfloat16 for the bf16 gathers) and their row counts,
+// passed to a kernel by value.
+template <typename T>
 struct FactorSet {
-  const float* ptr[kMaxInModes];
+  const T* ptr[kMaxInModes];
   int rows[kMaxInModes];
 };
 
-inline FactorSet make_factor_set(const void* f0, const void* f1,
-                                 const void* f2, const void* f3, int rows0,
-                                 int rows1, int rows2, int rows3) {
-  FactorSet fs;
+template <typename T>
+inline FactorSet<T> make_factor_set(const void* f0, const void* f1,
+                                    const void* f2, const void* f3,
+                                    int rows0, int rows1, int rows2,
+                                    int rows3) {
+  FactorSet<T> fs;
   const void* ptrs[kMaxInModes] = {f0, f1, f2, f3};
   const int rows[kMaxInModes] = {rows0, rows1, rows2, rows3};
   for (int w = 0; w < kMaxInModes; ++w) {
-    fs.ptr[w] = static_cast<const float*>(ptrs[w]);
+    fs.ptr[w] = static_cast<const T*>(ptrs[w]);
     fs.rows[w] = rows[w];
   }
   return fs;
+}
+
+// A factor element as fp32. A bf16 is the upper half of an fp32, so the
+// conversion is exact: it is taken as soon as the element is loaded, and
+// every product and sum after it is the fp32 kernel's.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __uint_as_float(
+      static_cast<unsigned>(__bfloat16_as_ushort(x)) << 16);
+}
+
+// The same, loaded from global memory through the read-only path.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(
+          __ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
 }
 
 // One group's adds for a batch of U slots: for each of this lane's columns
 // c, the product v[u] * row(u,0)[c] * ... * row(u,K-1)[c] (multiplied left
 // to right with __fmul_rn) is added with __fadd_rn into row r[u] of the
 // group's partial tile `mine`, in the order u = 0..U-1. `row(u, w)` gives
-// slot u's row of input mode w. A slot with use[u] false loads nothing and
-// adds nothing. All loads of the batch are issued before its first add.
-// B1, B2 and B3, B4 call this with the rows they gather or are given, so
-// their sums are one sequence of operations.
+// slot u's row of input mode w, as a float or a bf16 pointer; each element
+// becomes fp32 at its load (ldg_f32). A slot with use[u] false loads
+// nothing and adds nothing. All loads of the batch are issued before its
+// first add. B1, B2 and B3, B4 call this with the rows they gather or are
+// given, so their sums are one sequence of operations.
 template <int K, int U, typename RowFn>
 __device__ __forceinline__ void add_products(const float (&v)[U],
                                              const int (&r)[U], RowFn row,
@@ -55,7 +80,7 @@ __device__ __forceinline__ void add_products(const float (&v)[U],
       p[u] = v[u];
 #pragma unroll
       for (int w = 0; w < K; ++w)
-        p[u] = __fmul_rn(p[u], use[u] ? __ldg(row(u, w) + c) : 0.0f);
+        p[u] = __fmul_rn(p[u], use[u] ? ldg_f32(row(u, w) + c) : 0.0f);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {

@@ -10,7 +10,17 @@ hand-written kernels in ``csrc/gather_mttkrp.cu`` (B1, B2),
 (B6), built for ``sm_90a`` at first use, or raise; on a CPU tensor they
 run the plain PyTorch version beside them (``*_plain``), which the tests
 hold against the JAX package. Nothing falls back from one to the other.
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+
+B1–B4 and B6 take float32 or bfloat16 factor operands (the reference's
+bf16 gathers): the CUDA sources instantiate each kernel for both element
+types, a bf16 element becomes fp32 as it is loaded, and every product
+and sum is fp32, so the bf16 variants agree bitwise among themselves as
+the fp32 ones do. The plain versions upcast the gathered bf16 rows before
+the Hadamard product, as the reference's type promotion does. B5 takes
+fp32 only: its contribution is made in fp32 on every path.
+
+Each wrapper counts its kernel launches in its ``launches`` attribute,
+and those of its bf16 variant in ``launches_bf16``.
 The ``*_smem_bytes`` functions give each kernel's per-CTA shared memory,
 which the launch checks and the residency planner
 (``oocore.planner.plan_residency``) both read.
@@ -50,6 +60,7 @@ from . import build as _build
 
 __all__ = [
     "FACTOR_ROW_TILE",
+    "GATHER_DTYPES",
     "L2_BUDGET_BYTES",
     "RANK_MULTIPLE",
     "RANK_SLAB",
@@ -112,6 +123,25 @@ MAX_STREAM_MAPPERS = 8
 SEGMENT_STAGE_BYTES = 32 * 1024
 # Elements of one (chunk, R) temporary in the plain version (~256 MB).
 _PLAIN_CHUNK_ELEMS = 1 << 26
+# Element types of the factor operands of B1–B4 and B6, by the names the
+# reference's ``gather_dtype`` takes.
+GATHER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _entry(library: str, mats) -> str:
+    """The launch function of ``library`` for the operands' element type:
+    ``<library>_launch`` (float32) or ``<library>_bf16_launch``."""
+    bf16 = mats[0].dtype == torch.bfloat16
+    return f"{library}_bf16_launch" if bf16 else f"{library}_launch"
+
+
+def _count_launch(wrapper, mats) -> None:
+    """One launch of ``wrapper``'s kernel: of its bf16 variant when the
+    operands are bf16 (``launches_bf16``), else of the fp32 one."""
+    if mats[0].dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def padded_rank(rank: int, multiple: int = RANK_MULTIPLE) -> int:
@@ -166,7 +196,8 @@ def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
     while chunk c gathers from the other). The factors are not held: they
     are read from device memory (L2). The layout is
     ``csrc/gather_mttkrp.cu``'s; the launch check and the residency planner
-    read this one number.
+    read this one number. It holds no factor element, so it is the same
+    for float32 and bf16 factors.
     """
     slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
     chunk = STAGE_SLOTS // STAGE_BUFFERS
@@ -178,8 +209,11 @@ def _check_async_operands(blk: int, **operands) -> None:
     """The asynchronous copies of B1, B2 and B6 move 16-byte pieces: every
     named operand must start on a 16-byte boundary and ``blk`` be a
     multiple of 4 (so every block, and every chunk of blocks, starts on
-    one). Raises ``ValueError`` naming the first operand that does not;
-    there is no unaligned fallback."""
+    one). B6 also copies factor tiles: its factor bases are checked, float32
+    or bf16 alike; a tile (``frow_tile x slab`` elements) and a per-row copy
+    (``slab`` elements) are whole 16-byte pieces at either itemsize, since
+    the slab is a multiple of 16 elements. Raises ``ValueError`` naming the
+    first operand that does not; there is no unaligned fallback."""
     if blk % 4:
         raise ValueError(f"blk={blk} is not a multiple of 4: the kernel's "
                          "16-byte copies of a block would be misaligned")
@@ -209,10 +243,11 @@ def _check_stream_layout(n_pad: int, local_row_in_tile, tile_of_block, *,
 def _check_common(vals, mats, local_row_in_tile, tile_of_block, *,
                   rows_cap: int, blk: int, tile_rows: int, slab: int | None,
                   out_init, others=()):
-    """Checks B1–B4 and B6 share: the values, the stream layout, the K
-    ``(·, R)`` float32 matrices (factors or pre-gathered rows) with R a
-    multiple of the slab (``None``: R), ``out_init``, one device for all
-    (``others`` too). Returns ``(mats, R)`` with ``mats`` as a tuple."""
+    """Checks B1–B4 and B6 share: the float32 values, the stream layout,
+    the K ``(·, R)`` matrices (factors or pre-gathered rows) of one element
+    type, float32 or bfloat16, with R a multiple of the slab (``None``:
+    R), a float32 ``out_init``, one device for all (``others`` too).
+    Returns ``(mats, R)`` with ``mats`` as a tuple."""
     mats = tuple(mats)
     if not 1 <= len(mats) <= MAX_IN_MODES:
         raise ValueError(f"need 1..{MAX_IN_MODES} input-factor operands "
@@ -222,11 +257,14 @@ def _check_common(vals, mats, local_row_in_tile, tile_of_block, *,
                          f"{tuple(vals.shape)} {vals.dtype}")
     _check_stream_layout(vals.shape[0], local_row_in_tile, tile_of_block,
                          rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
-    rank = mats[0].shape[-1]
+    rank, dtype = mats[0].shape[-1], mats[0].dtype
+    if dtype not in GATHER_DTYPES.values():
+        raise ValueError(f"input-factor operands must be float32 or "
+                         f"bfloat16, got {dtype}")
     for m in mats:
-        if m.dim() != 2 or m.shape[1] != rank or m.dtype != torch.float32:
-            raise ValueError("input-factor operands must be (rows, R) "
-                             "float32 with one R")
+        if m.dim() != 2 or m.shape[1] != rank or m.dtype != dtype:
+            raise ValueError("input-factor operands must be (rows, R) of "
+                             "one element type with one R")
     slab = rank if slab is None else slab
     if slab <= 0 or rank % slab or slab % RANK_MULTIPLE:
         raise ValueError(
@@ -278,8 +316,10 @@ def _plain(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     for lo in range(0, vals.shape[0], step):
         contrib = vals[lo:lo + step, None]
         for w, f in enumerate(factors):
+            # bf16 rows go to fp32 before the product (exact), as the
+            # reference promotes them; a bf16 multiply would round.
             contrib = contrib * f.index_select(
-                0, idx_stream[lo:lo + step, w].long())
+                0, idx_stream[lo:lo + step, w].long()).float()
         out.index_add_(0, rows[lo:lo + step], contrib)
     return out
 
@@ -313,7 +353,7 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     nrows = [f.shape[0] for f in factors] + [0] * (MAX_IN_MODES
                                                    - len(factors))
     lib = _build.load("gather_mttkrp")
-    err = lib.gather_mttkrp_launch(
+    err = getattr(lib, _entry("gather_mttkrp", factors))(
         vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
         blk_start.data_ptr(), *ptrs, *nrows, out.data_ptr(), len(factors),
         num_tiles, rank // slab, blk, tile_rows, rank, slab, groups, lanes,
@@ -351,8 +391,9 @@ def fused_mttkrp_nmode_gather(vals, idx_stream, factors, local_row_in_tile,
       vals: ``(n_pad,)`` float32 block-aligned values; padding slots 0.
       idx_stream: ``(n_pad, K)`` int32 factor row per slot and input mode
         (K = N−1, in the order of ``factors``); padding points at row 0.
-      factors: K ``(I_w, R)`` float32 input-factor matrices, R a multiple
-        of :data:`RANK_MULTIPLE` (``ops.pad_rank``).
+      factors: K ``(I_w, R)`` input-factor matrices, all float32 or all
+        bfloat16 (bf16 gathers, fp32 products and sums), R a multiple of
+        :data:`RANK_MULTIPLE` (``ops.pad_rank``).
       local_row_in_tile: ``(n_pad,)`` int32 row within the block's tile.
       tile_of_block: ``(n_pad // blk,)`` int32 output tile per block,
         non-decreasing.
@@ -371,11 +412,12 @@ def fused_mttkrp_nmode_gather(vals, idx_stream, factors, local_row_in_tile,
         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=rank,
         out_init=out_init)
     if launched:
-        fused_mttkrp_nmode_gather.launches += 1
+        _count_launch(fused_mttkrp_nmode_gather, factors)
     return out
 
 
 fused_mttkrp_nmode_gather.launches = 0
+fused_mttkrp_nmode_gather.launches_bf16 = 0
 
 
 def fused_mttkrp_nmode_gather_tiled(vals, idx_stream, factors,
@@ -401,11 +443,12 @@ def fused_mttkrp_nmode_gather_tiled(vals, idx_stream, factors,
         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=rank_slab,
         out_init=out_init)
     if launched:
-        fused_mttkrp_nmode_gather_tiled.launches += 1
+        _count_launch(fused_mttkrp_nmode_gather_tiled, factors)
     return out
 
 
 fused_mttkrp_nmode_gather_tiled.launches = 0
+fused_mttkrp_nmode_gather_tiled.launches_bf16 = 0
 
 
 def fused_mttkrp_nmode_gather_plain(vals, idx_stream, factors,
@@ -415,7 +458,8 @@ def fused_mttkrp_nmode_gather_plain(vals, idx_stream, factors,
     """Plain PyTorch version of B1 (``index_select`` + ``index_add_``).
 
     Runs on any device; the sum order differs from the kernel's, so the
-    two agree to fp32 rounding, not bitwise.
+    two agree to fp32 rounding, not bitwise. bf16 factor rows are upcast
+    to fp32 before the products.
     """
     factors, rank = _check_args(
         vals, idx_stream, factors, local_row_in_tile, tile_of_block,
@@ -451,7 +495,8 @@ def gather_stream_smem_bytes(num_in_modes: int, rank_padded: int, blk: int,
                              tile_rows: int, window_tiles,
                              frow_tile: int = FACTOR_ROW_TILE,
                              rank_slab: int = STREAM_RANK_SLAB,
-                             stages: int = 1, mappers: int = 1) -> int:
+                             stages: int = 1, mappers: int = 1,
+                             gather_itemsize: int = 4) -> int:
     """Shared memory of one CTA of the stream kernel (B6) with a ring of
     ``stages`` stages and ``mappers`` mapper warps.
 
@@ -467,6 +512,9 @@ def gather_stream_smem_bytes(num_in_modes: int, rank_padded: int, blk: int,
     ``window_tiles`` is an int for every mode or a per-mode sequence.
     ``stages=1, mappers=1`` is the smallest CTA, the one the residency
     ladder asks about (:func:`oocore.planner.stream_fits_smem`).
+    ``gather_itemsize`` is the bytes of one factor element (4 for
+    float32, 2 for bf16): the windows are the only part of any of these
+    kernels' shared memory that holds factor elements.
     """
     if isinstance(window_tiles, int):
         window_tiles = (window_tiles,) * num_in_modes
@@ -481,8 +529,8 @@ def gather_stream_smem_bytes(num_in_modes: int, rank_padded: int, blk: int,
     slot = ((2 + num_in_modes) * blk + padded_rank(wsum, 4)
             + padded_rank(wsum + 1, 4))
     slots = stages + mappers + 1
-    return (4 * (_groups(tile_rows) * tile_rows * slab
-                 + stages * wsum * frow_tile * slab + slots * slot)
+    return (4 * (_groups(tile_rows) * tile_rows * slab + slots * slot)
+            + gather_itemsize * stages * wsum * frow_tile * slab
             + 8 * (2 * stages + 3 * slots))
 
 
@@ -490,18 +538,20 @@ def stream_ring(num_in_modes: int, rank_padded: int, blk: int,
                 tile_rows: int, window_tiles,
                 frow_tile: int = FACTOR_ROW_TILE,
                 rank_slab: int = STREAM_RANK_SLAB,
-                smem_budget: int = SMEM_LIMIT_BYTES) -> tuple[int, int]:
+                smem_budget: int = SMEM_LIMIT_BYTES,
+                gather_itemsize: int = 4) -> tuple[int, int]:
     """``(stages, mappers)`` the stream kernel runs with: the most stages,
     up to :data:`MAX_STREAM_STAGES`, whose CTA fits ``smem_budget`` bytes
     (:func:`gather_stream_smem_bytes`) with :data:`MAX_STREAM_MAPPERS`
     mapper warps; where not even one stage fits with them, one stage and
     the most mapper warps that fit. ``(0, 0)`` when the smallest CTA does
-    not fit. Both counts are monotone in the budget."""
+    not fit. Both counts are monotone in the budget. bf16 windows
+    (``gather_itemsize=2``) are half the bytes, so more stages fit."""
     def fits(stages, mappers):
         return gather_stream_smem_bytes(
             num_in_modes, rank_padded, blk, tile_rows, window_tiles,
             frow_tile=frow_tile, rank_slab=rank_slab, stages=stages,
-            mappers=mappers) <= smem_budget
+            mappers=mappers, gather_itemsize=gather_itemsize) <= smem_budget
     for stages in range(MAX_STREAM_STAGES, 0, -1):
         if fits(stages, MAX_STREAM_MAPPERS):
             return stages, MAX_STREAM_MAPPERS
@@ -597,7 +647,7 @@ def _plain_stream(vals, idx_stream, factors, local_row_in_tile,
             tile = torch.div(ix, frow_tile, rounding_mode="floor")
             hit = (s[block].long() == tile[:, None]).any(1)
             keep &= inside & hit
-            contrib = contrib * f.index_select(0, ix)
+            contrib = contrib * f.index_select(0, ix).float()
         contrib = torch.where(keep[:, None], contrib, 0.0)
         out.index_add_(0, rows[sl], contrib)
     return out
@@ -613,14 +663,17 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
     groups = _groups(tile_rows)
     lanes = _lanes(slab)
     windows = tuple(s.shape[1] for s in scheds)
+    itemsize = factors[0].element_size()
     stages, mappers = stream_ring(k, rank, blk, tile_rows, windows,
-                                  frow_tile=frow_tile, rank_slab=slab)
+                                  frow_tile=frow_tile, rank_slab=slab,
+                                  gather_itemsize=itemsize)
     if stages < 1:
         smem = gather_stream_smem_bytes(k, rank, blk, tile_rows, windows,
-                                        frow_tile=frow_tile, rank_slab=slab)
+                                        frow_tile=frow_tile, rank_slab=slab,
+                                        gather_itemsize=itemsize)
         raise ValueError(
             f"the stream kernel's window of {windows} tiles of {frow_tile} "
-            f"x {slab} floats per input mode, with blk={blk} and "
+            f"x {slab} elements per input mode, with blk={blk} and "
             f"tile_rows={tile_rows}, needs {smem} B of shared memory "
             f"(> {SMEM_LIMIT_BYTES} B); use a smaller blk or frow_tile, a "
             "locality ordering, or smaller chunks")
@@ -645,7 +698,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
                  if tail is not None else None)
     pad = [0] * (MAX_IN_MODES - k)
     lib = _build.load("gather_stream_mttkrp")
-    err = lib.gather_stream_mttkrp_launch(
+    err = getattr(lib, _entry("gather_stream_mttkrp", factors))(
         vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
         blk_start.data_ptr(), *[f.data_ptr() for f in factors], *pad,
         *[f.shape[0] for f in factors], *pad,
@@ -702,7 +755,7 @@ def fused_mttkrp_nmode_gather_stream_chunk(
         out, partials = _launch_stream(
             vals, idx_stream, factors, local_row_in_tile, tile_of_block,
             scheds, slab=rank_slab, carry=carry, tail=tail, **kw)
-        fused_mttkrp_nmode_gather_stream.launches += 1
+        _count_launch(fused_mttkrp_nmode_gather_stream, factors)
     else:
         raise ValueError(f"unsupported device {vals.device}")
     if tail is None:
@@ -745,6 +798,7 @@ def fused_mttkrp_nmode_gather_stream(vals, idx_stream, factors,
 
 
 fused_mttkrp_nmode_gather_stream.launches = 0
+fused_mttkrp_nmode_gather_stream.launches_bf16 = 0
 
 
 def fused_mttkrp_nmode_gather_stream_plain(vals, idx_stream, factors,
@@ -756,7 +810,8 @@ def fused_mttkrp_nmode_gather_stream_plain(vals, idx_stream, factors,
                                            rank_slab: int = STREAM_RANK_SLAB,
                                            out_init=None):
     """Plain PyTorch version of B6 (runs on any device): B1's plain sum
-    with the schedule test; agrees with the kernel to fp32 rounding."""
+    with the schedule test (bf16 rows upcast before the products); agrees
+    with the kernel to fp32 rounding."""
     factors, scheds, _ = _check_stream_args(
         vals, idx_stream, factors, local_row_in_tile, tile_of_block,
         tile_schedules, rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
@@ -778,7 +833,8 @@ def fused_smem_bytes(rank_padded: int, tile_rows: int,
     (B3; B4 with ``rank_slab``): the ``groups`` partial output tiles, one
     slab wide, and the staged values and local rows of ``STAGE_SLOTS``
     slots. The rows themselves are read from device memory, not staged
-    (``csrc/fused_mttkrp.cu``), so the count does not depend on K."""
+    (``csrc/fused_mttkrp.cu``), so the count depends neither on K nor on
+    the rows' element type."""
     slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
     return 4 * (_groups(tile_rows) * tile_rows * slab + STAGE_SLOTS * 2)
 
@@ -839,7 +895,7 @@ def _plain_fused(vals, rows, local_row_in_tile, tile_of_block, *,
     for lo in range(0, vals.shape[0], step):
         contrib = vals[lo:lo + step, None]
         for r in rows:
-            contrib = contrib * r[lo:lo + step]
+            contrib = contrib * r[lo:lo + step].float()  # bf16: exact
         out.index_add_(0, out_rows[lo:lo + step], contrib)
     return out
 
@@ -865,7 +921,7 @@ def _launch_fused(vals, rows, local_row_in_tile, tile_of_block, *,
     out = _out_start(out_init, rows_cap, rank, dev)
     ptrs = [r.data_ptr() for r in rows] + [0] * (MAX_IN_MODES - len(rows))
     lib = _build.load("fused_mttkrp")
-    err = lib.fused_mttkrp_launch(
+    err = getattr(lib, _entry("fused_mttkrp", rows))(
         vals.data_ptr(), *ptrs, local_row_in_tile.data_ptr(),
         blk_start.data_ptr(), out.data_ptr(), len(rows), num_tiles,
         rank // slab, blk, tile_rows, rank, slab, _groups(tile_rows),
@@ -897,9 +953,10 @@ def fused_mttkrp_nmode(vals, factor_rows, local_row_in_tile, tile_of_block,
 
     Args:
       vals: ``(n_pad,)`` float32 block-aligned values; padding slots 0.
-      factor_rows: K ``(n_pad, R)`` float32 arrays, the input factors' rows
-        of every slot, block-aligned with ``vals`` (``ops`` gathers them);
-        R a multiple of :data:`RANK_MULTIPLE`.
+      factor_rows: K ``(n_pad, R)`` arrays, all float32 or all bfloat16
+        (bf16 gathers, fp32 products and sums), the input factors' rows of
+        every slot, block-aligned with ``vals`` (``ops`` gathers them); R a
+        multiple of :data:`RANK_MULTIPLE`.
       local_row_in_tile: ``(n_pad,)`` int32 row within the block's tile.
       tile_of_block: ``(n_pad // blk,)`` int32 output tile per block,
         non-decreasing.
@@ -921,11 +978,12 @@ def fused_mttkrp_nmode(vals, factor_rows, local_row_in_tile, tile_of_block,
         vals, rows, local_row_in_tile, tile_of_block, slab=rank,
         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, out_init=out_init)
     if launched:
-        fused_mttkrp_nmode.launches += 1
+        _count_launch(fused_mttkrp_nmode, rows)
     return out
 
 
 fused_mttkrp_nmode.launches = 0
+fused_mttkrp_nmode.launches_bf16 = 0
 
 
 def fused_mttkrp_nmode_tiled(vals, factor_rows, local_row_in_tile,
@@ -947,18 +1005,20 @@ def fused_mttkrp_nmode_tiled(vals, factor_rows, local_row_in_tile,
         vals, rows, local_row_in_tile, tile_of_block, slab=rank_slab,
         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, out_init=out_init)
     if launched:
-        fused_mttkrp_nmode_tiled.launches += 1
+        _count_launch(fused_mttkrp_nmode_tiled, rows)
     return out
 
 
 fused_mttkrp_nmode_tiled.launches = 0
+fused_mttkrp_nmode_tiled.launches_bf16 = 0
 
 
 def fused_mttkrp_nmode_plain(vals, factor_rows, local_row_in_tile,
                              tile_of_block, *, rows_cap: int, blk: int = 512,
                              tile_rows: int = 8, out_init=None):
-    """Plain PyTorch version of B3 (elementwise products + ``index_add_``);
-    runs on any device and agrees with the kernel to fp32 rounding."""
+    """Plain PyTorch version of B3 (elementwise products + ``index_add_``,
+    bf16 rows upcast before the products); runs on any device and agrees
+    with the kernel to fp32 rounding."""
     rows, _ = _check_fused_args(
         vals, factor_rows, local_row_in_tile, tile_of_block,
         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows, slab=None,

@@ -18,10 +18,11 @@ Port of ``repro/kernels/mttkrp/ops.py``:
   and ``pallas_fused_tiled`` (B4) on rows gathered here,
   ``pallas_fused_gather`` (B1) and ``pallas_fused_gather_tiled`` (B2),
   which gather in the kernel, and the out-of-core stream kernel
-  ``pallas_fused_gather_stream`` (B6). bf16 gathers
-  (``pallas_fused_bf16``, ``pallas_fused_gather_bf16``,
-  ``gather_dtype="bfloat16"``) raise ``NotImplementedError`` (ROADMAP
-  A6b).
+  ``pallas_fused_gather_stream`` (B6). ``gather_dtype="bfloat16"`` runs
+  any of B1–B4 and B6 on bf16 factor operands with fp32 products and
+  sums (their bf16 variants); the names ``pallas_fused_bf16`` and
+  ``pallas_fused_gather_bf16`` are B3 and B1 with it forced on, as in
+  the reference.
 """
 from __future__ import annotations
 
@@ -37,11 +38,15 @@ from . import ref as _ref
 __all__ = [
     "AUTO_BACKENDS",
     "BACKENDS",
+    "BF16_BACKENDS",
     "FUSED_BACKENDS",
     "GATHER_BACKENDS",
+    "GATHER_DTYPES",
     "STREAM_BACKEND",
     "blocked_operands",
     "build_block_layout",
+    "check_backend",
+    "check_gather_dtype",
     "fused_fits_smem",
     "gather_fits",
     "gather_operands",
@@ -61,37 +66,43 @@ __all__ = [
 # Backends this module runs. ``segsum`` is accepted one level up, in
 # core.distributed.device_mttkrp, and runs here as ``ref``.
 STREAM_BACKEND = _kernel.STREAM_BACKEND_NAME
+# The bf16 backend names: the kernel each runs with gather_dtype forced
+# to "bfloat16" (the reference's _dispatch folds them the same way).
+BF16_BACKENDS = {"pallas_fused_bf16": "pallas_fused",
+                 "pallas_fused_gather_bf16": "pallas_fused_gather"}
 BACKENDS = ("ref", "pallas", "pallas_fused", "pallas_fused_tiled",
-            "pallas_fused_gather", "pallas_fused_gather_tiled",
+            "pallas_fused_bf16", "pallas_fused_gather",
+            "pallas_fused_gather_tiled", "pallas_fused_gather_bf16",
             STREAM_BACKEND)
 GATHER_BACKENDS = ("pallas_fused_gather", "pallas_fused_gather_tiled")
 # The kernels on rows gathered outside them (B3, B4).
 FUSED_BACKENDS = ("pallas_fused", "pallas_fused_tiled")
 # What ``auto`` may resolve to: the reference's AUTO_BACKENDS, every
-# backend but the bf16 gathers, which change the numerics.
-AUTO_BACKENDS = BACKENDS
-
-# JAX backend names the port does not run yet, with the ROADMAP item.
-NOT_PORTED = {
-    "pallas_fused_bf16": "A6b",
-    "pallas_fused_gather_bf16": "A6b",
-}
+# backend but the bf16 names, which change the numerics.
+AUTO_BACKENDS = tuple(b for b in BACKENDS if b not in BF16_BACKENDS)
+# The element types the fused family may gather factor rows in.
+GATHER_DTYPES = _kernel.GATHER_DTYPES
 
 padded_rank = _kernel.padded_rank
 
 
 def check_backend(backend: str, extra: tuple = ()) -> None:
-    """Raise for a backend this port cannot run (``extra``: more it can;
-    ``auto`` is always accepted)."""
+    """Raise ``ValueError`` for a backend this port does not know
+    (``extra``: more it runs; ``auto`` is always accepted)."""
     if backend == "auto" or backend in BACKENDS or backend in extra:
         return
-    if backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"MTTKRP backend {backend!r} is not ported yet (ROADMAP "
-            f"{NOT_PORTED[backend]}); the port runs 'auto' and "
-            f"{BACKENDS + extra}")
     raise ValueError(f"unknown MTTKRP backend {backend!r}: expected 'auto' "
                      f"or one of {BACKENDS + extra}")
+
+
+def check_gather_dtype(gather_dtype: str) -> torch.dtype:
+    """The torch dtype of ``gather_dtype`` (``"float32"`` or
+    ``"bfloat16"``); anything else raises ``ValueError``, as in the
+    reference."""
+    if gather_dtype not in GATHER_DTYPES:
+        raise ValueError(f"unknown gather_dtype {gather_dtype!r}: expected "
+                         "'float32' or 'bfloat16'")
+    return GATHER_DTYPES[gather_dtype]
 
 
 def pad_rank(x, multiple: int = _kernel.RANK_MULTIPLE):
@@ -160,9 +171,11 @@ def select_backend(backend: str, *, nmodes: int, rank: int, blk: int = 512,
     budgets (``oocore.planner.plan_residency``): B1 → B2 → the stream
     kernel B6 → B3 → B4 → B5 (``pallas``). The gather and stream rungs
     need ``factor_rows`` (the input factors' rows, per mode or in total)
-    and are skipped without it. ``auto`` never resolves to a bf16 name;
-    an explicit bf16 name raises ``NotImplementedError`` (ROADMAP A6b),
-    an unknown one ``ValueError``. A calibration ``table`` raises
+    and are skipped without it. ``auto`` never resolves to a bf16 name
+    and does not see the gather dtype (as in the reference): a bf16 mode
+    step takes the rung an fp32 one takes, and runs it in bf16. Explicit
+    names, the bf16 ones among them, pass through; an unknown one raises
+    ``ValueError``. A calibration ``table`` raises
     ``NotImplementedError`` (ROADMAP A12).
     """
     if table is not None:
@@ -356,21 +369,24 @@ def mttkrp_blocked(contrib, local_row, valid, *, rows_cap: int,
 def pregathered_rows(idx_stream, factors):
     """B3/B4's row operands: each input factor's rows gathered by the
     block-aligned ``(n_pad, K)`` index stream, one ``(n_pad, R)``
-    ``index_select`` per input mode. Padding slots (index 0, value 0)
-    hold row 0; the kernels skip them."""
+    ``index_select`` per input mode, in the factors' element type (bf16
+    factors give bf16 rows: the gather moves half the bytes). Padding
+    slots (index 0, value 0) hold row 0; the kernels skip them."""
     return tuple(f.index_select(0, idx_stream[:, i])
                  for i, f in enumerate(factors))
 
 
 def gather_operands(idx, val, valid, factors, *, mode: int, rows_cap: int,
                     row_offset: int, blk: int, tile_rows: int, slab: int,
-                    ordering: str = "none"):
+                    ordering: str = "none", dtype=torch.float32):
     """Block-aligned operands of the in-kernel-gather kernels for one mode.
 
     Returns ``(vals, idx_stream, factors, local_row_in_tile,
     tile_of_block)`` in the kernels' argument order: only the scalar and
     int32 index streams are block-aligned; the K input-factor matrices
-    go whole, zero-padded to a multiple of ``slab`` columns. Padding and
+    go whole, cast to ``dtype`` (float32, or bfloat16 for bf16 gathers:
+    the matrix is cast, once, before any gather, as the reference does)
+    and zero-padded to a multiple of ``slab`` columns. Padding and
     invalid slots carry value 0, index 0 and local row 0. ``ordering``
     (``reorder.ORDERINGS``) ranks each output-tile run by the locality
     keys of ``FACTOR_ROW_TILE``-row factor tiles before alignment.
@@ -393,7 +409,7 @@ def gather_operands(idx, val, valid, factors, *, mode: int, rows_cap: int,
         order_keys=order_keys)
     return (_align_to_blocks(vals, slot, n_pad),
             _align_to_blocks(idx_in, slot, n_pad),
-            tuple(pad_rank(factors[w].to(torch.float32), slab).contiguous()
+            tuple(pad_rank(factors[w].to(dtype), slab).contiguous()
                   for w in in_modes),
             _align_to_blocks(local_row % tile_rows, slot, n_pad),
             tile_of_block)
@@ -420,8 +436,14 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
       row_offset: first owned permuted row.
       backend: ``auto`` or one of :data:`BACKENDS`. ``auto`` resolves
         through :func:`select_backend` with the input factors' row counts
-        and the budgets ``smem_budget`` and ``l2_budget``.
-      gather_dtype: only ``"float32"`` (bf16 gathers: ROADMAP A6b).
+        and the budgets ``smem_budget`` and ``l2_budget``; the bf16 names
+        are B3 (``pallas_fused_bf16``) and B1 (``pallas_fused_gather_bf16``)
+        with ``gather_dtype="bfloat16"``.
+      gather_dtype: ``"float32"`` or ``"bfloat16"``: the element type the
+        fused family (B1–B4, B6) gathers factor rows in; products and sums
+        stay fp32. Each factor matrix is cast before any gather. ``ref``
+        and ``pallas`` ignore it, as in the reference. Anything else raises
+        ``ValueError``.
       ordering: ``reorder.ORDERINGS`` policy; anything but ``"none"``
         ranks each output-tile run by factor-tile locality before block
         alignment, for the fused and gather kernels (B1–B4, B6) alike (one
@@ -439,11 +461,7 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
 
     Returns ``(rows_cap, R)`` float32 output rows.
     """
-    if gather_dtype != "float32":
-        if gather_dtype == "bfloat16":
-            raise NotImplementedError(
-                "bf16 gathers are not ported yet (ROADMAP A6b)")
-        raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
+    gdt = check_gather_dtype(gather_dtype)
     _reorder.validate_ordering(ordering)
     nmodes = idx.shape[1]
     rank = factors[mode].shape[-1]
@@ -452,6 +470,8 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
         smem_budget=smem_budget, l2_budget=l2_budget,
         factor_rows=tuple(factors[w].shape[0] for w in range(nmodes)
                           if w != mode))
+    if backend in BF16_BACKENDS:
+        backend, gdt = BF16_BACKENDS[backend], torch.bfloat16
     if backend in ("ref", "pallas"):
         # The per-nonzero contribution is materialized, then scattered.
         local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
@@ -470,7 +490,7 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
     vals, idx_al, fmats, r_al, tob = gather_operands(
         idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
         row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab,
-        ordering=ordering)
+        ordering=ordering, dtype=gdt)
     kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
     if backend in FUSED_BACKENDS:
         rows = pregathered_rows(idx_al, fmats)

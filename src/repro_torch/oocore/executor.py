@@ -125,14 +125,19 @@ def mttkrp_out_of_core(
     may be numpy arrays or tensors; they run on ``device`` (``None``:
     CUDA).
 
+    ``gather_dtype="bfloat16"`` casts each factor matrix to bf16 before
+    the run (the bf16 variant of B6: bf16 window tiles, fp32 products and
+    sums); the counted tile bytes are then at 2 bytes per element, as the
+    reference counts them. The chunk budget counts the aligned operands
+    (values, rows, indices, schedules), which hold no factor element, so
+    the chunks are the same at either dtype. Anything else raises
+    ``ValueError``.
+
     Returns ``(out, stats)``: ``(rows_cap, R)`` float32 and a
     :class:`StreamStats`.
     """
-    if gather_dtype != "float32":
-        if gather_dtype == "bfloat16":
-            raise NotImplementedError(
-                "bf16 gathers are not ported yet (ROADMAP A6b)")
-        raise ValueError(f"unknown gather_dtype {gather_dtype!r}")
+    gdt = _ops.check_gather_dtype(gather_dtype)
+    gi = gdt.itemsize
     _reorder.validate_ordering(ordering)
     dev = resolve_device(device)
     idx = torch.as_tensor(idx).to(dev)
@@ -154,7 +159,8 @@ def mttkrp_out_of_core(
             tile_rows=tile_rows, rank=rank, factor_rows=factor_rows,
             row_offset=row_offset, ordering="none",
             max_chunk_bytes=max_chunk_bytes, frow_tile=frow_tile,
-            rank_slab=rank_slab, rank_multiple=rank_multiple)
+            rank_slab=rank_slab, rank_multiple=rank_multiple,
+            gather_itemsize=gi)
         presort_scheduled_b = pre.scheduled_tile_bytes
         presort_distinct_b = pre.distinct_tile_bytes
         idx, val, valid, _ = _reorder.reorder_stream(
@@ -162,11 +168,12 @@ def mttkrp_out_of_core(
             tile_rows=tile_rows, row_offset=row_offset, frow_tile=frow_tile,
             max_rows=max(factor_rows))
 
-    # Block-aligned streams as for B1; factors padded to rpad columns and
-    # to whole tiles of rows.
+    # Block-aligned streams as for B1; factors cast to the gather dtype,
+    # padded to rpad columns and to whole tiles of rows.
     vals, idx_al, fmats, r_al, tob = _ops.gather_operands(
         idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
-        row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=rpad)
+        row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=rpad,
+        dtype=gdt)
     fmats = tuple(_ops._pad_factor_rows(f, frow_tile) for f in fmats)
     scheds, windows, dcounts = _ops.stream_schedules(
         idx_al, blk, tuple(f.shape[0] for f in fmats), frow_tile=frow_tile)
@@ -175,8 +182,8 @@ def mttkrp_out_of_core(
         tob_host, dcounts, windows, blk=blk, max_chunk_bytes=max_chunk_bytes)
     num_blocks = vals.shape[0] // blk
     scheduled_b, distinct_b, pipelined_b = _schedule_fetch_stats(
-        scheds, chunks, cwindows, frow_tile * slab * 4, num_slabs, dcounts)
-    smem_kw = dict(frow_tile=frow_tile, rank_slab=slab)
+        scheds, chunks, cwindows, frow_tile * slab * gi, num_slabs, dcounts)
+    smem_kw = dict(frow_tile=frow_tile, rank_slab=slab, gather_itemsize=gi)
     stats = StreamStats(
         backend=_planner.STREAM_BACKEND,
         chunks=len(chunks),

@@ -13,6 +13,10 @@ Port of ``repro/oocore/planner.py``:
   (``frow_tile``, ``rank_slab``, the rank multiple) every count equals the
   reference's. The analysis runs on the device that holds the stream.
 
+Every byte count that holds factor elements takes ``gather_itemsize``
+(4 for float32, 2 for bf16 gathers; default 4), as the reference's does,
+and the ``*_bf16`` backend names fold into ``gather_itemsize=2``.
+
 :func:`stream_fits_smem` is the Hopper counterpart of the reference's
 ``backend_fits(STREAM_BACKEND, ...)`` and the stream rung's predicate.
 """
@@ -72,13 +76,15 @@ def stream_fits_smem(*, nmodes: int, rank: int, blk: int, tile_rows: int,
                      frow_tile: int = FACTOR_ROW_TILE,
                      rank_slab: int = _kernel.STREAM_RANK_SLAB,
                      rank_multiple: int = _kernel.RANK_MULTIPLE,
-                     smem_budget: int = _kernel.SMEM_LIMIT_BYTES) -> bool:
+                     smem_budget: int = _kernel.SMEM_LIMIT_BYTES,
+                     gather_itemsize: int = 4) -> bool:
     """Does the stream kernel's smallest CTA (one ring stage, one mapper
     warp) fit ``smem_budget`` bytes of shared memory? The kernel adds
     stages and mapper warps as the budget allows (``kernel.stream_ring``).
     Windows default to the data-blind bound per input mode;
     ``window_tiles`` (e.g. :attr:`StreamTraffic.window_tiles`) gives
-    measured ones. Monotone in the budget."""
+    measured ones; ``gather_itemsize`` sizes their tiles. Monotone in the
+    budget."""
     k = nmodes - 1
     if len(factor_rows) != k:
         raise ValueError(f"{len(factor_rows)} factor row counts for {k} "
@@ -88,7 +94,8 @@ def stream_fits_smem(*, nmodes: int, rank: int, blk: int, tile_rows: int,
                           for r in factor_rows))
     return _kernel.gather_stream_smem_bytes(
         k, _kernel.padded_rank(rank, rank_multiple), blk, tile_rows,
-        windows, frow_tile=frow_tile, rank_slab=rank_slab) <= smem_budget
+        windows, frow_tile=frow_tile, rank_slab=rank_slab,
+        gather_itemsize=gather_itemsize) <= smem_budget
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +155,7 @@ class ResidencyPlan:
     tile_rows: int
     smem_budget: int
     l2_budget: int
+    gather_itemsize: int                # bytes per gathered factor element
     smem_bytes: int                     # per-CTA shared memory of the choice
     l2_bytes: int                       # factor bytes it reads out of L2
     rank_slabs: int                     # column slabs the choice runs
@@ -186,22 +194,25 @@ def _normalize_factor_rows(factor_rows, num_in_modes: int):
 
 
 def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
-               per_mode, total) -> tuple[int, int, tuple]:
-    """``(smem_bytes, l2_bytes, windows)`` of one rung; the gather and
-    stream rungs need ``total`` (not ``None``)."""
+               per_mode, total, gi: int) -> tuple[int, int, tuple]:
+    """``(smem_bytes, l2_bytes, windows)`` of one rung at ``gi`` bytes per
+    factor element; the gather and stream rungs need ``total`` (not
+    ``None``). Only the gathered factors (L2) and B6's windows hold factor
+    elements; B1–B5's shared memory holds none."""
     slab = min(rpad, _kernel.RANK_SLAB)
     if backend == "pallas_fused_gather":
         return (_kernel.gather_smem_bytes(k, rpad, tile_rows),
-                total * rpad * 4, ())
+                total * rpad * gi, ())
     if backend == "pallas_fused_gather_tiled":
         return (_kernel.gather_smem_bytes(k, rpad, tile_rows,
                                           rank_slab=slab),
-                total * slab * 4, ())
+                total * slab * gi, ())
     if backend == STREAM_BACKEND:
         rows = per_mode if per_mode is not None else (total,) * k
         windows = tuple(stream_window_tiles(blk, r) for r in rows)
         return (_kernel.gather_stream_smem_bytes(k, rpad, blk, tile_rows,
-                                                 windows), 0, windows)
+                                                 windows, gather_itemsize=gi),
+                0, windows)
     if backend == "pallas_fused":
         return _kernel.fused_smem_bytes(rpad, tile_rows), 0, ()
     if backend == "pallas_fused_tiled":
@@ -215,7 +226,8 @@ def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
 def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
                  tile_rows: int, factor_rows=None,
                  smem_budget: int = SMEM_BUDGET_BYTES,
-                 l2_budget: int = L2_BUDGET_BYTES) -> bool:
+                 l2_budget: int = L2_BUDGET_BYTES,
+                 gather_itemsize: int = 4) -> bool:
     """Does ``backend`` fit the budgets? The ladder's one predicate.
 
     The gather rungs (B1, B2) fit when their factors (the padded rank,
@@ -227,10 +239,12 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
     The gather and stream rungs need ``factor_rows`` and do not fit
     without it. ``pallas`` (B5), ``ref`` and ``segsum`` always fit. Every
     test is ``bytes <= budget``, so it is monotone in both budgets.
+    ``gather_itemsize`` is the bytes of a gathered factor element; the
+    ``*_bf16`` names fold into ``gather_itemsize=2``, as in the
+    reference.
     """
     if backend.endswith("_bf16"):
-        raise NotImplementedError(
-            f"{backend!r}: bf16 gathers are not ported yet (ROADMAP A6b)")
+        backend, gather_itemsize = backend[:-len("_bf16")], 2
     if backend in ("ref", "segsum", "pallas"):
         return True
     k, rpad = nmodes - 1, _kernel.padded_rank(rank)
@@ -241,14 +255,16 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
         rows = per_mode if per_mode is not None else (total,) * k
         return stream_fits_smem(nmodes=nmodes, rank=rank, blk=blk,
                                 tile_rows=tile_rows, factor_rows=rows,
-                                smem_budget=smem_budget)
+                                smem_budget=smem_budget,
+                                gather_itemsize=gather_itemsize)
     smem, l2, _ = _rung_cost(backend, k=k, rpad=rpad, tile_rows=tile_rows,
-                             blk=blk, per_mode=per_mode, total=total)
+                             blk=blk, per_mode=per_mode, total=total,
+                             gi=gather_itemsize)
     return smem <= smem_budget and l2 <= l2_budget
 
 
 def _factor_states(per_mode, total, k: int, backend: str, rpad: int,
-                   windows) -> tuple[FactorResidency, ...]:
+                   windows, gi: int) -> tuple[FactorResidency, ...]:
     if total is None:
         return ()
     rows_list = per_mode if per_mode is not None else (total,) * k
@@ -259,12 +275,12 @@ def _factor_states(per_mode, total, k: int, backend: str, rpad: int,
             w, cols = windows[i], min(rpad, _kernel.STREAM_RANK_SLAB)
             # A window covering every tile is whole residency in effect.
             pol = "whole" if w >= factor_row_tiles(rows) else "stream"
-            resident = w * FACTOR_ROW_TILE * cols * 4
+            resident = w * FACTOR_ROW_TILE * cols * gi
         else:
             pol = "slab" if backend == "pallas_fused_gather_tiled" else \
                 "whole"
             cols = slab if pol == "slab" else rpad
-            w, resident = factor_row_tiles(rows), rows * cols * 4
+            w, resident = factor_row_tiles(rows), rows * cols * gi
         states.append(FactorResidency(rows=rows, policy=pol, window_tiles=w,
                                       rank_cols=cols,
                                       resident_bytes=resident))
@@ -274,7 +290,8 @@ def _factor_states(per_mode, total, k: int, backend: str, rpad: int,
 def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
                    tile_rows: int = 8, factor_rows=None,
                    smem_budget: int = SMEM_BUDGET_BYTES,
-                   l2_budget: int = L2_BUDGET_BYTES) -> ResidencyPlan:
+                   l2_budget: int = L2_BUDGET_BYTES,
+                   gather_itemsize: int = 4) -> ResidencyPlan:
     """The residency ladder for one mode step: the first rung of
     :data:`LADDER` that fits (:func:`backend_fits`) wins.
 
@@ -292,9 +309,10 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
       6. ``pallas`` (B5): always — it splits the columns itself.
 
     Rungs 1–3 need ``factor_rows`` (per input mode, or the total) and are
-    skipped without it. Since every
+    skipped without it. ``gather_itemsize`` (2: bf16 gathers) sizes the
+    factors in L2 and B6's windows, as the reference's does. Since every
     test is ``bytes <= budget``, a larger budget never moves the choice
-    down the ladder. The reference's first rung, ``rank < MIN_MXU_RANK``
+    down the ladder, at either itemsize. The reference's first rung, ``rank < MIN_MXU_RANK``
     → ``ref``, is left out: it avoids padding a small rank to the TPU's
     128-wide MXU, while the port pads to 16 and ``ref`` is plain PyTorch,
     not a kernel.
@@ -303,13 +321,13 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
     per_mode, total = _normalize_factor_rows(factor_rows, k)
     fit_kw = dict(nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
                   factor_rows=factor_rows, smem_budget=smem_budget,
-                  l2_budget=l2_budget)
+                  l2_budget=l2_budget, gather_itemsize=gather_itemsize)
     for backend in LADDER:
         if not backend_fits(backend, **fit_kw):
             continue
         smem, l2, windows = _rung_cost(
             backend, k=k, rpad=rpad, tile_rows=tile_rows, blk=blk,
-            per_mode=per_mode, total=total)
+            per_mode=per_mode, total=total, gi=gather_itemsize)
         slabs = {"pallas_fused_gather_tiled": rpad // min(rpad,
                                                           _kernel.RANK_SLAB),
                  STREAM_BACKEND: rpad // min(rpad, _kernel.STREAM_RANK_SLAB),
@@ -318,10 +336,11 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
         return ResidencyPlan(
             backend=backend, nmodes=nmodes, rank=rank, blk=blk,
             tile_rows=tile_rows, smem_budget=smem_budget,
-            l2_budget=l2_budget, smem_bytes=smem, l2_bytes=l2,
+            l2_budget=l2_budget, gather_itemsize=gather_itemsize,
+            smem_bytes=smem, l2_bytes=l2,
             rank_slabs=slabs, window_tiles=windows,
             factors=_factor_states(per_mode, total, k, backend, rpad,
-                                   windows)
+                                   windows, gather_itemsize)
             if backend in _FACTOR_RUNGS else ())
     raise AssertionError("the last rung always fits")
 
@@ -467,15 +486,16 @@ def predict_stream_traffic(idx, valid, *, mode: int, rows_cap: int,
                            max_chunk_bytes: int | None = None,
                            frow_tile: int = FACTOR_ROW_TILE,
                            rank_slab: int = _kernel.STREAM_RANK_SLAB,
-                           rank_multiple: int = _kernel.RANK_MULTIPLE
-                           ) -> StreamTraffic:
+                           rank_multiple: int = _kernel.RANK_MULTIPLE,
+                           gather_itemsize: int = 4) -> StreamTraffic:
     """Predict the stream kernel's tile traffic for a nonzero stream.
 
     The executor's own arithmetic on the stream it would run — block
     layout, aligned index streams, :func:`block_tile_analysis`, windows,
     chunks — without a kernel. Input contract as the executor's:
     ``idx (cap, N)`` valid-first with output-tile runs contiguous and
-    ascending. ``factor_rows`` are the input modes' factor row counts.
+    ascending. ``factor_rows`` are the input modes' factor row counts;
+    ``gather_itemsize`` (2 for bf16 gathers) sizes a tile's bytes.
     """
     idx = torch.as_tensor(idx)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=idx.device)
@@ -506,7 +526,7 @@ def predict_stream_traffic(idx, valid, *, mode: int, rows_cap: int,
         window_tiles=windows,
         scheduled_tiles=int(scheduled),
         distinct_tiles=int(dcounts.sum()),
-        tile_bytes=frow_tile * slab * 4,
+        tile_bytes=frow_tile * slab * gather_itemsize,
         rank_slabs=slabs,
         chunks=len(chunks),
     )

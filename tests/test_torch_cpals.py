@@ -157,18 +157,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tensors, monkeypatch):
     assert np.isfinite(res.fit)
 
 
-def test_unported_options_raise(tensors):
-    ft, _ = tensors
+def test_unported_options_raise(tensors, mesh):
+    ft, fj = tensors
     ft2 = tfly.build_flycoo(ft.tensor, 2)
     with pytest.raises(NotImplementedError, match="A9"):
         tcpals.cp_als_distributed(ft2, RANK, device="cpu", iters=1)
-    for backend in ("pallas_fused_bf16", "pallas_fused_gather_bf16"):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
-                                      backend=backend)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    # bf16 gathers are ported: the bf16 names and gather_dtype="bfloat16"
+    # give the JAX run's fits (one sweep from the same factors: fp32
+    # tolerance); an unknown gather dtype raises ValueError.
+    for kw in (dict(backend="pallas_fused_bf16"),
+               dict(backend="pallas_fused_gather_bf16"),
+               dict(backend="pallas_fused_gather", gather_dtype="bfloat16")):
+        got = tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
+                                        **kw)
+        want = jcpals.cp_als_distributed(fj, RANK, mesh, iters=1, **kw)
+        np.testing.assert_allclose(got.fits, want.fits, rtol=0,
+                                   atol=FIT_TOL)
+    with pytest.raises(ValueError, match="gather_dtype"):
         tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
-                                  gather_dtype="bfloat16")
+                                  gather_dtype="bf16")
     with pytest.raises(NotImplementedError, match="A12"):
         tdist.prepare_runtime(ft, RANK, table=object())
     rt, _ = tdist.prepare_runtime(ft2, RANK)

@@ -5,7 +5,8 @@ arithmetic on the kernels' shared-memory counts and the factors' L2
 bytes (no card needed). The ladder is the reference's rung order with
 Hopper budgets; these tests hold its rules: first fit wins, monotone in
 both budgets, the gather rungs need the factor sizes, explicit names pass
-through, bf16 names are not ported, ``auto`` never yields a bf16 name.
+through (the bf16 names too, which fold into ``gather_itemsize=2`` in the
+planner, as in the reference), ``auto`` never yields a bf16 name.
 """
 import itertools
 
@@ -14,6 +15,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro.kernels.mttkrp import ops as jops  # noqa: E402
+from repro.oocore import planner as jplanner  # noqa: E402
 from repro_torch.kernels.mttkrp import kernel as tk  # noqa: E402
 from repro_torch.kernels.mttkrp import ops as tops  # noqa: E402
 from repro_torch.oocore import planner  # noqa: E402
@@ -124,12 +126,25 @@ def test_explicit_names_pass_through(backend):
 @pytest.mark.parametrize("backend", ["pallas_fused_bf16",
                                      "pallas_fused_gather_bf16"])
 def test_bf16_names_are_not_ported(backend):
-    assert backend in jops.BACKENDS
-    with pytest.raises(NotImplementedError, match="A6b"):
-        tops.select_backend(backend, nmodes=3, rank=16)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        planner.backend_fits(backend, nmodes=3, rank=16, blk=512,
-                             tile_rows=8)
+    """The bf16 names are the reference's and the port's: they pass
+    through ``select_backend``, stay out of ``AUTO_BACKENDS``, and the
+    planner sizes them at 2 bytes per factor element, equal to its base
+    rung at ``gather_itemsize=2``, in the port as in the reference."""
+    assert backend in jops.BACKENDS and backend in tops.BACKENDS
+    assert backend not in tops.AUTO_BACKENDS
+    assert tops.select_backend(backend, nmodes=3, rank=16) == backend
+    base = backend[:-len("_bf16")]
+    for rank, frows in itertools.product((16, 256, 1024), FACTOR_ROWS):
+        for s, l2 in itertools.product(SMEM_BUDGETS, L2_BUDGETS):
+            kw = dict(nmodes=3, rank=rank, blk=512, tile_rows=8,
+                      factor_rows=frows, smem_budget=s, l2_budget=l2)
+            assert planner.backend_fits(backend, **kw) \
+                == planner.backend_fits(base, gather_itemsize=2, **kw)
+        jkw = dict(nmodes=3, rank=rank, blk=512, tile_rows=128,
+                   factor_rows=frows)
+        assert jops.select_backend(backend, nmodes=3, rank=rank) == backend
+        assert jplanner.backend_fits(backend, **jkw) \
+            == jplanner.backend_fits(base, gather_itemsize=2, **jkw)
 
 
 @pytest.mark.parametrize("backend", ["nope", "segsum", "AUTO"])

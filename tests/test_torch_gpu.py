@@ -655,3 +655,189 @@ def test_gather_padding_chunks_on_the_last_tile(cuda, k, rank):
     args, rows_cap = _runs_operands(cuda, k, rank, runs, seed=70 + k,
                                     pad_blocks=range(12, 128))
     _check_b1_b2(args, rows_cap, rank, blk=BLK)
+
+
+# ---------------------------------------------------------------------------
+# bf16 gathers: the bf16 variants of B1, B2, B3, B4 and B6, each held
+# bitwise against the bf16 B1 (one product order, exact bf16 -> fp32)
+# ---------------------------------------------------------------------------
+
+def _to_bf16(args):
+    """The same operands with bf16 factors."""
+    vals, idx, factors, rows, tob = args
+    return vals, idx, [f.to(torch.bfloat16) for f in factors], rows, tob
+
+
+def _bf16_counts():
+    return {n: (getattr(K, n).launches, getattr(K, n).launches_bf16)
+            for n in ("fused_mttkrp_nmode_gather",
+                      "fused_mttkrp_nmode_gather_tiled",
+                      "fused_mttkrp_nmode", "fused_mttkrp_nmode_tiled",
+                      "fused_mttkrp_nmode_gather_stream")}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 48, 256])
+def test_bf16_kernels_match_plain_and_b1_bitwise(cuda, k, rank):
+    idx, val, valid, factors = _stream(cuda, k, rank, 5000, 96, seed=k)
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    args = ops.gather_operands(idx, val, valid, factors, mode=0, rows_cap=96,
+                               row_offset=0, blk=BLK, tile_rows=TILE,
+                               slab=ops.padded_rank(rank),
+                               dtype=torch.bfloat16)
+    assert args[2][0].dtype == torch.bfloat16
+    before = _bf16_counts()
+    b1 = K.fused_mttkrp_nmode_gather(*args, **kw)
+    plain = K.fused_mttkrp_nmode_gather_plain(*args, **kw)
+    scale = float(plain.abs().max())
+    assert b1.dtype == torch.float32
+    assert torch.allclose(b1, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b1, K.fused_mttkrp_nmode_gather(*args, **kw))
+    slab = ops.tiled_rank_slab(rank)
+    assert torch.equal(b1, K.fused_mttkrp_nmode_gather_tiled(
+        *args, rank_slab=slab, **kw))
+    vals, idx_al, fmats, rows, tob = args
+    pre = ops.pregathered_rows(idx_al, fmats)
+    assert torch.equal(b1, K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw))
+    assert torch.equal(b1, K.fused_mttkrp_nmode_tiled(
+        vals, pre, rows, tob, rank_slab=16, **kw))
+    if rank <= 64:
+        s_args = _stream_args(args)
+        assert torch.equal(b1, K.fused_mttkrp_nmode_gather_stream(
+            *s_args, rank_slab=16, **kw))
+    after = _bf16_counts()
+    # Only the bf16 variants launched, each as often as it was called.
+    for name, (f32, b16) in after.items():
+        assert f32 == before[name][0], name
+    assert after["fused_mttkrp_nmode_gather"][1] \
+        == before["fused_mttkrp_nmode_gather"][1] + 2
+    assert after["fused_mttkrp_nmode_gather_stream"][1] \
+        == before["fused_mttkrp_nmode_gather_stream"][1] + (rank <= 64)
+    # bf16 gathers differ from fp32 ones by the rounding of the factors.
+    f32 = K.fused_mttkrp_nmode_gather(*ops.gather_operands(
+        idx, val, valid, factors, mode=0, rows_cap=96, row_offset=0,
+        blk=BLK, tile_rows=TILE, slab=ops.padded_rank(rank)), **kw)
+    assert not torch.equal(b1, f32)
+
+
+def _bf16_ring_stages(k, rank, windows):
+    return K.stream_ring(k, rank, BLK, TILE, windows, gather_itemsize=2)[0]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 64])
+def test_bf16_stream_runs_around_the_ring_depth(cuda, k, rank):
+    """The bf16 ring (more stages than at fp32): runs of 1, S-1, S, S+1
+    blocks, an empty tile and a run of 2S+1; bitwise the bf16 B1."""
+    widths = [min(BLK, -(-r // K.FACTOR_ROW_TILE))
+              for r in (200, 300, 150, 90)[:k]]
+    s = _bf16_ring_stages(k, rank, widths)
+    assert s >= _ring_stages(k, rank, widths)
+    runs = [1, max(s - 1, 0), s, s + 1, 0, 2 * s + 1]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, seed=110 + k)
+    _check_b6(_b6_args(_to_bf16(args), widths=widths)[0], rows_cap)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_bf16_stream_chunk_ends_at_every_ring_phase(cuda, k):
+    """bf16 chunks ending after each of the first S+1 blocks of a run hand
+    on their partials: two calls give the single pass's bits."""
+    args, rows_cap = _runs_operands(cuda, k, 16, [2, 40, 3], seed=120 + k)
+    args6, windows = _b6_args(_to_bf16(args))
+    s = _bf16_ring_stages(k, 16, windows)
+    single = _check_b6(args6, rows_cap)
+    vals, idx, fm, rows, tob, scheds = args6
+    kw = dict(rows_cap=rows_cap, blk=BLK, tile_rows=TILE)
+    nb = tob.shape[0]
+    for cut in range(3, 3 + s + 1):
+        a, b = slice(0, cut * BLK), slice(cut * BLK, nb * BLK)
+        out, carry = K.fused_mttkrp_nmode_gather_stream_chunk(
+            vals[a], idx[a], fm, rows[a], tob[:cut],
+            tuple(x[:cut].contiguous() for x in scheds), split_tail=True,
+            **kw)
+        out, carry = K.fused_mttkrp_nmode_gather_stream_chunk(
+            vals[b], idx[b], fm, rows[b], tob[cut:],
+            tuple(x[cut:].contiguous() for x in scheds), out_init=out,
+            carry=carry, **kw)
+        assert carry is None
+        assert torch.equal(out, single), cut
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 32, 256])
+def test_bf16_gather_runs_at_the_staging_edge(cuda, k, rank):
+    """The bf16 B1 and B2 with runs at a staging buffer's edge +-1 and the
+    last nonzero one slot before, at and after it."""
+    chunk = K.STAGE_SLOTS // K.STAGE_BUFFERS
+    blk = 4
+    runs = [chunk // blk - 1, chunk // blk, chunk // blk + 1,
+            2 * chunk // blk + 3]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, blk=blk,
+                                    seed=160 + k)
+    args = _to_bf16(args)
+    _check_b1_b2(args, rows_cap, rank, blk=blk)
+    start = sum(runs[:3]) * blk
+    for last in (chunk - 1, chunk, chunk + 1):
+        vals = args[0].clone()
+        vals[start + last:] = 0.0
+        _check_b1_b2((vals,) + args[1:], rows_cap, rank, blk=blk)
+
+
+@pytest.mark.parametrize("ordering", ["none", "morton"])
+def test_bf16_device_step_backends_bitwise(cuda, ordering):
+    """Every fused-family backend in bf16, and both bf16 names, give the
+    bf16 B1's bits on one stream; pallas and ref ignore the dtype (ref's
+    index_add_ adds with float atomics, so two of its runs agree only to
+    fp32 rounding)."""
+    idx, val, valid, factors = _stream(cuda, 2, 16, 20_000, 96, seed=7)
+    kw = dict(mode=0, rows_cap=96, row_offset=0, blk=BLK, tile_rows=TILE,
+              ordering=ordering)
+    base = ops.mttkrp_device_step(idx, val, valid, factors,
+                                  backend="pallas_fused_gather",
+                                  gather_dtype="bfloat16", **kw)
+    for backend in ("pallas_fused", "pallas_fused_tiled",
+                    "pallas_fused_gather_tiled",
+                    "pallas_fused_gather_stream"):
+        assert torch.equal(base, ops.mttkrp_device_step(
+            idx, val, valid, factors, backend=backend,
+            gather_dtype="bfloat16", **kw)), backend
+    for name in ("pallas_fused_bf16", "pallas_fused_gather_bf16"):
+        assert torch.equal(base, ops.mttkrp_device_step(
+            idx, val, valid, factors, backend=name, **kw)), name
+    assert torch.equal(
+        ops.mttkrp_device_step(idx, val, valid, factors, backend="pallas",
+                               gather_dtype="bfloat16", **kw),
+        ops.mttkrp_device_step(idx, val, valid, factors, backend="pallas",
+                               **kw))
+    ref = ops.mttkrp_device_step(idx, val, valid, factors, backend="ref",
+                                 **kw)
+    assert torch.allclose(
+        ops.mttkrp_device_step(idx, val, valid, factors, backend="ref",
+                               gather_dtype="bfloat16", **kw),
+        ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_bf16_chunked_equals_single_pass(cuda):
+    idx, val, valid, factors = _stream(cuda, 2, 16, 60_000, 64, seed=8)
+    kw = dict(mode=0, rows_cap=64, blk=BLK, tile_rows=TILE,
+              ordering="morton", gather_dtype="bfloat16", device=cuda)
+    single, s1 = executor.mttkrp_out_of_core(idx, val, valid, factors, **kw)
+    budget = 7 * planner.stream_chunk_bytes(BLK, 2, s1.window_tiles)
+    chunked, s2 = executor.mttkrp_out_of_core(idx, val, valid, factors,
+                                              max_chunk_bytes=budget, **kw)
+    assert s2.chunks > 5
+    assert torch.equal(chunked, single)
+    f32 = executor.mttkrp_out_of_core(
+        idx, val, valid, factors, **dict(kw, gather_dtype="float32"))[1]
+    assert s1.distinct_tile_bytes * 2 == f32.distinct_tile_bytes
+
+
+def test_bf16_cp_als_on_card_matches_cpu(cuda):
+    t, _ = tensors.low_rank_sparse_tensor((60, 50, 40), 3, 20_000, seed=0)
+    ft = flycoo.build_flycoo(t, 1)
+    kw = dict(iters=4, tol=0.0, seed=1, backend="pallas_fused_gather_bf16")
+    gpu = cpals.cp_als_distributed(ft, 3, device=cuda, **kw)
+    cpu = cpals.cp_als_distributed(ft, 3, device="cpu", **kw)
+    np.testing.assert_allclose(gpu.fits, cpu.fits, rtol=2 * 2.0 ** -8,
+                               atol=0)
+    np.testing.assert_allclose(gpu.fits[0], cpu.fits[0], rtol=0, atol=1e-5)

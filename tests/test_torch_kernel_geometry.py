@@ -35,13 +35,14 @@ def _round4(n):
 
 
 def _stream_layout(k, rank, blk, tile_rows, windows, frow, slab, stages,
-                   mappers):
-    """The byte count the .cu note lays out, summed independently."""
+                   mappers, itemsize=4):
+    """The byte count the .cu note lays out, summed independently
+    (``itemsize``: bytes of a factor element, 4 or 2 for bf16)."""
     slab = min(rank, slab)
     groups = tk._groups(tile_rows)
     wsum = sum(windows)
     partials = groups * tile_rows * slab * 4
-    window = wsum * frow * slab * 4
+    window = wsum * frow * slab * itemsize
     slot = ((2 + k) * blk + _round4(wsum) + _round4(wsum + 1)) * 4
     slots = stages + mappers + 1
     barriers = 8 * (2 * stages + 3 * slots)
@@ -71,6 +72,80 @@ def test_stream_cu_layout_matches_the_formula():
     assert "return stages + mappers + 1;" in text
     assert "(2 * (size_t)stages + 3 * (size_t)meta_slots(stages, mappers))" \
         in text
+
+
+@pytest.mark.parametrize("k,rank,blk,windows", SMOKE_STREAMS)
+@pytest.mark.parametrize("stages", [1, 3, 5])
+@pytest.mark.parametrize("mappers", [1, 8])
+def test_stream_smem_bytes_bf16_equal_the_cu_layout(k, rank, blk, windows,
+                                                    stages, mappers):
+    """bf16 windows: half the window bytes; partial tiles, meta slots and
+    mbarriers as at fp32, and every part a multiple of 16 bytes, so the
+    meta slots and mbarriers after the windows stay aligned."""
+    got = tk.gather_stream_smem_bytes(k, rank, blk, 8, windows,
+                                      stages=stages, mappers=mappers,
+                                      gather_itemsize=2)
+    assert got == _stream_layout(k, rank, blk, 8, windows,
+                                 tk.FACTOR_ROW_TILE, tk.STREAM_RANK_SLAB,
+                                 stages, mappers, itemsize=2)
+    f32 = tk.gather_stream_smem_bytes(k, rank, blk, 8, windows,
+                                      stages=stages, mappers=mappers)
+    slab = min(rank, tk.STREAM_RANK_SLAB)
+    assert f32 - got == stages * sum(windows) * tk.FACTOR_ROW_TILE * slab * 2
+    tile = tk.FACTOR_ROW_TILE * slab * 2
+    assert tile % 16 == 0 and (slab * 2) % 16 == 0
+    assert (stages * sum(windows) * tile) % 16 == 0
+
+
+def test_stream_cu_window_is_in_the_factors_type():
+    """The .cu sizes the window, its tiles and its per-row copies by the
+    element type, and the other parts by float / int / mbarrier."""
+    text = (CSRC / "gather_stream_mttkrp.cu").read_text()
+    assert "sizeof(T) * (size_t)stages * wsum * frow * slab" in text
+    assert "const unsigned tile_bytes = frow * slab * sizeof(T);" in text
+    assert "slab * sizeof(T), &full[s]);" in text
+    assert "gather_stream_mttkrp_bf16_launch" in text
+
+
+@pytest.mark.parametrize("source", ["gather_mttkrp.cu", "fused_mttkrp.cu"])
+def test_gather_and_fused_smem_hold_no_factor_element(source):
+    """B1-B4 keep factor elements out of shared memory (partial tiles are
+    fp32, the staging holds values, rows and indices): their launches size
+    shared memory by sizeof(float) alone, so one byte count serves both
+    element types."""
+    text = (CSRC / source).read_text()
+    assert "sizeof(T)" not in text
+    lib = source[:-3]
+    assert f"{lib}_launch(" in text and f"{lib}_bf16_launch(" in text
+
+
+@pytest.mark.parametrize("k,rank,blk,windows", SMOKE_STREAMS)
+def test_bf16_ring_fits_and_is_monotone_in_the_budget(k, rank, blk,
+                                                      windows):
+    prev = (0, 0)
+    for budget in BUDGETS:
+        stages, mappers = tk.stream_ring(k, rank, blk, 8, windows,
+                                         smem_budget=budget,
+                                         gather_itemsize=2)
+        if stages:
+            assert tk.gather_stream_smem_bytes(
+                k, rank, blk, 8, windows, stages=stages, mappers=mappers,
+                gather_itemsize=2) <= budget
+        assert stages >= prev[0] and mappers >= prev[1]
+        prev = (stages, mappers)
+        # Never fewer stages than at fp32 under the same budget.
+        assert stages >= tk.stream_ring(k, rank, blk, 8, windows,
+                                        smem_budget=budget)[0]
+
+
+def test_bf16_ring_of_the_nell2_stream():
+    """At half the window bytes the nell-2 stand-in's Morton windows take
+    five stages beside eight mapper warps (three at fp32), and the
+    data-blind K=3, blk=128 window gets all eight mappers."""
+    assert tk.stream_ring(2, 16, 64, 8, (64, 62), gather_itemsize=2) \
+        == (5, 8)
+    assert tk.stream_ring(3, 16, 128, 8, (128, 128, 128),
+                          gather_itemsize=2) == (1, 8)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])

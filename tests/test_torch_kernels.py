@@ -185,17 +185,29 @@ def test_device_step_matches_jax(nmodes, backend):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("backend,item", [
-    ("pallas_fused_bf16", "A6"), ("pallas_fused_gather_bf16", "A6"),
+@pytest.mark.parametrize("backend,kernel_backend", [
+    ("pallas_fused_bf16", "pallas_fused"),
+    ("pallas_fused_gather_bf16", "pallas_fused_gather"),
 ])
-def test_unported_backends_raise(backend, item):
+def test_unported_backends_raise(backend, kernel_backend):
+    """The bf16 backend names run (B3 and B1 on bf16 factors) and match
+    the JAX step on the same inputs; each is its kernel's backend with
+    ``gather_dtype="bfloat16"`` bitwise."""
     _, _, rows_cap, (idx, val, factors) = _case(3, 8, seed=4)
-    with pytest.raises(NotImplementedError, match=item):
-        tops.mttkrp_device_step(
-            torch.from_numpy(idx), torch.from_numpy(val),
-            torch.ones(len(val), dtype=torch.bool),
-            [torch.from_numpy(f) for f in factors], mode=0,
-            rows_cap=rows_cap, backend=backend)
+    valid = np.ones(len(val), bool)
+    kw = dict(mode=0, rows_cap=rows_cap, row_offset=0, blk=BLK,
+              tile_rows=TILE)
+    args = (torch.from_numpy(idx), torch.from_numpy(val),
+            torch.from_numpy(valid), [torch.from_numpy(f) for f in factors])
+    got = tops.mttkrp_device_step(*args, backend=backend, **kw)
+    want = jops.mttkrp_device_step(
+        jnp.asarray(idx), jnp.asarray(val), jnp.asarray(valid),
+        [jnp.asarray(f) for f in factors], interpret=True, backend=backend,
+        **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(got, tops.mttkrp_device_step(
+        *args, backend=kernel_backend, gather_dtype="bfloat16", **kw))
 
 
 def test_bf16_and_orderings_raise():
@@ -203,9 +215,20 @@ def test_bf16_and_orderings_raise():
     args = (torch.from_numpy(idx), torch.from_numpy(val),
             torch.ones(len(val), dtype=torch.bool),
             [torch.from_numpy(f) for f in factors])
-    with pytest.raises(NotImplementedError, match="A6"):
+    # bf16 gathers run and match the JAX bf16 step; an unknown gather
+    # dtype raises ValueError, as in the reference.
+    kw = dict(mode=0, rows_cap=rows_cap, row_offset=0, blk=BLK,
+              tile_rows=TILE, gather_dtype="bfloat16")
+    got = tops.mttkrp_device_step(*args, **kw)
+    want = jops.mttkrp_device_step(
+        jnp.asarray(idx), jnp.asarray(val), jnp.ones(len(val), bool),
+        [jnp.asarray(f) for f in factors], interpret=True,
+        backend="pallas_fused_gather", **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    with pytest.raises(ValueError, match="gather_dtype"):
         tops.mttkrp_device_step(*args, mode=0, rows_cap=rows_cap,
-                                gather_dtype="bfloat16")
+                                gather_dtype="float16")
     # The orderings are ported; an unknown one raises as in the reference.
     with pytest.raises(ValueError, match="unknown ordering"):
         tops.mttkrp_device_step(*args, mode=0, rows_cap=rows_cap,
