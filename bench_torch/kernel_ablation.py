@@ -1,4 +1,4 @@
-"""Ablations of the B1 and B6 designs on one H100: which change moves the time.
+"""Ablations of the B1, B3/B4 and B6 designs on one H100: which change moves the time.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -11,9 +11,16 @@ through the port's own wrapper, on a device-made stream of the nell-2
 stand-in's shape (12100 x 9200 x 28800, 76,899,057 uniform nonzeros, seed
 0, sorted by the output mode): B1 at blk=512, R=16 (modes 0 and 2) and B2
 at R=256; B6 at blk=64, R=16 under Morton order (mode 0), also with the
-ring's stages and mapper warps forced. Every variant's output must equal
-the unmodified kernel's bitwise. Prints one line per variant with its
-CUDA-event mean time, and the card's name and power limit.
+ring's stages and mapper warps forced; B3 at blk=512, R=16 on rows
+pre-gathered in fp32 (modes 0, 1, 2) and bf16 (modes 0, 2), and B4 at
+R=32 in two 16-column slabs (modes 0, 2), also with the ring's stages and
+slots per stage forced, and B4 at R=16 (one slab) on the same rows; beside
+each, B3/B4's first design, kept as source text in
+``bench_torch/fused_mttkrp_direct.cu``. Every variant's
+output must equal the unmodified kernel's bitwise. Prints one line per
+variant with its CUDA-event mean time (B3/B4 lines also the HBM TB/s
+their bytes take at that time), the mode-2 gap (mode 2 minus mode 0) of
+every B3/B4 variant, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -36,7 +43,8 @@ SHAPE, NNZ = (12100, 9200, 28800), 76_899_057
 
 
 def edit(source: str, pairs) -> str:
-    """``source`` with each (old, new) replaced; each old must occur once."""
+    """``source`` (under csrc/, or a path) with each (old, new) replaced;
+    each old must occur once."""
     text = open(os.path.join(CSRC, source)).read()
     for old, new in pairs:
         if text.count(old) != 1:
@@ -45,8 +53,48 @@ def edit(source: str, pairs) -> str:
     return text
 
 
+# B3/B4's copy of a stage's slab of narrower-than-row slices: 2-D tensor
+# copies (the kernel), or 16-byte cp.async by the row warp's lanes, each
+# lane's copies tracked by the stage's full barrier with no net arrival
+# (cp.async.mbarrier.arrive without .noinc) and lane 0 arriving.
+TENSOR_COPY = """\
+          if (lane32 == 0) {
+            const int box = min(slots, kBoxRows);
+            mttkrp_common::mbar_arrive_expect_tx(&full[s],
+                                                 K * slots * row_bytes);
+#pragma unroll
+            for (int w = 0; w < K; ++w)
+              for (int b = 0; b < slots; b += box)
+                tensor_g2s(dst + ((size_t)w * slots + b) * slab,
+                           &maps.map[w], sl * slab, (int)i0 + b, &full[s]);
+          }
+"""
+CP_ASYNC_COPY = """\
+          const int pieces = row_bytes / 16;
+          const int per_w = cnt * pieces;
+          const int step = 16 / sizeof(T);
+          for (int p = lane32; p < K * per_w; p += 32) {
+            const int w = p / per_w;
+            const int j = (p - w * per_w) / pieces;
+            const int e = (p - w * per_w - j * pieces) * step;
+            mttkrp_common::cp_async16(
+                dst + ((size_t)w * slots + j) * slab + e,
+                rs.ptr[w] + (i0 + j) * ld + (long long)sl * slab + e);
+          }
+          asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                           mttkrp_common::smem_addr(&full[s]))
+                       : "memory");
+          __syncwarp();
+          if (lane32 == 0) mbar_arrive(&full[s]);
+"""
 B1 = "gather_mttkrp.cu"
 B6 = "gather_stream_mttkrp.cu"
+B3 = "fused_mttkrp.cu"
+# B3/B4's first design (one CTA per tile, rows loaded element by element).
+DIRECT = os.path.join(ROOT, "bench_torch/fused_mttkrp_direct.cu")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+DIRECT_ARGS = ([_P] * 5 + [_P] * 3 + [_I] * 9 + [_P])
+DIRECT_NAME = "b3 first design (direct row loads, one CTA per tile)"
 # name -> (library, source, edits[, edits of mttkrp_common.cuh]): each
 # undoes or varies one choice of the design.
 VARIANTS = {
@@ -83,9 +131,51 @@ VARIANTS = {
           "                if (j > 0 && entry(w, j - 1) == tile - 1) {",
           "              if (false) {\n"
           "                if (j > 0 && entry(w, j - 1) == tile - 1) {")]),
+    "b3": ("fused_mttkrp", B3, []),
+    DIRECT_NAME: ("fused_mttkrp_direct", DIRECT, []),
+    "b3 slabs by 16-byte cp.async (not the 2-D tensor copy)": (
+        "fused_mttkrp", B3, [(TENSOR_COPY, CP_ASYNC_COPY)]),
+    "b3 one CTA per work item (not persistent)": (
+        "fused_mttkrp", B3,
+        [("const int grid = (int)min(items, (long long)sms * per_sm);",
+          "const int grid = (int)items;")]),
+    "b3 tiles in counter order (not the last first)": (
+        "fused_mttkrp", B3,
+        [("const int t = num_tiles - 1 - item / num_slabs;",
+          "const int t = item / num_slabs;")]),
+    "b3 padding stages copied too (no skip)": (
+        "fused_mttkrp", B3,
+        [("if (cv[j] != 0.0f) live |= 1ull << (j >> shift);",
+          "live |= 1ull << (j >> shift);")]),
+    "b3 kUnroll 8": ("fused_mttkrp", B3,
+                     [("constexpr int kUnroll = 4;",
+                       "constexpr int kUnroll = 8;")]),
+    "b3 kUnroll 2": ("fused_mttkrp", B3,
+                     [("constexpr int kUnroll = 4;",
+                       "constexpr int kUnroll = 2;")]),
+    "b3 meta ring of 2 chunks": (
+        "fused_mttkrp", B3,
+        [("constexpr int kMetaStages = 4;", "constexpr int kMetaStages = 2;")]),
+    "b3 meta chunks of 512 slots": (
+        "fused_mttkrp", B3,
+        [("constexpr int kMetaChunk = 1024;",
+          "constexpr int kMetaChunk = 512;")]),
 }
+# Variants that differ from the unmodified kernel only where the slab is
+# narrower than the row: timed on those cases alone.
+SLAB_ONLY = {"b3 slabs by 16-byte cp.async (not the 2-D tensor copy)"}
 # B6 ring shapes forced through the wrapper: (stages, mapper warps).
 RINGS = [(3, 8), (1, 8), (3, 4), (3, 2)]
+# B3/B4 ring shapes forced through the wrapper: (stages, slots per stage);
+# (1, 256) is one stage, no overlap of copies and adds. Shapes whose CTA
+# does not fit shared memory are skipped. The meta-ring variants run at a
+# few of them.
+FUSED_RINGS = [(1, 256), (2, 128), (4, 128), (8, 128), (2, 256), (3, 256),
+               (4, 256), (2, 512), (4, 512)]
+FUSED_VARIANT_RINGS = {"b3": FUSED_RINGS,
+                       "b3 meta ring of 2 chunks": [(2, 256), (3, 256),
+                                                    (4, 256), (2, 512)],
+                       "b3 meta chunks of 512 slots": [(2, 256), (4, 256)]}
 
 
 def build_variants():
@@ -97,6 +187,7 @@ def build_variants():
         open(header, "w").write(edit("mttkrp_common.cuh",
                                      hdr[0] if hdr else []))
         text = edit(src, pairs).replace(inc, f'#include "{header}"')
+        assert f'#include "{header}"' in text
         cu, so = os.path.join(OUT, f"v{i}.cu"), os.path.join(OUT, f"v{i}.so")
         open(cu, "w").write(text)
         procs[name] = (lib, so, subprocess.Popen(
@@ -108,7 +199,10 @@ def build_variants():
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{report}")
         handle = ctypes.CDLL(so)
-        for fn, argtypes in build._LAUNCH_ARGTYPES[lib].items():
+        launch_args = build._LAUNCH_ARGTYPES.get(lib) or {
+            "fused_mttkrp_direct_launch": DIRECT_ARGS,
+            "fused_mttkrp_direct_bf16_launch": DIRECT_ARGS}
+        for fn, argtypes in launch_args.items():
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = ctypes.c_int
         err = getattr(handle, f"{lib}_error_string")
@@ -130,6 +224,37 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def direct_call(lib, vals, pre, rows, tob, *, rows_cap, blk, tile_rows,
+                slab):
+    """B3/B4's first design through its own launch: one CTA per output
+    tile and slab, the same output buffer and block starts."""
+    k, rank = len(pre), pre[0].shape[1]
+    num_tiles = rows_cap // tile_rows
+    blk_start = K._tile_starts(tob, num_tiles)
+    out = torch.zeros(rows_cap, rank, device=vals.device)
+    ptrs = [r.data_ptr() for r in pre] + [0] * (K.MAX_IN_MODES - k)
+    bf16 = pre[0].dtype == torch.bfloat16
+    err = getattr(lib, "fused_mttkrp_direct_bf16_launch" if bf16 else
+                  "fused_mttkrp_direct_launch")(
+        vals.data_ptr(), *ptrs, rows.data_ptr(), blk_start.data_ptr(),
+        out.data_ptr(), k, num_tiles, rank // slab, blk, tile_rows, rank,
+        slab, K._groups(tile_rows), K._lanes(slab),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit("fused_mttkrp_direct launch failed: "
+                         f"{lib.fused_mttkrp_direct_error_string(err)}")
+    return out
+
+
+def fused_hbm_bytes(vals, pre, rows_cap, tile_rows):
+    """B3/B4's HBM bytes (chip_smoke.fused_bound_ms's count): per nonzero
+    its value, local row and K rows; the block starts; the output."""
+    nnz = int((vals != 0).sum())
+    k, rank, item = len(pre), pre[0].shape[1], pre[0].element_size()
+    return (nnz * (8 + k * rank * item) + (rows_cap // tile_rows + 1) * 4
+            + rows_cap * rank * 4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -145,26 +270,142 @@ def main() -> int:
     val = torch.randn(NNZ, generator=g, device=dev)
     valid = torch.ones(NNZ, dtype=torch.bool, device=dev)
     f16 = [torch.randn(d, 16, generator=g, device=dev) for d in SHAPE]
+    f32 = [torch.randn(d, 32, generator=g, device=dev) for d in SHAPE]
     f256 = [torch.randn(d, 256, generator=g, device=dev) for d in SHAPE]
     real_load, real_ring = build.load, K.stream_ring
-    cases = []  # (label, kernel name prefix, call)
-    for mode in (0, 2):
+    real_fused_ring = K.fused_ring
+    times = {}  # (label, variant) -> ms
+
+    def run_case(label, prefix, call, fused=None, only=None):
+        """Every variant of ``prefix`` on ``call`` (``only``: those
+        named), each == the unmodified kernel bitwise. ``fused``: (vals,
+        pre, rows, tob, kw, slab) of a B3/B4 case, for the first design
+        and the forced rings."""
+        build.load = lambda name, h=libs[prefix]: h
+        want = call()
+        hbm = fused_hbm_bytes(fused[0], fused[1], fused[4]["rows_cap"],
+                              fused[4]["tile_rows"]) if fused else None
+        for name, handle in libs.items():
+            if not name.startswith(prefix + " ") and name != prefix:
+                continue
+            if only is not None and name not in only:
+                continue
+            if name in SLAB_ONLY and (fused is None
+                                      or fused[5] == fused[1][0].shape[1]):
+                continue
+            if name == "b6":
+                rings = RINGS
+            elif name in FUSED_VARIANT_RINGS and only is None:
+                rings = [None] + FUSED_VARIANT_RINGS[name]
+            else:
+                rings = [None]
+            for ring in rings:
+                if VARIANTS[name][0] == "fused_mttkrp_direct":
+                    vals, pre, rows, tob, kw, slab = fused
+
+                    def fn(h=handle):
+                        return direct_call(h, vals, pre, rows, tob,
+                                           slab=slab, **kw)
+                    what = name
+                else:
+                    build.load = lambda n, h=handle: h
+                    fn = call
+                    if prefix == "b6":
+                        K.stream_ring = (real_ring if ring is None else
+                                         (lambda *a, r=ring, **k: r))
+                        what = name if ring is None else \
+                            f"{name} stages {ring[0]} mappers {ring[1]}"
+                    else:
+                        if ring is not None:
+                            vals, pre, _, _, kw, slab = fused
+                            if K.fused_smem_bytes(
+                                    len(pre), pre[0].shape[1],
+                                    kw["tile_rows"], rank_slab=slab,
+                                    stages=ring[0], slots=ring[1],
+                                    gather_itemsize=pre[0].element_size()) \
+                                    > K.SMEM_LIMIT_BYTES:
+                                continue
+                        K.fused_ring = (real_fused_ring if ring is None else
+                                        (lambda *a, r=ring, **k: r))
+                        if ring is None and fused:
+                            vals, pre, _, _, kw, slab = fused
+                            ring = real_fused_ring(
+                                len(pre), pre[0].shape[1], kw["tile_rows"],
+                                rank_slab=slab,
+                                gather_itemsize=pre[0].element_size())
+                            what = f"{name} (stages {ring[0]} slots " \
+                                f"{ring[1]})"
+                        else:
+                            what = name if ring is None else \
+                                f"{name} stages {ring[0]} slots {ring[1]}"
+                got = fn()
+                same = torch.equal(got, want)
+                ms = cuda_ms(fn, 3)
+                times[(label, what)] = ms
+                rate = f", {hbm / ms / 1e9:.3f} TB/s" if hbm else ""
+                print(f"[ablation] {label}: {what}: {ms:.3f} ms{rate}, "
+                      f"{'==' if same else '!='} unmodified bitwise  [{gpu}]",
+                      flush=True)
+                K.stream_ring, K.fused_ring = real_ring, real_fused_ring
+                if not same:
+                    return False
+        return True
+
+    ok = True
+    for mode in (0, 1, 2):
         order = torch.sort(idx[:, mode], stable=True).indices
         si, sv = idx[order].contiguous(), val[order].contiguous()
+        del order
         rows_cap = -(-SHAPE[mode] // 8) * 8
         kw = dict(rows_cap=rows_cap, blk=512, tile_rows=8)
         o16 = ops.gather_operands(si, sv, valid, f16, mode=mode, row_offset=0,
                                   slab=16, **kw)
-        cases.append((f"B1 mode {mode}", "b1",
-                      lambda o=o16, kw=kw:
-                      K.fused_mttkrp_nmode_gather(*o, **kw)))
+        if mode != 1:
+            ok &= run_case(f"B1 mode {mode}", "b1",
+                           lambda o=o16, kw=kw:
+                           K.fused_mttkrp_nmode_gather(*o, **kw))
+        # B3 on rows pre-gathered in fp32 (every mode) and bf16.
+        vals, ia, fm, rows, tob = o16
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and mode == 1:
+                continue
+            pre = ops.pregathered_rows(ia, [f.to(dtype) for f in fm])
+            tag = "" if dtype == torch.float32 else "-bf16"
+            ok &= run_case(f"B3{tag} mode {mode}", "b3",
+                           lambda p=pre: K.fused_mttkrp_nmode(
+                               vals, p, rows, tob, **kw),
+                           fused=(vals, pre, rows, tob, kw, 16))
+            # B4 at R=16 (one 16-column slab: B3's path), beside the
+            # first design.
+            ok &= run_case(f"B4{tag} mode {mode}", "b3",
+                           lambda p=pre: K.fused_mttkrp_nmode_tiled(
+                               vals, p, rows, tob, rank_slab=16, **kw),
+                           fused=(vals, pre, rows, tob, kw, 16),
+                           only=("b3", DIRECT_NAME))
+            del pre
+        del o16, vals, ia, fm, rows, tob
+        if mode != 1:
+            # B4 at R=32 in two 16-column slabs (a slab narrower than the
+            # row: the 2-D tensor copy, or cp.async).
+            o32 = ops.gather_operands(si, sv, valid, f32, mode=mode,
+                                      row_offset=0, slab=32, **kw)
+            vals, ia, fm, rows, tob = o32
+            pre = ops.pregathered_rows(ia, fm)
+            del o32, ia, fm
+            ok &= run_case(f"B4 R=32 mode {mode}", "b3",
+                           lambda: K.fused_mttkrp_nmode_tiled(
+                               vals, pre, rows, tob, rank_slab=16, **kw),
+                           fused=(vals, pre, rows, tob, kw, 16))
+            del vals, pre, rows, tob
+        torch.cuda.empty_cache()
         if mode == 0:
             o256 = ops.gather_operands(si, sv, valid, f256, mode=mode,
                                        row_offset=0, slab=128, **kw)
-            cases.append(("B2 R=256 mode 0", "b1",
-                          lambda o=o256, kw=kw:
-                          K.fused_mttkrp_nmode_gather_tiled(
-                              *o, rank_slab=128, **kw)))
+            ok &= run_case("B2 R=256 mode 0", "b1",
+                           lambda o=o256, kw=kw:
+                           K.fused_mttkrp_nmode_gather_tiled(
+                               *o, rank_slab=128, **kw))
+            del o256
             ri, rv, rva, _ = reorder_stream(si, sv, valid, mode=0,
                                             ordering="morton", tile_rows=8,
                                             max_rows=max(SHAPE[1:]))
@@ -175,32 +416,25 @@ def main() -> int:
             scheds, windows, _ = ops.stream_schedules(
                 ia, 64, [f.shape[0] for f in fm])
             s_ops = (vals, ia, fm, rows, tob, scheds)
-            cases.append((f"B6 mode 0 windows {windows}", "b6",
-                          lambda s=s_ops, kw=skw:
-                          K.fused_mttkrp_nmode_gather_stream(*s, **kw)))
-    for label, prefix, call in cases:
-        build.load = lambda name, h=libs[prefix]: h
-        want = call()
-        for name, handle in libs.items():
-            if not name.startswith(prefix + " ") and name != prefix:
+            ok &= run_case(f"B6 mode 0 windows {windows}", "b6",
+                           lambda s=s_ops, kw=skw:
+                           K.fused_mttkrp_nmode_gather_stream(*s, **kw))
+            del ri, rv, rva, vals, ia, fm, rows, tob, scheds, s_ops
+        del si, sv
+        torch.cuda.empty_cache()
+        if not ok:
+            break
+    build.load = real_load
+    for tag in ("B3", "B3-bf16", "B4", "B4-bf16", "B4 R=32"):
+        for (label, what), ms0 in times.items():
+            if label != f"{tag} mode 0":
                 continue
-            rings = RINGS if name == "b6" else [None]
-            for ring in rings:
-                build.load = lambda n, h=handle: h
-                K.stream_ring = (real_ring if ring is None else
-                                 (lambda *a, r=ring, **k: r))
-                got = call()
-                same = torch.equal(got, want)
-                ms = cuda_ms(call, 3)
-                what = name if ring is None else \
-                    f"{name} stages {ring[0]} mappers {ring[1]}"
-                print(f"[ablation] {label}: {what}: {ms:.3f} ms, "
-                      f"{'==' if same else '!='} unmodified bitwise  [{gpu}]",
-                      flush=True)
-                if not same:
-                    return 1
-    build.load, K.stream_ring = real_load, real_ring
-    return 0
+            ms2 = times.get((f"{tag} mode 2", what))
+            if ms2 is not None:
+                print(f"[ablation] {tag} mode-2 gap: {what}: "
+                      f"{ms2 - ms0:+.3f} ms (mode 0 {ms0:.3f}, mode 2 "
+                      f"{ms2:.3f})  [{gpu}]", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -69,7 +69,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
 factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
 reach, and the L2 bound: those bytes over the measured L2 read rate.
-bf16 variants count their factor bytes at 2 per element.
+B3 and B4 lines carry their ring (stages x slots per stage), the HBM rate
+their bytes take and their share of the HBM bound. bf16 variants count
+their factor bytes at 2 per element.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -211,19 +213,44 @@ def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fused_bound_ms(nnz: int, rank: int, k: int, *, rows_cap: int,
-                   tile_rows: int, itemsize: int = 4) -> tuple[float, str]:
-    """Least time for one call of B3/B4 (``k`` pre-gathered rows) or, with
-    ``k=0``, of B5 (one contribution row), on the ``nnz`` slots that hold
+def fused_hbm_bytes(nnz: int, rank: int, k: int, *, rows_cap: int,
+                    tile_rows: int, itemsize: int = 4) -> int:
+    """Bytes one call of B3/B4 (``k`` pre-gathered rows) or, with ``k=0``,
+    of B5 (one contribution row) must move, on the ``nnz`` slots that hold
     a nonzero: B3 reads per slot its value, local row and K rows of
-    ``rank`` elements of ``itemsize`` bytes (2 for its bf16 variant) and
-    does K multiplies and one add per column; B5 reads the local row and
-    one fp32 row and does one add per column. Both read the per-tile block
+    ``rank`` elements of ``itemsize`` bytes (2 for its bf16 variant); B5
+    reads the local row and one fp32 row. Both read the per-tile block
     starts and write the fp32 output once."""
     per_slot = 4 + (4 + itemsize * k * rank if k else 4 * rank)
-    nbytes = nnz * per_slot + (rows_cap // tile_rows + 1) * 4 \
+    return nnz * per_slot + (rows_cap // tile_rows + 1) * 4 \
         + rows_cap * rank * 4
-    return bound_ms(nbytes, nnz * rank * max(k + 1, 1))
+
+
+def fused_bound_ms(nnz: int, rank: int, k: int, *, rows_cap: int,
+                   tile_rows: int, itemsize: int = 4) -> tuple[float, str]:
+    """Least time for one call of B3/B4 or B5 (:func:`fused_hbm_bytes`;
+    B3 does K multiplies and one add per column of a nonzero slot, B5 one
+    add)."""
+    return bound_ms(fused_hbm_bytes(nnz, rank, k, rows_cap=rows_cap,
+                                    tile_rows=tile_rows, itemsize=itemsize),
+                    nnz * rank * max(k + 1, 1))
+
+
+def fused_ring_fields(pre, ms: float, *, nnz: int, rows_cap: int,
+                      tile_rows: int, slab: int | None = None) -> str:
+    """B3/B4's ring (stages x slots per stage, the wrapper's choice), the
+    HBM rate its bytes take in ``ms`` and the share of its HBM bound."""
+    from repro_torch.kernels.mttkrp import kernel as K
+    k, rank, item = len(pre), pre[0].shape[1], pre[0].element_size()
+    stages, slots = K.fused_ring(k, rank, tile_rows, rank_slab=slab,
+                                 gather_itemsize=item)
+    nbytes = fused_hbm_bytes(nnz, rank, k, rows_cap=rows_cap,
+                             tile_rows=tile_rows, itemsize=item)
+    bound, _ = fused_bound_ms(nnz, rank, k, rows_cap=rows_cap,
+                              tile_rows=tile_rows, itemsize=item)
+    return (f"ring {stages} stages x {slots} slots, HBM "
+            f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of the HBM "
+            "bound")
 
 
 def l2_fields(l2_bytes: int, ms: float) -> tuple[float, float]:
@@ -474,9 +501,13 @@ def phase_fused_kernels(dev):
                                                         **kw), 5)
             t_b4 = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(
                 vals, pre, rows, tob, rank_slab=16, **kw), 5)
+            nz = int((vals != 0).sum())
+            rkw = dict(nnz=nz, rows_cap=rows_cap, tile_rows=TILE_ROWS)
             line += (f"; B3 max_abs_err {err3:.3e}, B4==B3==B1 bitwise, "
                      f"rerun bitwise, out_init kept and added; B3 "
-                     f"{t_b3:.4f} ms, B4 (slab 16) {t_b4:.4f} ms")
+                     f"{t_b3:.4f} ms ({fused_ring_fields(pre, t_b3, **rkw)})"
+                     f", B4 (slab 16) {t_b4:.4f} ms "
+                     f"({fused_ring_fields(pre, t_b4, slab=16, **rkw)})")
             del b3, b4, plain3, b3i, b1i, init, keep
         log(line)
         del ops_, pre, b1, b5
@@ -787,10 +818,11 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
         rows["fused_mttkrp_nmode"].append(dict(
             mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
             bound_by=by, l2_bytes=nnz * k * rank * 4))
+        rkw = dict(nnz=nnz, rows_cap=rows_cap, tile_rows=rt.tile_rows)
         log(f"[fused-main] B3 mode {n}: {vals.shape[0]} slots, {nnz} nnz, "
             f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms "
-            f"({by}, HBM 3.35 TB/s), max_abs_err {err:.3e}, == B1 bitwise  "
-            f"[{gpu}]")
+            f"({by}, HBM 3.35 TB/s; {fused_ring_fields(pre, t_k, **rkw)}), "
+            f"max_abs_err {err:.3e}, == B1 bitwise  [{gpu}]")
         # B4 at the tiled path's own inputs (R=16: one 16-column slab).
         tkw = dict(rank_slab=16, **kw)
         b4 = K.fused_mttkrp_nmode_tiled(vals, pre, r_al, tob, **tkw)
@@ -805,7 +837,8 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
             mode=n, err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
             bound_by=by, l2_bytes=nnz * k * rank * 4))
         log(f"[fused-main] B4 mode {n}: R=16, one slab, kernel {t_k:.3f} ms, "
-            f"plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}), max_abs_err "
+            f"plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}; "
+            f"{fused_ring_fields(pre, t_k, slab=16, **rkw)}), max_abs_err "
             f"{err:.3e}, == B1 bitwise  [{gpu}]")
         del vals, pre, r_al, tob, b3, b4, plain
         # B4 at R=32 in two 16-column slabs, on B1's stream at R=32.
@@ -827,9 +860,10 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
                                    tile_rows=rt.tile_rows)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         log(f"[fused-main] B4 mode {n}: R=32, 2 slabs of 16, kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}),"
-            f" max_abs_err {err:.3e}, == B1 bitwise; peak device memory of "
-            f"B3 and B4 {peak_gb:.2f} GB  [{gpu}]")
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {bound:.3f} ms ({by}; "
+            f"{fused_ring_fields(pre, t_k, slab=16, **rkw)}), max_abs_err "
+            f"{err:.3e}, == B1 bitwise; peak device memory of B3 and B4 "
+            f"{peak_gb:.2f} GB  [{gpu}]")
         del vals, pre, r_al, tob, b4, b1_32, plain
         # B5 at R=16, on the materialized path's own operands.
         torch.cuda.reset_peak_memory_stats()
@@ -1109,10 +1143,16 @@ def phase_bf16_kernels(dev):
         t1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*ops_, **kw), 5)
         t3 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw),
                      5)
+        t4 = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(
+            vals, pre, rows, tob, rank_slab=16, **kw), 5)
+        rkw = dict(nnz=int((vals != 0).sum()), rows_cap=rows_cap,
+                   tile_rows=TILE_ROWS)
         log(f"[bf16-kernels] {what} nnz={cap}: max_abs_err B1 {err1:.3e} "
             f"B2 {err2:.3e} B3 {err3:.3e} B4 {err4:.3e}; B2==B3==B4==B1 "
             f"bitwise, reruns bitwise; B1-bf16 {t1:.4f} ms, B3-bf16 "
-            f"{t3:.4f} ms")
+            f"{t3:.4f} ms ({fused_ring_fields(pre, t3, **rkw)}), B4-bf16 "
+            f"(slab 16) {t4:.4f} ms "
+            f"({fused_ring_fields(pre, t4, slab=16, **rkw)})")
         del ops_, pre, b1, b1_again, b2, b3, b4
     cap, rows_cap = 1 << 20, 1024
     kw = dict(rows_cap=rows_cap, blk=STREAM_BLK, tile_rows=STREAM_TILE_ROWS)
@@ -1349,11 +1389,13 @@ def phase_bf16_main(ft, dev, gpu: str):
         t3_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre32, r_al, tob,
                                                       **kw), 5)
         del pre32
+        rkw = dict(nnz=nnz, rows_cap=rows_cap, tile_rows=tile_rows)
         log(f"[bf16-main] B3-bf16 mode {n}: kernel {row['ms']:.3f} ms (fp32 "
             f"B3 {t3_f32:.3f} ms on the same values' fp32 rows), plain "
             f"{row['plain_ms']:.3f} ms, HBM bound {fbound[0]:.3f} ms "
-            f"({fbound[1]}, 72 B per nonzero); pregathered_rows bf16 "
-            f"{t_pre:.3f} ms vs fp32 {t_pre32:.3f} ms; max_abs_err "
+            f"({fbound[1]}, 72 B per nonzero; "
+            f"{fused_ring_fields(pre, row['ms'], **rkw)}); pregathered_rows "
+            f"bf16 {t_pre:.3f} ms vs fp32 {t_pre32:.3f} ms; max_abs_err "
             f"{row['err']:.3e}, == B1-bf16 bitwise  [{gpu}]")
         b4, row = bf16_path_rows(
             K.fused_mttkrp_nmode_tiled,
@@ -1363,7 +1405,8 @@ def phase_bf16_main(ft, dev, gpu: str):
         require(torch.equal(b4, b1), f"mode {n}: B4-bf16 differs from B1-bf16")
         rows["fused_mttkrp_nmode_tiled" + BF16].append(row)
         log(f"[bf16-main] B4-bf16 mode {n}: one slab, kernel {row['ms']:.3f} "
-            f"ms, plain {row['plain_ms']:.3f} ms, == B1-bf16 bitwise  [{gpu}]")
+            f"ms ({fused_ring_fields(pre, row['ms'], slab=16, **rkw)}), "
+            f"plain {row['plain_ms']:.3f} ms, == B1-bf16 bitwise  [{gpu}]")
         del b1_ops, vals, idx_al, fmats, r_al, tob, pre, b1, b3, b4
         # B6-bf16 at the stream path's inputs: the Morton-permuted stream
         # in 64-slot blocks; == the bf16 B1 on that stream and == the

@@ -58,9 +58,9 @@ _STREAM_ARGS = (
 _FUSED_ARGS = (
     [_P]              # vals
     + [_P] * 4        # pre-gathered row arrays r0..r3
-    + [_P] * 3        # local rows, block starts, out
-    + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
-                      # slab, groups, lanes
+    + [_P] * 4        # local rows, block starts, out, work counter
+    + [_I] * 12       # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
+                      # slab, groups, lanes, n_slots, stages, slots
     + [_P])           # stream
 # Library name -> {launch function: argument types}. B1/B2, B3/B4 and B6
 # each have a float and a bf16 entry point (the factor or row element

@@ -2,9 +2,10 @@
 // gather_stream_mttkrp.cu: B6; fused_mttkrp.cu: B3, B4, B5): the factor set
 // passed by value, the loads that turn a factor element (float or bf16)
 // into fp32, the per-group product-and-add of a batch of slots, the
-// fixed-order reduction of a CTA's private partial tiles, cp.async, bulk
-// copies and mbarriers, and the opt-in to more than 48 KB of dynamic
-// shared memory. Every kernel
+// fixed-order reduction of a CTA's private partial tiles (and its variant
+// for warp-specialized CTAs, which clears them), cp.async, bulk copies and
+// mbarriers, and the opt-in to more than 48 KB of dynamic shared memory.
+// Every kernel
 // adds in one order and ends with the same epilogue, so B1 == B2 == B3 ==
 // B4 == B5 == B6 bitwise on one aligned stream, and likewise the bf16
 // variants of B1, B2, B3, B4 and B6 among themselves.
@@ -109,6 +110,24 @@ __device__ __forceinline__ void reduce_partials_into(const float* part,
   }
 }
 
+// reduce_partials_into for a CTA in which only threads 0..nthreads-1 take
+// part (the consumer warps of a warp-specialized kernel) and partial tile
+// q starts at q * part_stride, summing in the same order 0..groups-1; each
+// thread then zeroes the partial elements it summed, so the partial tiles
+// are ready for the next output tile.
+__device__ __forceinline__ void reduce_partials_and_clear(
+    float* part, int groups, int tile_elems, int part_stride, int slab,
+    float* tile_out, long long ld, int tid, int nthreads) {
+  for (int e = tid; e < tile_elems; e += nthreads) {
+    float acc = part[e];
+    for (int q = 1; q < groups; ++q)
+      acc = __fadd_rn(acc, part[q * part_stride + e]);
+    float* o = tile_out + (long long)(e / slab) * ld + (e % slab);
+    *o = __fadd_rn(*o, acc);
+    for (int q = 0; q < groups; ++q) part[q * part_stride + e] = 0.0f;
+  }
+}
+
 // 16-byte asynchronous copy from global to shared memory, and its fences.
 __device__ __forceinline__ void cp_async16(void* smem_dst,
                                            const void* gmem_src) {
@@ -172,6 +191,15 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_n(unsigned long long* bar,
+                                              unsigned count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 

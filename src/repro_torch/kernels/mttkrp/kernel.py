@@ -13,7 +13,8 @@ hold against the JAX package. Nothing falls back from one to the other.
 
 B1–B4 and B6 take float32 or bfloat16 factor operands (the reference's
 bf16 gathers): the CUDA sources instantiate each kernel for both element
-types, a bf16 element becomes fp32 as it is loaded, and every product
+types, a bf16 element becomes fp32 as it is loaded (B3, B4 and B6: as it is
+read from shared memory), and every product
 and sum is fp32, so the bf16 variants agree bitwise among themselves as
 the fp32 ones do. The plain versions upcast the gathered bf16 rows before
 the Hadamard product, as the reference's type promotion does. B5 takes
@@ -75,7 +76,9 @@ __all__ = [
     "fused_mttkrp_nmode_plain",
     "fused_mttkrp_nmode_tiled",
     "fused_mttkrp_nmode_tiled_plain",
+    "fused_ring",
     "fused_smem_bytes",
+    "fused_stage_partition",
     "gather_smem_bytes",
     "gather_stream_smem_bytes",
     "stream_ring",
@@ -109,12 +112,29 @@ L2_BUDGET_BYTES = 25 * 2**20
 FACTOR_ROW_TILE = 8
 STREAM_RANK_SLAB = 16
 STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
-# Stream slots a CTA of B1-B4 stages in shared memory at a time: B3 and B4
-# in one buffer (kChunk in fused_mttkrp.cu), B1 and B2 in STAGE_BUFFERS
-# buffers of STAGE_SLOTS // STAGE_BUFFERS (kBuffers, kChunk in
-# gather_mttkrp.cu).
+# Stream slots a CTA of B1 and B2 stages in shared memory at a time, in
+# STAGE_BUFFERS buffers of STAGE_SLOTS // STAGE_BUFFERS (kBuffers, kChunk
+# in gather_mttkrp.cu).
 STAGE_SLOTS = 2048
 STAGE_BUFFERS = 2
+# B3/B4's ring (fused_mttkrp.cu; kernel.fused_ring picks it): stages of a
+# power of two of slots, FUSED_MIN_SLOTS to FUSED_STAGE_SLOTS, holding at
+# most FUSED_STAGE_BYTES of rows; FUSED_STAGES of them when a stage's rows
+# are whole (one bulk copy per row array), FUSED_SLAB_STAGES when they are
+# slabs of wider rows (2-D tensor copies of short row pieces, which need
+# more bytes in flight). Chosen on the nell-2 stand-in
+# (bench_torch/kernel_ablation.py). Beside the ring, a meta ring of
+# FUSED_META_STAGES chunks of FUSED_META_CHUNK slots' values and local
+# rows (kMetaStages, kMetaChunk).
+FUSED_STAGE_SLOTS = 256
+FUSED_MIN_SLOTS = 16
+FUSED_STAGE_BYTES = 32 * 1024
+FUSED_STAGES = 2
+FUSED_SLAB_STAGES = 4
+FUSED_META_STAGES = 4
+FUSED_META_CHUNK = 1024
+# Ints of one ring or meta header (kHdrInts).
+_FUSED_HDR_INTS = 8
 # Most ring stages and mapper warps the stream kernel (B6) is given (each
 # mapper warp holds one more block's meta slot).
 MAX_STREAM_STAGES = 8
@@ -206,14 +226,15 @@ def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
 
 
 def _check_async_operands(blk: int, **operands) -> None:
-    """The asynchronous copies of B1, B2 and B6 move 16-byte pieces: every
+    """The asynchronous copies of B1–B4 and B6 move 16-byte pieces: every
     named operand must start on a 16-byte boundary and ``blk`` be a
     multiple of 4 (so every block, and every chunk of blocks, starts on
-    one). B6 also copies factor tiles: its factor bases are checked, float32
-    or bf16 alike; a tile (``frow_tile x slab`` elements) and a per-row copy
-    (``slab`` elements) are whole 16-byte pieces at either itemsize, since
-    the slab is a multiple of 16 elements. Raises ``ValueError`` naming the
-    first operand that does not; there is no unaligned fallback."""
+    one). B6 also copies factor tiles and B3/B4 pre-gathered rows: those
+    bases are checked, float32 or bf16 alike; a tile (``frow_tile x slab``
+    elements), a per-row copy and a row slice (``slab`` elements) are whole
+    16-byte pieces at either itemsize, since the slab and the row are
+    multiples of 16 elements. Raises ``ValueError`` naming the first
+    operand that does not; there is no unaligned fallback."""
     if blk % 4:
         raise ValueError(f"blk={blk} is not a multiple of 4: the kernel's "
                          "16-byte copies of a block would be misaligned")
@@ -827,16 +848,112 @@ def fused_mttkrp_nmode_gather_stream_plain(vals, idx_stream, factors,
 # a materialized contribution
 # ---------------------------------------------------------------------------
 
-def fused_smem_bytes(rank_padded: int, tile_rows: int,
-                     rank_slab: int | None = None) -> int:
+def _fused_slab(rank_padded: int, rank_slab: int | None) -> int:
+    return rank_padded if rank_slab is None else min(rank_padded, rank_slab)
+
+
+def _fused_part_stride(tile_elems: int) -> int:
+    """Floats from one of B3/B4's partial tiles to the next: the tile
+    rounded up to an odd multiple of 16 (``part_stride`` in
+    ``csrc/fused_mttkrp.cu``: two 16-lane groups of a warp then add into
+    different banks)."""
+    return (tile_elems // 16 | 1) * 16
+
+
+def fused_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
+                     rank_slab: int | None = None, stages: int = 1,
+                     slots: int = FUSED_MIN_SLOTS,
+                     gather_itemsize: int = 4) -> int:
     """Shared memory of one CTA of the fused kernels on pre-gathered rows
-    (B3; B4 with ``rank_slab``): the ``groups`` partial output tiles, one
-    slab wide, and the staged values and local rows of ``STAGE_SLOTS``
-    slots. The rows themselves are read from device memory, not staged
-    (``csrc/fused_mttkrp.cu``), so the count depends neither on K nor on
-    the rows' element type."""
-    slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
-    return 4 * (_groups(tile_rows) * tile_rows * slab + STAGE_SLOTS * 2)
+    (B3; B4 with ``rank_slab``) with a ring of ``stages`` stages of
+    ``slots`` slots.
+
+    Byte for byte the layout of ``csrc/fused_mttkrp.cu``: the ring (per
+    stage, ``num_in_modes`` row slices of ``slots`` rows one slab wide,
+    ``gather_itemsize`` bytes per element: 4 for float32, 2 for bf16), the
+    ``groups`` partial output tiles (fp32, each padded to an odd multiple
+    of 16 floats), the meta ring
+    (``FUSED_META_STAGES`` chunks of ``FUSED_META_CHUNK`` values and local
+    rows), one 8-int header per ring stage and meta slot, and two 8-byte
+    mbarriers per ring stage and meta slot. The ring holds factor elements
+    (the rows), so the count depends on K and on the element type. The
+    defaults (one stage of ``FUSED_MIN_SLOTS`` slots) are the smallest
+    CTA, the one the residency ladder asks about; the kernel runs the ring
+    :func:`fused_ring` picks.
+    """
+    slab = _fused_slab(rank_padded, rank_slab)
+    return (gather_itemsize * stages * num_in_modes * slots * slab
+            + 4 * (_groups(tile_rows) * _fused_part_stride(tile_rows * slab)
+                   + FUSED_META_STAGES * FUSED_META_CHUNK * 2
+                   + (stages + FUSED_META_STAGES) * _FUSED_HDR_INTS)
+            + 8 * 2 * (stages + FUSED_META_STAGES))
+
+
+def fused_ring(num_in_modes: int, rank_padded: int, tile_rows: int,
+               rank_slab: int | None = None,
+               smem_budget: int = SMEM_LIMIT_BYTES,
+               gather_itemsize: int = 4) -> tuple[int, int]:
+    """``(stages, slots)`` of the ring B3/B4 run with.
+
+    A stage takes the most slots, a power of two up to
+    ``FUSED_STAGE_SLOTS``, whose rows (``num_in_modes`` slab-wide rows per
+    slot at ``gather_itemsize`` bytes) stay within ``FUSED_STAGE_BYTES``;
+    the ring takes ``FUSED_STAGES`` such stages (``FUSED_SLAB_STAGES`` for
+    a slab narrower than the row), as many of them as fit ``smem_budget``
+    beside the rest of the CTA (:func:`fused_smem_bytes`), at least two.
+    Where two do not fit, the stages halve, down to ``FUSED_MIN_SLOTS``
+    slots; where not even two of those fit, one; ``(0, 0)`` when not even
+    that fits. The slots and the ring's bytes are monotone in the budget.
+    bf16 rows (``gather_itemsize=2``) are half the bytes, so a stage takes
+    twice the slots.
+    """
+    slab = _fused_slab(rank_padded, rank_slab)
+
+    def fits(stages, slots):
+        return fused_smem_bytes(num_in_modes, rank_padded, tile_rows,
+                                rank_slab, stages=stages, slots=slots,
+                                gather_itemsize=gather_itemsize) \
+            <= smem_budget
+    least = max(FUSED_MIN_SLOTS, _groups(tile_rows))
+    want = FUSED_STAGES if slab == rank_padded else FUSED_SLAB_STAGES
+    row = num_in_modes * slab * gather_itemsize
+    slots = FUSED_STAGE_SLOTS
+    while slots > least and slots * row > FUSED_STAGE_BYTES:
+        slots //= 2
+    while slots >= least:
+        if fits(2, slots):
+            return max(n for n in range(2, want + 1) if fits(n, slots)), slots
+        slots //= 2
+    return (1, least) if fits(1, least) else (0, 0)
+
+
+def fused_stage_partition(run_start: int, run_end: int, vals,
+                          slots: int, groups: int):
+    """The ring stages B3/B4 post for one output tile's run of slots
+    ``[run_start, run_end)``, as ``csrc/fused_mttkrp.cu`` walks it.
+
+    The meta warp cuts the run into chunks of ``FUSED_META_CHUNK`` slots
+    from its start, the row warp each chunk into stages of ``slots``
+    (``vals`` gives each slot's value: a stage of zeros only is never
+    copied). Returns ``(stages, groups_of)``: each posted stage as
+    ``(first, count)``, in order, and each slot of a posted stage mapped to
+    the group that adds it: group g of the consumers takes the stage's
+    slots g, g + groups, ... . A run whose last chunk holds only padding
+    posts one more stage without rows, ``(first, 0)``, which carries the
+    end of the tile.
+    """
+    posted = []
+    for c0 in range(run_start, run_end, FUSED_META_CHUNK):
+        c1 = min(c0 + FUSED_META_CHUNK, run_end)
+        live = [(i, min(i + slots, c1)) for i in range(c0, c1, slots)
+                if any(float(vals[j]) != 0.0 for j in range(i, min(i + slots,
+                                                                   c1)))]
+        posted += [(i, j - i) for i, j in live]
+        if not live and c1 == run_end:
+            posted.append((c0, 0))
+    groups_of = {first + j: j % groups
+                 for first, count in posted for j in range(count)}
+    return posted, groups_of
 
 
 def segment_slab(rank_padded: int) -> int:
@@ -905,27 +1022,43 @@ def _launch_fused(vals, rows, local_row_in_tile, tile_of_block, *,
                   out_init):
     dev = vals.device
     require_sm90(dev)
-    rank = rows[0].shape[1]
-    smem = fused_smem_bytes(rank, tile_rows, rank_slab=slab)
-    if smem > SMEM_LIMIT_BYTES:
+    k, rank, n_pad = len(rows), rows[0].shape[1], vals.shape[0]
+    itemsize = rows[0].element_size()
+    stages, slots = fused_ring(k, rank, tile_rows, rank_slab=slab,
+                               gather_itemsize=itemsize)
+    if stages < 1:
+        smem = fused_smem_bytes(k, rank, tile_rows, rank_slab=slab,
+                                gather_itemsize=itemsize)
         raise ValueError(
             f"a {tile_rows} x {slab} output tile with {_groups(tile_rows)} "
-            f"partials needs {smem} B of shared memory (> "
+            f"partials and a ring of one {FUSED_MIN_SLOTS}-slot stage of "
+            f"{k} rows needs {smem} B of shared memory (> "
             f"{SMEM_LIMIT_BYTES}); use the tiled kernel with a narrower "
             "rank_slab")
+    if slab < rank and slab > 256:
+        raise ValueError(f"rank_slab={slab} < R={rank}: the 2-D tensor "
+                         "copy of a slab takes at most 256 columns")
     if not all(t.is_contiguous()
                for t in (vals, local_row_in_tile, tile_of_block) + rows):
         raise ValueError("all operands must be contiguous")
+    if n_pad >= 2**31:
+        raise ValueError(f"a stream of {n_pad} slots: the kernel keeps "
+                         "32-bit slot indices")
+    _check_async_operands(
+        blk, vals=vals, local_row_in_tile=local_row_in_tile,
+        **{f"factor_rows[{w}]": r for w, r in enumerate(rows)})
     num_tiles = rows_cap // tile_rows
     blk_start = _tile_starts(tile_of_block, num_tiles)
     out = _out_start(out_init, rows_cap, rank, dev)
-    ptrs = [r.data_ptr() for r in rows] + [0] * (MAX_IN_MODES - len(rows))
+    next_item = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = [r.data_ptr() for r in rows] + [0] * (MAX_IN_MODES - k)
     lib = _build.load("fused_mttkrp")
     err = getattr(lib, _entry("fused_mttkrp", rows))(
         vals.data_ptr(), *ptrs, local_row_in_tile.data_ptr(),
-        blk_start.data_ptr(), out.data_ptr(), len(rows), num_tiles,
-        rank // slab, blk, tile_rows, rank, slab, _groups(tile_rows),
-        _lanes(slab), torch.cuda.current_stream(dev).cuda_stream)
+        blk_start.data_ptr(), out.data_ptr(), next_item.data_ptr(), k,
+        num_tiles, rank // slab, blk, tile_rows, rank, slab,
+        _groups(tile_rows), _lanes(slab), n_pad, stages, slots,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "fused_mttkrp launch failed: "
@@ -966,9 +1099,11 @@ def fused_mttkrp_nmode(vals, factor_rows, local_row_in_tile, tile_of_block,
 
     A slot whose value is 0 adds nothing. Bitwise equal to B1
     (:func:`fused_mttkrp_nmode_gather`) when ``factor_rows[w]`` holds the
-    rows B1 gathers. Raises when the output tile's partials do not fit
-    shared memory (:func:`fused_smem_bytes`; R <= 416 at tile_rows=8).
-    Returns ``(rows_cap, R)`` float32.
+    rows B1 gathers. Raises when the output tile's partials and the
+    smallest ring do not fit shared memory (:func:`fused_smem_bytes`; at
+    tile_rows=8, R <= 304 for K=2 and R <= 272 for K=3 in float32, R <= 336
+    and R <= 320 in bf16; :func:`fused_mttkrp_nmode_tiled` takes wider
+    ranks). Returns ``(rows_cap, R)`` float32.
     """
     rows, rank = _check_fused_args(
         vals, factor_rows, local_row_in_tile, tile_of_block,
@@ -992,10 +1127,12 @@ def fused_mttkrp_nmode_tiled(vals, factor_rows, local_row_in_tile,
                              out_init=None):
     """Rank-slabbed fused kernel on pre-gathered rows (B4).
 
-    :func:`fused_mttkrp_nmode` with R a multiple of ``rank_slab``: a grid
-    axis over column slabs, each CTA holding a ``tile_rows x rank_slab``
-    output tile and reading ``rank_slab`` columns of each row, so the
-    shared memory does not grow with R. Bitwise equal to B3.
+    :func:`fused_mttkrp_nmode` with R a multiple of ``rank_slab``: each
+    (output tile, column slab) is a work item, whose CTA holds a
+    ``tile_rows x rank_slab`` output tile and copies ``rank_slab`` columns
+    of each row (2-D tensor copies; a slab narrower than R is at most 256
+    columns), so the shared memory does not grow with R. Bitwise equal to
+    B3.
     """
     rows, _ = _check_fused_args(
         vals, factor_rows, local_row_in_tile, tile_of_block,

@@ -197,8 +197,10 @@ def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
                per_mode, total, gi: int) -> tuple[int, int, tuple]:
     """``(smem_bytes, l2_bytes, windows)`` of one rung at ``gi`` bytes per
     factor element; the gather and stream rungs need ``total`` (not
-    ``None``). Only the gathered factors (L2) and B6's windows hold factor
-    elements; B1–B5's shared memory holds none."""
+    ``None``). Factor elements sit in L2 for the gather rungs, in B6's
+    windows and in B3/B4's ring of pre-gathered rows (its smallest CTA,
+    one stage, is what a rung asks about); B1, B2 and B5's shared memory
+    holds none."""
     slab = min(rpad, _kernel.RANK_SLAB)
     if backend == "pallas_fused_gather":
         return (_kernel.gather_smem_bytes(k, rpad, tile_rows),
@@ -214,10 +216,11 @@ def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
                                                  windows, gather_itemsize=gi),
                 0, windows)
     if backend == "pallas_fused":
-        return _kernel.fused_smem_bytes(rpad, tile_rows), 0, ()
+        return (_kernel.fused_smem_bytes(k, rpad, tile_rows,
+                                         gather_itemsize=gi), 0, ())
     if backend == "pallas_fused_tiled":
-        return (_kernel.fused_smem_bytes(rpad, tile_rows, rank_slab=slab),
-                0, ())
+        return (_kernel.fused_smem_bytes(k, rpad, tile_rows, rank_slab=slab,
+                                         gather_itemsize=gi), 0, ())
     if backend == "pallas":
         return _kernel.segment_smem_bytes(rpad, tile_rows), 0, ()
     raise ValueError(f"{backend!r} is not a rung of the residency ladder")
@@ -234,8 +237,10 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
     or one ``RANK_SLAB`` slab, of every input factor) fit ``l2_budget``
     and a CTA fits ``smem_budget``; the stream rung (B6) when its
     data-blind window fits ``smem_budget``
-    (:func:`stream_fits_smem`); the fused rungs (B3, B4) when a CTA fits
-    ``smem_budget``. These need no L2: each slot's rows are read once.
+    (:func:`stream_fits_smem`); the fused rungs (B3, B4) when a CTA with
+    the smallest ring of pre-gathered rows fits ``smem_budget``
+    (``kernel.fused_smem_bytes``). These need no L2: each slot's rows are
+    read once.
     The gather and stream rungs need ``factor_rows`` and do not fit
     without it. ``pallas`` (B5), ``ref`` and ``segsum`` always fit. Every
     test is ``bytes <= budget``, so it is monotone in both budgets.
@@ -303,14 +308,15 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
          ``min(blk, ceil(rows / FACTOR_ROW_TILE))`` per mode fits
          ``smem_budget``; no data is read (the mode step then tightens
          the windows to the data, which only shrinks them);
-      4. ``pallas_fused`` (B3): a CTA at the padded rank fits
-         ``smem_budget``;
-      5. ``pallas_fused_tiled`` (B4): a CTA one slab wide fits;
+      4. ``pallas_fused`` (B3): a CTA at the padded rank, with a ring of
+         one stage of K pre-gathered rows, fits ``smem_budget``;
+      5. ``pallas_fused_tiled`` (B4): the same one slab wide;
       6. ``pallas`` (B5): always — it splits the columns itself.
 
     Rungs 1–3 need ``factor_rows`` (per input mode, or the total) and are
     skipped without it. ``gather_itemsize`` (2: bf16 gathers) sizes the
-    factors in L2 and B6's windows, as the reference's does. Since every
+    factors in L2, B6's windows and B3/B4's ring, as the reference's
+    sizes its VMEM. Since every
     test is ``bytes <= budget``, a larger budget never moves the choice
     down the ladder, at either itemsize. The reference's first rung, ``rank < MIN_MXU_RANK``
     → ``ref``, is left out: it avoids padding a small rank to the TPU's

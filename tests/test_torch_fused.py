@@ -156,11 +156,18 @@ def test_smem_byte_counts():
     assert tk.gather_smem_bytes(2, 16, 8) == 4 * (g * 8 * 16 + 2048 * 4)
     assert tk.gather_smem_bytes(3, 256, 8, rank_slab=128) \
         == tk.gather_smem_bytes(3, 128, 8)
-    assert tk.fused_smem_bytes(16, 8) == 4 * (g * 8 * 16 + 2048 * 2)
-    assert tk.fused_smem_bytes(1024, 8, rank_slab=128) \
-        == tk.fused_smem_bytes(128, 8)
-    assert tk.fused_smem_bytes(416, 8) <= tk.SMEM_LIMIT_BYTES \
-        < tk.fused_smem_bytes(432, 8)
+    # B3/B4: partials, a ring of K rows per slot (one 16-slot stage by
+    # default: the ladder's question), the meta ring, headers, mbarriers.
+    meta, hdr, bars = 4 * 1024 * 8, (1 + 4) * 8 * 4, 8 * 2 * (1 + 4)
+    # Each partial tile padded to an odd multiple of 16 floats (128 -> 144).
+    assert tk.fused_smem_bytes(2, 16, 8) \
+        == 4 * g * 144 + 2 * 16 * 16 * 4 + meta + hdr + bars
+    assert tk.fused_smem_bytes(2, 16, 8, gather_itemsize=2) \
+        == 4 * g * 144 + 2 * 16 * 16 * 2 + meta + hdr + bars
+    assert tk.fused_smem_bytes(3, 1024, 8, rank_slab=128) \
+        == tk.fused_smem_bytes(3, 128, 8)
+    assert tk.fused_smem_bytes(2, 304, 8) <= tk.SMEM_LIMIT_BYTES \
+        < tk.fused_smem_bytes(2, 320, 8)
     assert tk.segment_smem_bytes(16, 8) == 4 * (g * 8 * 16 + 512 * 16
                                                 + 512)
 

@@ -5,6 +5,8 @@ available (the CPU-only hosts that run the rest of the suite). On a
 machine with an H100 run ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 This file imports no JAX, so it runs where JAX is not installed.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -841,3 +843,166 @@ def test_bf16_cp_als_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.fits, cpu.fits, rtol=2 * 2.0 ** -8,
                                atol=0)
     np.testing.assert_allclose(gpu.fits[0], cpu.fits[0], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B3/B4's ring: run edges, rings forced through the wrapper, persistent CTAs
+# that cross tiles, wide ranks, bf16, slabs narrower than the row, alignment
+# ---------------------------------------------------------------------------
+
+# (stages, slots) forced on the wrapper (None: the ring it picks): one
+# stage, stages narrower and wider than the runs, a deep ring.
+FUSED_RINGS = [None, (1, 16), (2, 32), (3, 64), (6, 32), (2, 128)]
+FUSED_BLK = 8
+
+
+def _edge_runs():
+    """Runs (in 8-slot blocks) of every shape the ring meets: shorter than
+    a stage, none, mid-stage ends, one whole stage and one past it, one
+    whole meta chunk and one past it; a run with a padding stage and a
+    whole padding chunk inside; a padding-only run; and a last tile of 20
+    real blocks and 400 padding blocks (the clipped padding's shape)."""
+    runs = [1, 0, 3, 16, 17, 128, 129, 300, 5, 2, 420]
+    first = np.cumsum([0] + runs)
+    pad = list(range(first[7] + 16, first[7] + 32))
+    pad += list(range(first[7] + 128, first[7] + 256))
+    pad += list(range(first[8], first[9]))
+    pad += list(range(first[10] + 20, first[11]))
+    return runs, pad
+
+
+def _check_fused_ring(args, rows_cap, *, slab, dtype, blk=FUSED_BLK):
+    """B3 == B4 (``slab`` columns a slab) == B1 bitwise in ``dtype``, B3
+    close to its plain version, a rerun bitwise equal."""
+    vals, idx, factors, rows, tob = args
+    factors = [f.to(dtype) for f in factors]
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=TILE)
+    pre = ops.pregathered_rows(idx, factors)
+    b1 = K.fused_mttkrp_nmode_gather(vals, idx, factors, rows, tob, **kw)
+    b3 = K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw)
+    b4 = K.fused_mttkrp_nmode_tiled(vals, pre, rows, tob, rank_slab=slab,
+                                    **kw)
+    plain = K.fused_mttkrp_nmode_plain(vals, pre, rows, tob, **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b3, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b3, b1)
+    assert torch.equal(b4, b1)
+    assert torch.equal(b3, K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw))
+
+
+@pytest.mark.parametrize("ring", FUSED_RINGS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rank,slab", [(16, 16), (32, 16)])
+def test_fused_ring_at_run_edges(cuda, monkeypatch, ring, dtype, rank,
+                                 slab):
+    """Every run edge against every ring, B4 with the whole row (one bulk
+    copy per row array) and with a 16-column slab of a 32-column row (the
+    2-D tensor copy)."""
+    if ring is not None:
+        monkeypatch.setattr(K, "fused_ring", lambda *a, **kw: ring)
+    runs, pad = _edge_runs()
+    args, rows_cap = _runs_operands(cuda, 3, rank, runs, blk=FUSED_BLK,
+                                    seed=80 + rank, pad_blocks=pad)
+    _check_fused_ring(args, rows_cap, slab=slab, dtype=dtype)
+
+
+@pytest.mark.parametrize("ring", [None, (1, 16), (3, 64)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_persistent_ctas_cross_tiles(cuda, monkeypatch, ring, dtype):
+    """6000 tiles of 0..6 blocks, some of padding only: far more work
+    items than resident CTAs, so each CTA takes many tiles in turn and
+    reduces one while its ring fills with the next."""
+    if ring is not None:
+        monkeypatch.setattr(K, "fused_ring", lambda *a, **kw: ring)
+    rng = np.random.default_rng(90)
+    runs = [int(x) for x in rng.integers(0, 7, 6000)]
+    pad = [int(b) for b in rng.choice(sum(runs), sum(runs) // 10,
+                                      replace=False)]
+    args, rows_cap = _runs_operands(cuda, 2, 32, runs, blk=FUSED_BLK,
+                                    seed=91, pad_blocks=pad)
+    _check_fused_ring(args, rows_cap, slab=16, dtype=dtype)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_ring_at_a_wide_rank(cuda, k, dtype):
+    """R=256: B3 on a ring of narrow stages beside 128 KB of partials, B4
+    in 128-column slabs of the 256-column rows (the tensor copy's widest
+    common box), both == B1."""
+    runs, pad = _edge_runs()
+    args, rows_cap = _runs_operands(cuda, k, 256, runs[:8], blk=FUSED_BLK,
+                                    seed=95 + k,
+                                    pad_blocks=[b for b in pad
+                                                if b < sum(runs[:8])])
+    _check_fused_ring(args, rows_cap, slab=128, dtype=dtype)
+
+
+def _misaligned_like(t):
+    """A contiguous copy of ``t`` starting 4 bytes past a 16-byte
+    boundary."""
+    n = t.numel()
+    step = 4 // t.element_size()
+    base = torch.zeros(n + step, dtype=t.dtype, device=t.device)
+    out = base[step:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("bad", ["vals", "local_row_in_tile",
+                                 "factor_rows[0]", "factor_rows[1]"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_misaligned_operand_raises(cuda, bad, dtype):
+    """The bulk copies need 16-byte-aligned operands: a misaligned one
+    raises, naming it, before any launch; there is no fallback."""
+    args = _operands(cuda, 2, 16, 16, seed=24)
+    vals, pre, rows, tob = _fused_args(args)
+    pre = [p.to(dtype) for p in pre]
+    kw = dict(rows_cap=96, blk=BLK, tile_rows=TILE)
+    if bad == "vals":
+        vals = _misaligned_like(vals)
+    elif bad == "local_row_in_tile":
+        rows = _misaligned_like(rows)
+    else:
+        w = int(bad[-2])
+        pre[w] = _misaligned_like(pre[w])
+    n3, n4 = (K.fused_mttkrp_nmode.launches + K.fused_mttkrp_nmode
+              .launches_bf16, K.fused_mttkrp_nmode_tiled.launches
+              + K.fused_mttkrp_nmode_tiled.launches_bf16)
+    with pytest.raises(ValueError, match=re.escape(bad)):
+        K.fused_mttkrp_nmode(vals, tuple(pre), rows, tob, **kw)
+    with pytest.raises(ValueError, match=re.escape(bad)):
+        K.fused_mttkrp_nmode_tiled(vals, tuple(pre), rows, tob,
+                                   rank_slab=16, **kw)
+    assert (K.fused_mttkrp_nmode.launches
+            + K.fused_mttkrp_nmode.launches_bf16,
+            K.fused_mttkrp_nmode_tiled.launches
+            + K.fused_mttkrp_nmode_tiled.launches_bf16) == (n3, n4)
+
+
+@pytest.mark.parametrize("ring", [(2, 512), (1, 1024)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_stage_wider_than_a_tensor_box(cuda, monkeypatch, ring, dtype):
+    """B4 with a 16-column slab of 32-column rows and stages of more rows
+    than one 2-D tensor copy takes (256): several boxes per row array, the
+    last ones past the array's end zero-filled and never read."""
+    monkeypatch.setattr(K, "fused_ring", lambda *a, **kw: ring)
+    runs, pad = _edge_runs()
+    args, rows_cap = _runs_operands(cuda, 2, 32, runs, blk=FUSED_BLK,
+                                    seed=97, pad_blocks=pad)
+    vals, idx, factors, rows, tob = args
+    factors = [f.to(dtype) for f in factors]
+    kw = dict(rows_cap=rows_cap, blk=FUSED_BLK, tile_rows=TILE)
+    pre = ops.pregathered_rows(idx, factors)
+    b4 = K.fused_mttkrp_nmode_tiled(vals, pre, rows, tob, rank_slab=16, **kw)
+    plain = K.fused_mttkrp_nmode_tiled_plain(vals, pre, rows, tob,
+                                             rank_slab=16, **kw)
+    scale = float(plain.abs().max())
+    assert torch.allclose(b4, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b4, K.fused_mttkrp_nmode_gather(vals, idx, factors,
+                                                       rows, tob, **kw))

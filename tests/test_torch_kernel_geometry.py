@@ -1,10 +1,14 @@
-"""Geometry of the redesigned gather (B1, B2) and stream (B6) kernels.
+"""Geometry of the redesigned gather (B1, B2), stream (B6) and fused (B3,
+B4) kernels.
 
 CPU-only arithmetic: the stream kernel's ring (stages and mapper warps)
-against the shared-memory budget, the shared-memory byte counts against
-the layouts that ``csrc/gather_mttkrp.cu`` and ``csrc/gather_stream_mttkrp.cu``
-describe, and the wrappers' alignment check for the kernels' 16-byte and
-bulk copies. The kernels themselves run in ``tests/test_torch_gpu.py``.
+and the fused kernels' ring (stages and slots per stage) against the
+shared-memory budget, the shared-memory byte counts against the layouts
+that ``csrc/gather_mttkrp.cu``, ``csrc/gather_stream_mttkrp.cu`` and
+``csrc/fused_mttkrp.cu`` describe, the fused kernels' partition of a run
+into ring stages, the residency ladder's choices, and the wrappers'
+alignment check for the kernels' 16-byte and bulk copies. The kernels
+themselves run in ``tests/test_torch_gpu.py``.
 """
 import re
 from pathlib import Path
@@ -14,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.mttkrp import kernel as tk  # noqa: E402
+from repro_torch.oocore import planner  # noqa: E402
 
 CSRC = Path(tk.__file__).resolve().parent / "csrc"
 # (K, padded rank, blk, windows) of every B6 launch chip_smoke.py makes:
@@ -107,12 +112,13 @@ def test_stream_cu_window_is_in_the_factors_type():
     assert "gather_stream_mttkrp_bf16_launch" in text
 
 
-@pytest.mark.parametrize("source", ["gather_mttkrp.cu", "fused_mttkrp.cu"])
+@pytest.mark.parametrize("source", ["gather_mttkrp.cu"])
 def test_gather_and_fused_smem_hold_no_factor_element(source):
-    """B1-B4 keep factor elements out of shared memory (partial tiles are
-    fp32, the staging holds values, rows and indices): their launches size
-    shared memory by sizeof(float) alone, so one byte count serves both
-    element types."""
+    """B1 and B2 keep factor elements out of shared memory (partial tiles
+    are fp32, the staging holds values, local rows and indices): their
+    launches size shared memory by sizeof(float) alone, so one byte count
+    serves both element types. (B3 and B4 stage their rows in a ring:
+    test_fused_smem_bytes_equal_the_cu_layout.)"""
     text = (CSRC / source).read_text()
     assert "sizeof(T)" not in text
     lib = source[:-3]
@@ -238,3 +244,262 @@ def test_alignment_check_raises_on_a_misaligned_operand(bad):
 def test_alignment_check_raises_on_a_block_not_a_multiple_of_4(blk):
     with pytest.raises(ValueError, match=f"blk={blk}"):
         tk._check_async_operands(blk, vals=torch.zeros(64))
+
+
+# ---------------------------------------------------------------------------
+# B3, B4: the ring of pre-gathered rows
+# ---------------------------------------------------------------------------
+
+FUSED_RANKS = [16, 32, 256]
+
+
+def _fused_layout(k, rank, tile_rows, slab, stages, slots, itemsize):
+    """The byte count the fused_mttkrp.cu note lays out, summed apart."""
+    groups = tk._groups(tile_rows)
+    meta_stages = _cu_int("fused_mttkrp.cu", "kMetaStages")
+    meta_chunk = _cu_int("fused_mttkrp.cu", "kMetaChunk")
+    hdr = _cu_int("fused_mttkrp.cu", "kHdrInts")
+    ring = stages * k * slots * slab * itemsize
+    tile = tile_rows * slab
+    stride = tile + 16 if tile % 32 == 0 else tile  # odd multiple of 16
+    partials = groups * stride * 4
+    meta = meta_stages * meta_chunk * (4 + 4)
+    headers = (stages + meta_stages) * hdr * 4
+    barriers = 8 * (2 * stages + 2 * meta_stages)
+    return ring + partials + meta + headers + barriers
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rank", FUSED_RANKS)
+def test_fused_smem_bytes_equal_the_cu_layout(k, itemsize, rank):
+    """B3 (the whole rank) and B4 (a 16-column slab) at the ring the
+    wrapper picks and at the smallest ring: the ring of rows at the rows'
+    itemsize, partial tiles, meta ring, headers and mbarriers, and every
+    ring stage a multiple of 512 bytes (each row slice a multiple of 128,
+    the 2-D tensor copy's alignment)."""
+    assert tk.FUSED_META_STAGES == _cu_int("fused_mttkrp.cu", "kMetaStages")
+    assert tk.FUSED_META_CHUNK == _cu_int("fused_mttkrp.cu", "kMetaChunk")
+    for slab in (None, 16):
+        width = rank if slab is None else slab
+        stages, slots = tk.fused_ring(k, rank, 8, rank_slab=slab,
+                                      gather_itemsize=itemsize)
+        for st, sl in ((stages, slots), (1, tk.FUSED_MIN_SLOTS)):
+            assert st >= 1
+            assert tk.fused_smem_bytes(k, rank, 8, rank_slab=slab, stages=st,
+                                       slots=sl, gather_itemsize=itemsize) \
+                == _fused_layout(k, rank, 8, width, st, sl, itemsize)
+            assert (sl * width * itemsize) % 128 == 0
+        assert tk.fused_smem_bytes(k, rank, 8, rank_slab=slab,
+                                   gather_itemsize=itemsize) \
+            == _fused_layout(k, rank, 8, width, 1, tk.FUSED_MIN_SLOTS,
+                             itemsize)
+
+
+def test_fused_cu_layout_matches_the_formula():
+    """The .cu sizes its CTA with the formula the wrapper uses: the ring in
+    the rows' type, the rest in floats and ints, two mbarriers per ring
+    stage and meta slot."""
+    text = (CSRC / "fused_mttkrp.cu").read_text()
+    assert "return (size_t)itemsize * stages * k * slots * slab +" in text
+    assert "(size_t)groups * part_stride(tile_rows * slab) +" in text
+    assert "return (tile_elems / 16 | 1) * 16;" in text
+    assert "(size_t)kMetaStages * kMetaChunk * 2 +" in text
+    assert "(size_t)(stages + kMetaStages) * kHdrInts) +" in text
+    assert "sizeof(Barrier) * 2 * ((size_t)stages + kMetaStages);" in text
+    assert "fused_smem(K, sizeof(T), groups, tile_rows, slab, stages, slots)" \
+        in text
+    assert "fused_mttkrp_launch(" in text and "fused_mttkrp_bf16_launch(" \
+        in text
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rank,slab", [(16, None), (32, 16), (256, None),
+                                       (256, 128)])
+def test_fused_ring_fits_and_is_monotone_in_the_budget(k, itemsize, rank,
+                                                      slab):
+    """Under every budget the ring fits it, a stage is a power of two of at
+    least FUSED_MIN_SLOTS slots (a multiple of every ``groups``) within a
+    meta chunk, and the slots and the ring's bytes never shrink as the
+    budget grows; the smallest CTA fits exactly when some ring does."""
+    width = rank if slab is None else slab
+    prev_slots, prev_bytes = 0, 0
+    for budget in sorted(BUDGETS + [tk.fused_smem_bytes(
+            k, rank, 8, slab, gather_itemsize=itemsize)]):
+        stages, slots = tk.fused_ring(k, rank, 8, rank_slab=slab,
+                                      smem_budget=budget,
+                                      gather_itemsize=itemsize)
+        least = tk.fused_smem_bytes(k, rank, 8, rank_slab=slab,
+                                    gather_itemsize=itemsize)
+        assert (stages >= 1) == (least <= budget)
+        ring = stages * slots * k * width * itemsize
+        if stages:
+            assert 1 <= stages <= (tk.FUSED_STAGES if slab is None
+                                   else tk.FUSED_SLAB_STAGES)
+            assert tk.FUSED_MIN_SLOTS <= slots <= tk.FUSED_STAGE_SLOTS
+            assert slots == tk.FUSED_MIN_SLOTS \
+                or slots * k * width * itemsize <= tk.FUSED_STAGE_BYTES
+            assert slots & (slots - 1) == 0
+            assert tk.FUSED_META_CHUNK % slots == 0
+            assert tk.FUSED_META_CHUNK // slots <= 64
+            assert tk.fused_smem_bytes(
+                k, rank, 8, rank_slab=slab, stages=stages, slots=slots,
+                gather_itemsize=itemsize) <= budget
+        assert slots >= prev_slots and ring >= prev_bytes
+        prev_slots, prev_bytes = slots, ring
+
+
+def test_fused_ring_of_the_main_path():
+    """The nell-2 stand-in's B3 (K=2, R=16): two 256-slot stages (32 KB in
+    fp32, 16 KB in bf16), so two CTAs share an SM in fp32 and three in
+    bf16; B4 at R=32 in 16-column slabs, four such stages; wide ranks keep
+    a ring of narrow stages."""
+    assert tk.fused_ring(2, 16, 8) == (2, 256)
+    assert tk.fused_ring(2, 16, 8, gather_itemsize=2) == (2, 256)
+    assert tk.fused_ring(2, 32, 8, rank_slab=16) == (4, 256)
+    assert 2 * tk.fused_smem_bytes(2, 16, 8, stages=2, slots=256) \
+        <= tk.SMEM_LIMIT_BYTES
+    assert 3 * tk.fused_smem_bytes(2, 16, 8, stages=2, slots=256,
+                                   gather_itemsize=2) <= tk.SMEM_LIMIT_BYTES
+    assert tk.fused_ring(2, 256, 8) == (2, 16)
+    assert tk.fused_ring(3, 256, 8) == (1, 16)
+
+
+@pytest.mark.parametrize("k,itemsize,largest", [
+    (2, 4, 304), (3, 4, 272), (2, 2, 336), (3, 2, 320)])
+def test_fused_largest_rank(k, itemsize, largest):
+    """The widest padded rank B3 runs at tile_rows=8 (partials plus the
+    smallest ring); one step wider, the ladder takes B4 (one 128-column
+    slab) where no gather rung fits."""
+    def fits(r):
+        return tk.fused_ring(k, r, 8, gather_itemsize=itemsize)[0] >= 1
+    assert fits(largest) and not fits(largest + 16)
+    plan = planner.plan_residency(nmodes=k + 1, rank=largest + 16, blk=512,
+                                  tile_rows=8, gather_itemsize=itemsize)
+    assert plan.backend == "pallas_fused_tiled"
+    plan = planner.plan_residency(nmodes=k + 1, rank=largest, blk=512,
+                                  tile_rows=8, gather_itemsize=itemsize)
+    assert plan.backend == "pallas_fused"
+
+
+def _stage_case(run, dead=()):
+    """A run of ``run`` slots starting at slot 96 whose values are 1 but in
+    the slot ranges of ``dead``."""
+    start = 96
+    vals = [0.0] * start + [1.0] * run + [1.0] * 64
+    for a, b in dead:
+        for i in range(start + a, start + b):
+            vals[i] = 0.0
+    return start, start + run, vals
+
+
+# (run length, dead slot ranges within the run) at 64-slot stages:
+STAGE_RUNS = [
+    (32, ()),                      # shorter than one stage
+    (64, ()),                      # one whole stage
+    (200, ()),                     # ends mid-stage
+    (1024, ()),                    # one whole meta chunk
+    (1100, ()),                    # a chunk and a stage's worth past it
+    (3000, ((64, 128), (1024, 2048))),   # a padding stage, a padding chunk
+    (2100, ((1024, 2100),)),       # the last chunks padding only
+    (512, ((0, 512),)),            # padding only
+    (40, ((0, 40),)),              # padding only, shorter than a stage
+    (300, ((250, 300),)),          # padding ends a stage mid-way
+]
+
+
+@pytest.mark.parametrize("run,dead", STAGE_RUNS)
+@pytest.mark.parametrize("slots,groups", [(64, 16), (16, 16), (128, 8),
+                                          (32, 1)])
+def test_fused_stage_partition(run, dead, slots, groups):
+    """Every slot of a run that shares a stage with a nonzero lies in
+    exactly one posted stage, the stages in order; a stage of padding only
+    is not posted (its slots add nothing); slot i goes to the group
+    (i - run start) mod groups; a run whose last chunk is padding posts
+    one stage without rows, last, to end the tile."""
+    start, end, vals = _stage_case(run, dead)
+    posted, groups_of = tk.fused_stage_partition(start, end, vals, slots,
+                                                 groups)
+    seen = [i for first, count in posted for i in range(first,
+                                                        first + count)]
+    assert seen == sorted(set(seen))                 # once each, in order
+    assert all(start <= i < end for i in seen)
+    for first, count in posted:
+        assert (first - start) % slots == 0 and count <= slots
+        assert count == 0 or any(vals[i] for i in range(first, first + count))
+    nonzero = [i for i in range(start, end) if vals[i]]
+    assert set(nonzero) <= set(seen)
+    chunk = tk.FUSED_META_CHUNK
+    for i in range(start, end):  # a slot is left out only with its stage
+        if i not in groups_of:
+            s0 = start + (i - start) // slots * slots
+            c1 = min(start + ((i - start) // chunk + 1) * chunk, end)
+            assert not any(vals[j] for j in range(s0, min(s0 + slots, c1)))
+    assert groups_of == {i: (i - start) % groups for i in seen}
+    last_chunk = range(start + (run - 1) // chunk * chunk, end)
+    ends_dead = not any(vals[i] for i in last_chunk)
+    assert (posted[-1][1] == 0) == ends_dead
+    assert sum(1 for _, count in posted if count == 0) == int(ends_dead)
+
+
+# The residency ladder's choices (``auto``) before B3/B4 held rows in
+# shared memory, at the default budgets and with no L2 for the gather
+# rungs: the chip run's [auto] grid (R in {16, 256}, blk in {64, 512}) on
+# the nell-2 stand-in's input factors, and factors beyond L2.
+AUTO_GRID = {
+    (16, 64, (9200, 28800)): ("pallas_fused_gather",
+                              "pallas_fused_gather_stream"),
+    (16, 64, (12104, 28800)): ("pallas_fused_gather",
+                               "pallas_fused_gather_stream"),
+    (16, 64, (12104, 9200)): ("pallas_fused_gather",
+                              "pallas_fused_gather_stream"),
+    (16, 64, (2_000_000, 3_000_000)): ("pallas_fused_gather_stream",) * 2,
+    (16, 64, (500_000,) * 3): ("pallas_fused_gather_stream",) * 2,
+    (16, 512, (9200, 28800)): ("pallas_fused_gather", "pallas_fused"),
+    (16, 512, (12104, 28800)): ("pallas_fused_gather", "pallas_fused"),
+    (16, 512, (12104, 9200)): ("pallas_fused_gather", "pallas_fused"),
+    (16, 512, (2_000_000, 3_000_000)): ("pallas_fused",) * 2,
+    (16, 512, (500_000,) * 3): ("pallas_fused",) * 2,
+    (256, 64, (9200, 28800)): ("pallas_fused_gather_tiled",
+                               "pallas_fused_gather_stream"),
+    (256, 64, (12104, 28800)): ("pallas_fused_gather_tiled",
+                                "pallas_fused_gather_stream"),
+    (256, 64, (12104, 9200)): ("pallas_fused_gather",
+                               "pallas_fused_gather_stream"),
+    (256, 64, (2_000_000, 3_000_000)): ("pallas_fused_gather_stream",) * 2,
+    (256, 64, (500_000,) * 3): ("pallas_fused_gather_stream",) * 2,
+    (256, 512, (9200, 28800)): ("pallas_fused_gather_tiled", "pallas_fused"),
+    (256, 512, (12104, 28800)): ("pallas_fused_gather_tiled",
+                                 "pallas_fused"),
+    (256, 512, (12104, 9200)): ("pallas_fused_gather", "pallas_fused"),
+    (256, 512, (2_000_000, 3_000_000)): ("pallas_fused",) * 2,
+    (256, 512, (500_000,) * 3): ("pallas_fused",) * 2,
+}
+
+
+@pytest.mark.parametrize("rank,blk,factor_rows", list(AUTO_GRID))
+def test_auto_grid_choices_are_unchanged(rank, blk, factor_rows):
+    """With B3/B4's ring counted in their shared memory, ``auto`` still
+    takes the rung it took before, with the L2 budget and without one."""
+    want = AUTO_GRID[(rank, blk, factor_rows)]
+    got = tuple(planner.plan_residency(
+        nmodes=len(factor_rows) + 1, rank=rank, blk=blk, tile_rows=8,
+        factor_rows=factor_rows, l2_budget=l2).backend
+        for l2 in (tk.L2_BUDGET_BYTES, 0))
+    assert got == want
+
+
+@pytest.mark.parametrize("bad", ["vals", "local_row_in_tile",
+                                 "factor_rows[0]", "factor_rows[2]"])
+def test_alignment_check_names_a_misaligned_fused_operand(bad):
+    """B3/B4's bulk copies: values, local rows and every row array, float32
+    or bf16, must start on a 16-byte boundary."""
+    ops_ = {"vals": torch.zeros(256), "local_row_in_tile": torch.zeros(
+        256, dtype=torch.int32), "factor_rows[0]": torch.zeros(256, 16),
+        "factor_rows[1]": torch.zeros(256, 16, dtype=torch.bfloat16),
+        "factor_rows[2]": torch.zeros(256, 16, dtype=torch.bfloat16)}
+    tk._check_async_operands(64, **ops_)
+    ops_[bad] = _misaligned(ops_[bad].numel(), ops_[bad].dtype)
+    with pytest.raises(ValueError, match=re.escape(bad)):
+        tk._check_async_operands(64, **ops_)
