@@ -62,7 +62,23 @@ Phases (each prints its own lines; any failure exits non-zero):
       a profiled bf16 sweep;
   12. ``[bf16-fit]``: CP-ALS (B1, seed 1, tol 0) in fp32 and in bf16 on a
       generated low-rank tensor: both fit traces and their gaps;
-  13. one JSON line with all six kernels and the five bf16 variants, the
+  13. ``[dist-main]``, Dynasor on D=4 workers in one process
+      (``LocalWorkers``) on the nell-2 stand-in at R=16: host time of
+      ``build_flycoo(t, 4)`` and ``prepare_runtime``, the LPT loads per
+      worker and mode; ``cp_als_distributed`` with ``auto`` (B1 only, 12
+      launches per sweep, 3 sweeps), sweep ms on the host clock and CUDA
+      events, a profiled sweep; B1 against its plain version on every
+      worker's sweep-0 inputs (row offset d*rows_cap) and mode;
+      ``make_spmttkrp_all_modes`` at D=4 against D=1 in natural row
+      order, ``dropped == 0``; B1 == B2 == B3 == B4 == B5 == B6 bitwise
+      at D=4 (row offsets), each worker's mode step ms per backend;
+      the paper's Fig. 9 paths (remap, no remap, even-split baseline):
+      outputs, ms and the bytes each hands to the collectives;
+  14. ``[dist-fit]``: CP-ALS at D=4 on the ``[bf16-fit]`` tensor against
+      that phase's fp32 D=1 fits (5 sweeps, gap <= 1e-4);
+  15. one JSON line with all six kernels and the five bf16 variants
+      (``launches`` from the D=1 main paths, ``dist_main_launches`` from
+      ``[dist-main]``), the
       card's name and power limit, and the last line
       ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +93,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -309,6 +326,24 @@ def require_only(launched: dict, name: str, want: int, what: str):
     others = {k: v for k, v in launched.items() if k != name and v}
     require(launched[name] == want and not others,
             f"{what}: launches {launched}, expected {want} of {name} only")
+
+
+def one_worker(stream):
+    """Worker 0's layout of a stacked ``(1, cap, ...)`` stream (D=1)."""
+    return tuple(s[0] for s in stream)
+
+
+def one_device(dev):
+    """The D=1 paths' workers: one, on ``dev``."""
+    from repro_torch.core.workers import LocalWorkers
+    return LocalWorkers(1, dev)
+
+
+def remap_one(cur, next_mode: int, rt):
+    """The D=1 remap of one worker's layout ``cur``."""
+    from repro_torch.core import distributed as dist
+    return one_worker(dist.device_remap(*(s[None] for s in cur), next_mode,
+                                        rt, one_device(cur[0].device))[:3])
 
 
 def compare(out, plain, what: str) -> float:
@@ -595,13 +630,14 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
     slab = ops.tiled_rank_slab(rank) if tiled else ops.padded_rank(rank)
     extra = {"rank_slab": slab} if tiled else {}
     rt, packed = dist.prepare_runtime(ft, rank)
+    wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
-                                                  device=dev)
+                                                  workers=wk)
     del packed
-    res = cpals.als_sweep(stream, factors, lam, x2, rt, sweep0=True,
-                          backend=backend)
+    res = cpals.als_sweep(stream, factors, lam, x2, rt, workers=wk,
+                          sweep0=True, backend=backend)
     rows = []
-    cur = stream
+    cur = one_worker(stream)
     for n in range(rt.nmodes):
         facs = list(res.factors[:n]) + list(factors[n:])
         operands = ops.gather_operands(
@@ -610,7 +646,7 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
         kw = dict(rows_cap=rt.rows_cap[n], blk=rt.blk,
                   tile_rows=rt.tile_rows, **extra)
         out = kern(*operands, **kw)
-        require(torch.equal(out[:, :rank], res.mttkrp[n]),
+        require(torch.equal(out[:, :rank], res.mttkrp[n][0]),
                 f"{backend} mode {n}: rebuilt inputs do not reproduce the "
                 "sweep's output bitwise")
         ref = plain(*operands, **kw)
@@ -624,7 +660,7 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
                          l2_bytes=gather_l2_bytes(operands),
                          slots=int(operands[0].shape[0])))
         del operands, out, ref
-        cur = dist.device_remap(*cur, (n + 1) % rt.nmodes, rt)[:3]
+        cur = remap_one(cur, (n + 1) % rt.nmodes, rt)
     return rows, float(res.fit)
 
 
@@ -635,18 +671,20 @@ def profile_sweep(ft, rank: int, backend: str, dev, **runtime_kw):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core.workers import LocalWorkers
     rt, packed = dist.prepare_runtime(ft, rank, **runtime_kw)
+    wk = LocalWorkers(rt.num_workers, dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
-                                                  device=dev)
+                                                  workers=wk)
     del packed
-    res = cpals.als_sweep(stream, factors, lam, x2, rt, sweep0=True,
-                          backend=backend)
+    res = cpals.als_sweep(stream, factors, lam, x2, rt, workers=wk,
+                          sweep0=True, backend=backend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         res = cpals.als_sweep(res.stream, res.factors, res.lam, x2, rt,
-                              sweep0=False, backend=backend)
+                              workers=wk, sweep0=False, backend=backend)
         float(res.fit)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {ev.key: ev.device_time_total / 1e3
@@ -772,7 +810,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
     # --- per mode at the main path's inputs (launches not counted) ------
     rt, packed = dist.prepare_runtime(ft, rank)
     stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
-                                               device=dev)
+                                               workers=one_device(dev))
     del packed
     nmodes = rt.nmodes
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
@@ -789,7 +827,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
            for w in range(nmodes)]
     rows = {"fused_mttkrp_nmode": [], "fused_mttkrp_nmode_tiled": [],
             "segment_accumulate": []}
-    cur = stream
+    cur = one_worker(stream)
     for n in range(nmodes):
         rows_cap = rt.rows_cap[n]
         kw = dict(rows_cap=rows_cap, blk=rt.blk, tile_rows=rt.tile_rows)
@@ -896,7 +934,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
             f"max_abs_err {err:.3e}, == B1 bitwise; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{gpu}]")
         del contrib, r_al, tob, b5, plain, out_rows, b1_16
-        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+        cur = remap_one(cur, (n + 1) % nmodes, rt)
     del cur, stream, factors, f32
     torch.cuda.empty_cache()
     profile_sweep(ft, rank, "pallas", dev)
@@ -912,7 +950,7 @@ def phase_stream_main(ft, dev, gpu: str):
     rank, blk, tile_rows = 16, MAIN_STREAM_BLK, STREAM_TILE_ROWS
     rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows)
     stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
-                                               device=dev)
+                                               workers=one_device(dev))
     del packed
     nmodes, k = rt.nmodes, rt.nmodes - 1
     for n in range(nmodes):
@@ -929,7 +967,7 @@ def phase_stream_main(ft, dev, gpu: str):
     # --- the driven path: counts zeroed just before, read just after ---
     K.fused_mttkrp_nmode_gather_stream.launches = 0
     K.fused_mttkrp_nmode_gather.launches = 0
-    runs, cur = [], stream
+    runs, cur = [], one_worker(stream)
     for n in range(nmodes):
         rows_cap = rt.rows_cap[n]
         num_blocks = ops.n_pad_for(cur[0].shape[0], rows_cap, blk,
@@ -943,7 +981,7 @@ def phase_stream_main(ft, dev, gpu: str):
             tile_rows=tile_rows, max_chunk_bytes=budget, ordering="morton")
         torch.cuda.synchronize()
         runs.append((n, cur, budget, out, stats, time.perf_counter() - t0))
-        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+        cur = remap_one(cur, (n + 1) % nmodes, rt)
     del cur, stream
     kw = dict(iters=2, tol=0.0, ordering="morton", blk=blk,
               tile_rows=tile_rows)
@@ -1250,11 +1288,12 @@ def phase_bf16_main(ft, dev, gpu: str):
     del res
 
     rt, packed = dist.prepare_runtime(ft, rank, gather_dtype="bfloat16")
+    wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
-                                                  device=dev)
+                                                  workers=wk)
     del packed
-    sweep = cpals.als_sweep(stream, factors, lam, x2, rt, sweep0=True,
-                            backend="pallas_fused_gather_bf16")
+    sweep = cpals.als_sweep(stream, factors, lam, x2, rt, workers=wk,
+                            sweep0=True, backend="pallas_fused_gather_bf16")
     nmodes, k = rt.nmodes, rt.nmodes - 1
     blk, sblk, tile_rows = rt.blk, MAIN_STREAM_BLK, rt.tile_rows
     # B2's path runs at R=256 (where auto takes B2 on this tensor's modes
@@ -1266,7 +1305,7 @@ def phase_bf16_main(ft, dev, gpu: str):
         "fused_mttkrp_nmode_gather", "fused_mttkrp_nmode_gather_tiled",
         "fused_mttkrp_nmode", "fused_mttkrp_nmode_tiled",
         "fused_mttkrp_nmode_gather_stream")}
-    cur = stream
+    cur = one_worker(stream)
     for n in range(nmodes):
         rows_cap = rt.rows_cap[n]
         facs = list(sweep.factors[:n]) + list(factors[n:])
@@ -1284,7 +1323,7 @@ def phase_bf16_main(ft, dev, gpu: str):
             launched = counts()
             require_only(launched, name + BF16, 1,
                          f"mode {n} {backend} bf16 step")
-            require(torch.equal(out, sweep.mttkrp[n]),
+            require(torch.equal(out, sweep.mttkrp[n][0]),
                     f"mode {n} {backend} bf16 step differs from B1-bf16")
             launches[name + BF16] = launches.get(name + BF16, 0) + 1
             del out
@@ -1326,7 +1365,7 @@ def phase_bf16_main(ft, dev, gpu: str):
             K.fused_mttkrp_nmode_gather,
             K.fused_mttkrp_nmode_gather_plain, b1_ops, kw,
             what=f"B1-bf16 mode {n}", l2_bytes=l2b, bound=bound)
-        require(torch.equal(b1[:, :rank], sweep.mttkrp[n]),
+        require(torch.equal(b1[:, :rank], sweep.mttkrp[n][0]),
                 f"mode {n}: rebuilt inputs do not reproduce the bf16 sweep")
         rows["fused_mttkrp_nmode_gather" + BF16].append(row)
         f32_ops = ops.gather_operands(*cur, facs, slab=rank, **okw)
@@ -1448,7 +1487,7 @@ def phase_bf16_main(ft, dev, gpu: str):
             f"TB/s, L2 bound {l2bound:.3f} ms; max_abs_err {row['err']:.3e}  "
             f"[{gpu}]")
         del m_ops, s_ops, f32_s, b1m, b6, out6
-        cur = dist.device_remap(*cur, (n + 1) % nmodes, rt)[:3]
+        cur = remap_one(cur, (n + 1) % nmodes, rt)
     del cur, stream, factors, sweep, f256
     torch.cuda.empty_cache()
     profile_sweep(ft, rank, "pallas_fused_gather_bf16", dev)
@@ -1488,6 +1527,263 @@ def phase_bf16_fit(gpu: str):
         f"bound (N-1)*2^-8 = {bound:.3e})  [{gpu}]")
     require(gaps[-1] < 1e-2, f"bf16 did not converge within 1e-2 of fp32: "
             f"final gap {gaps[-1]}")
+    return t, fits["float32"]
+
+
+def event_ms(fn):
+    """``(fn(), CUDA-event ms of the call)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def dist_state(ft, rt, packed, workers, seed: int = 0):
+    """``(stream, factors)`` of ``cpals.device_state`` for ``workers``."""
+    from repro_torch.core import cpals
+    stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=seed,
+                                               workers=workers)
+    return stream, factors
+
+
+def natural(ft, rt, outs):
+    """Replicated permuted-row outputs → natural row order (host)."""
+    from repro_torch.core import distributed as dist
+    return [torch.from_numpy(dist.unpermute_factor(ft, rt, n,
+                                                   o.cpu().numpy()))
+            for n, o in enumerate(outs)]
+
+
+def phase_dist_main(ft1, dev, gpu: str):
+    """``[dist-main]``: Dynasor on D=4 workers in one process
+    (``LocalWorkers``), on the nell-2 stand-in that phase_main built (its
+    tensor, rebuilt as FLYCOO for 4 workers), R=16: host time and LPT
+    balance; ``cp_als_distributed`` with ``auto`` (B1 on every worker and
+    mode, 3 sweeps) with fits, sweep ms on both clocks and a profiled
+    sweep; D=4 outputs in natural order against D=1's; the six backends
+    bitwise equal at D=4 with row offsets; the paper's Fig. 9 paths and
+    the bytes they hand to the collectives."""
+    from repro_torch.core import cpals, distributed as dist, flycoo
+    from repro_torch.core.workers import LocalWorkers
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    rank, D = 16, 4
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ft = flycoo.build_flycoo(ft1.tensor, D)
+    t_fly = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt, packed = dist.prepare_runtime(ft, rank)
+    t_prep = time.perf_counter() - t0
+    loads = np.stack([np.bincount(ft.owner_of(n), minlength=D)
+                      for n in range(ft.nmodes)])
+    ratio = [float(r.max() / r.mean()) for r in loads]
+    log(f"[dist-main] D={D} workers in one process (LocalWorkers): "
+        f"build_flycoo {t_fly:.1f} s, prepare_runtime {t_prep:.1f} s (host); "
+        f"nonzeros per worker per mode (LPT) {loads.tolist()}, max/mean "
+        f"{[round(r, 6) for r in ratio]}; nnz_cap {rt.nnz_cap}, rows_cap "
+        f"{rt.rows_cap}, exchange caps {rt.bucket_caps}, blk {rt.blk}")
+    rt1, packed1 = dist.prepare_runtime(ft1, rank)
+    for r_ in (rt1, rt):
+        picks = [ops.select_backend(
+            "auto", nmodes=r_.nmodes, rank=rank, blk=r_.blk,
+            tile_rows=r_.tile_rows,
+            factor_rows=[r_.i_pad[w] for w in range(r_.nmodes) if w != n])
+            for n in range(r_.nmodes)]
+        log(f"[dist-main] auto at D={r_.num_workers}, R={rank}: per mode "
+            f"{picks} (factor rows {list(r_.i_pad)})")
+        require(picks == ["pallas_fused_gather"] * r_.nmodes,
+                f"auto at D={r_.num_workers} picked {picks}")
+
+    # --- the main path: counts zeroed just before, read just after -----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cpals.cp_als_distributed(ft, rank, backend="auto", iters=3,
+                                   tol=0.0)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    want = 3 * ft.nmodes * D
+    log(f"[dist-main] cp_als_distributed D={D} R={rank} backend=auto: fits "
+        f"{res.fits}; ms per sweep (host) "
+        f"{[round(x * 1e3, 2) for x in res.sweep_seconds]}; call {wall:.1f} "
+        f"s incl. host prepare_runtime; B1 launches "
+        f"{launched['fused_mttkrp_nmode_gather']} ({ft.nmodes * D} per "
+        f"sweep)")
+    require_only(launched, "fused_mttkrp_nmode_gather", want,
+                 f"auto at D={D} (B1 on every worker and mode)")
+    require(all(np.isfinite(res.fits)) and max(res.fits) <= 1.0,
+            f"D={D} fits {res.fits}")
+    for f in res.factors:
+        require(bool(np.isfinite(f).all()), "non-finite factor at D=4")
+    dist_launches = launched["fused_mttkrp_nmode_gather"]
+    del res
+
+    # --- sweeps on CUDA events (not counted), then a profiled one -------
+    wk = LocalWorkers(D, dev)
+    stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
+                                                  workers=wk)
+    ev_ms, host_ms = [], []
+    for it in range(3):
+        t0 = time.perf_counter()
+        sw, ms = event_ms(lambda: cpals.als_sweep(
+            stream, factors, lam, x2, rt, workers=wk, sweep0=it == 0,
+            backend="auto"))
+        float(sw.fit)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(ms)
+        if it == 0:
+            sweep0 = (factors, sw)
+        stream, factors, lam = sw.stream, sw.factors, sw.lam
+    log(f"[dist-main] D={D} als_sweep x3: ms per sweep host "
+        f"{[round(x, 2) for x in host_ms]}, CUDA events "
+        f"{[round(x, 2) for x in ev_ms]}  [{gpu}]")
+    del stream, factors, lam, sw
+    torch.cuda.empty_cache()
+    profile_sweep(ft, rank, "auto", dev)
+
+    # --- B1 against its plain version at every worker's row offset ------
+    # The remap does not read the factors: the mode-n layouts of every
+    # sweep are these.
+    stream, factors = dist_state(ft, rt, packed, wk)
+    mode_streams = [stream]
+    for n in range(1, ft.nmodes):
+        mode_streams.append(dist.device_remap(*mode_streams[-1], n, rt,
+                                              wk)[:3])
+    init, sw = sweep0
+    errs, b1_ms, plain_ms = [], [], []
+    for n, cur in enumerate(mode_streams):
+        facs = list(sw.factors[:n]) + list(init[n:])
+        kw = dict(rows_cap=rt.rows_cap[n], blk=rt.blk,
+                  tile_rows=rt.tile_rows)
+        for d in range(D):
+            operands = ops.gather_operands(
+                cur[0][d], cur[1][d], cur[2][d], facs, mode=n,
+                rows_cap=rt.rows_cap[n], row_offset=d * rt.rows_cap[n],
+                blk=rt.blk, tile_rows=rt.tile_rows,
+                slab=ops.padded_rank(rank))
+            out, ms = event_ms(
+                lambda: K.fused_mttkrp_nmode_gather(*operands, **kw))
+            require(torch.equal(out[:, :rank], sw.mttkrp[n][d]),
+                    f"D={D} B1 worker {d} mode {n}: rebuilt inputs do not "
+                    "reproduce the sweep's output bitwise")
+            plain, pms = event_ms(
+                lambda: K.fused_mttkrp_nmode_gather_plain(*operands, **kw))
+            errs.append(compare(out, plain, f"D={D} B1 worker {d} mode {n}"))
+            b1_ms.append(ms)
+            plain_ms.append(pms)
+            del operands, out, plain
+    del init, sw, sweep0
+    shape = (ft.nmodes, D)
+    log(f"[dist-main] B1 at D={D} vs its plain version on the sweep-0 "
+        f"inputs of every worker (row offset d*rows_cap) and mode: == the "
+        f"sweep's output bitwise; max_abs_err {max(errs):.3e} (rtol {RTOL}, "
+        f"atol {ATOL_FRAC}*max|plain|); CUDA-event ms per mode x worker B1 "
+        f"{np.round(np.reshape(b1_ms, shape), 3).tolist()}, plain "
+        f"{np.round(np.reshape(plain_ms, shape), 3).tolist()}  [{gpu}]")
+
+    # --- D=4 against D=1, natural row order -----------------------------
+    def warm_timed(fn, reps: int = 3):
+        """``(fn(), CUDA-event ms of each of reps calls, bytes one call
+        hands to the collectives)``, after an untimed call: the first
+        carries first-use costs (allocator growth, kernel loads) that one
+        path may pay for another."""
+        fn()
+        times = []
+        for _ in range(reps):
+            wk.reset_bytes()
+            out, ms = event_ms(fn)
+            times.append(round(ms, 3))
+        return out, times, dict(wk.sent_bytes)
+
+    (outs4, _, diags), dyn_ms, dyn_bytes = warm_timed(
+        lambda: dist.make_spmttkrp_all_modes(rt, wk, backend="auto")(
+            *stream, *factors))
+    dropped = int(diags["dropped"].sum())
+    require(dropped == 0, f"D={D}: {dropped} nonzeros dropped")
+    w1 = LocalWorkers(1, dev)
+    s1, f1 = dist_state(ft1, rt1, packed1, w1)
+    outs1, _, _ = dist.make_spmttkrp_all_modes(rt1, w1, backend="auto")(
+        *s1, *f1)
+    del s1, f1, packed1
+    nat4, nat1 = natural(ft, rt, outs4), natural(ft1, rt1, outs1)
+    errs = [compare(a, b, f"D={D} vs D=1 mode {n}")
+            for n, (a, b) in enumerate(zip(nat4, nat1))]
+    log(f"[dist-main] make_spmttkrp_all_modes auto: D={D} vs D=1 in natural "
+        f"row order, max_abs_err per mode {[f'{e:.3e}' for e in errs]} "
+        f"(rtol {RTOL}, atol {ATOL_FRAC}*max|D=1|); dropped {dropped}")
+
+    # --- the six kernels at D=4, row offsets, one aligned stream --------
+    rt64 = dataclasses.replace(rt, blk=MAIN_STREAM_BLK)
+    ref_outs = None
+    for name, backend in BACKEND_OF.items():
+        got, _, _ = dist.make_spmttkrp_all_modes(rt64, wk, backend=backend)(
+            *stream, *factors)
+        if ref_outs is None:
+            ref_outs = got
+        same = all(torch.equal(a, b) for a, b in zip(got, ref_outs))
+        require(same, f"D={D} {backend} differs from B1 bitwise")
+        del got
+        ms = [[event_ms(lambda: dist.device_mttkrp(
+            cur[0][d], cur[1][d], cur[2][d], factors, n, rt64, backend,
+            worker=d))[1] for d in range(D)]
+            for n, cur in enumerate(mode_streams)]
+        log(f"[dist-main] {name} ({backend}) D={D} blk={rt64.blk}: == B1 "
+            f"bitwise on every mode; CUDA-event ms of each worker's mode "
+            f"step (operand build + kernel), per mode x worker "
+            f"{np.round(ms, 3).tolist()}, mean per worker "
+            f"{np.round(np.mean(ms, 0), 3).tolist()}  [{gpu}]")
+    del ref_outs, mode_streams, cur
+
+    # --- the paper's comparison (Fig. 9) --------------------------------
+    rows = [("dynasor (remap)", outs4, dyn_ms, dyn_bytes)]
+    (case2, _, _), ms, sent = warm_timed(
+        lambda: dist.make_spmttkrp_all_modes(rt, wk, backend="auto",
+                                             remap=False)(*stream, *factors))
+    rows.append(("case 2 (no remap)", case2, ms, sent))
+    del stream
+    even = tuple(torch.from_numpy(a).to(dev)
+                 for a in dist.even_split_pack(ft, rt))
+    rows.append(("baseline (even split)",) + warm_timed(
+        lambda: dist.make_baseline_all_modes(rt, wk)(*even, *factors)))
+    del even
+    for label, outs, ms, sent in rows:
+        errs = [compare(a, b, f"{label} mode {n}")
+                for n, (a, b) in enumerate(zip(natural(ft, rt, outs),
+                                               nat4))]
+        log(f"[dist-main] Fig. 9 {label}: {ms} ms (CUDA events, 3 calls "
+            f"after a warm one, all {ft.nmodes} modes, D={D}); bytes "
+            f"handed to the collectives (self-buckets included) {sent} = "
+            f"{sum(sent.values())} B (on one card these are device "
+            f"copies, not interconnect traffic); max_abs_err vs "
+            f"Dynasor {[f'{e:.3e}' for e in errs]}  [{gpu}]")
+    del rows, case2, outs4, outs1, factors
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[dist-main] peak device memory {peak_gb:.2f} GB; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return dist_launches
+
+
+def phase_dist_fit(t, fits1, gpu: str):
+    """``[dist-fit]``: CP-ALS (B1, seed 1, tol 0, 5 sweeps) on D=4 workers
+    on the ``[bf16-fit]`` low-rank tensor, against that phase's fp32 D=1
+    run (whose first 5 sweeps are a 5-sweep run: B1 and the solve are
+    deterministic); the largest gap must be <= 1e-4."""
+    from repro_torch.core import cpals, flycoo
+    sweeps, workers = 5, 4
+    res = cpals.cp_als_distributed(flycoo.build_flycoo(t, workers), 16,
+                                   iters=sweeps, seed=1, tol=0.0,
+                                   backend="pallas_fused_gather")
+    gaps = [abs(a - b) for a, b in zip(res.fits, fits1[:sweeps])]
+    log(f"[dist-fit] low_rank_sparse_tensor shape={t.shape} nnz={t.nnz}, "
+        f"CP-ALS R=16 B1 seed 1 tol 0, {sweeps} sweeps: fits D=1 "
+        f"{fits1[:sweeps]}; fits D={workers} {res.fits}; largest gap "
+        f"{max(gaps):.3e}  [{gpu}]")
+    require(len(res.fits) == sweeps and max(gaps) <= 1e-4,
+            f"D={workers} fits {res.fits} vs D=1 {fits1[:sweeps]}")
 
 
 def phase_four_mode(dev):
@@ -1541,16 +1837,22 @@ def main() -> int:
     main_rows.update(phase_fused_main(ft, b1_fits, dev, gpu))
     main_rows.update(phase_stream_main(ft, dev, gpu))
     main_rows.update(phase_bf16_main(ft, dev, gpu))
+    # The [dist-main] path's launches, read apart from the D=1 paths'.
+    dist_launches = {"fused_mttkrp_nmode_gather":
+                     phase_dist_main(ft, dev, gpu)}
     del ft
     phase_four_mode(dev)
     phase_recovery()
     phase_bf16_kernels(dev)
-    phase_bf16_fit(gpu)
+    t_fit, fits_fit = phase_bf16_fit(gpu)
+    phase_dist_fit(t_fit, fits_fit, gpu)
+    del t_fit
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches,
+            "dist_main_launches": dist_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1566,7 +1868,9 @@ def main() -> int:
             and all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s; "
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
-        "of the main path; l2_bound_ms is the L2 bytes (rows gathered by "
+        "of the main path; launches are the D=1 main paths', "
+        "dist_main_launches the [dist-main] D=4 run's; "
+        "l2_bound_ms is the L2 bytes (rows gathered by "
         "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
         "factor element for the [bf16] variants) over the "
         f"measured L2 read rate {L2_BYTES_PER_S / 1e12:.3f} TB/s; "

@@ -6,7 +6,7 @@ unless the caller passes ``device="cpu"``; on a CPU tensor each kernel
 wrapper runs its plain PyTorch version. Importing the package needs no
 CUDA, ``nvcc`` or ``triton``: the kernels are built at first launch.
 
-core         FLYCOO preprocessing, remap, one-GPU Dynasor CP-ALS
+core         FLYCOO preprocessing, remap, Dynasor CP-ALS on D workers
 kernels      the six MTTKRP kernels (CUDA) + block layout + dispatch +
              oracles
 oocore       chunked out-of-core MTTKRP, stream windows and traffic

@@ -3,9 +3,9 @@
 :func:`state_from_reference` takes the reference's numpy arrays — the
 permuted-row-space factors of ``repro.core.distributed.init_factors`` or
 of a ``repro.resilience.checkpoint.make_state`` state, λ, and optionally
-the remapped nonzero stream — and returns the port's tensors on
-``device``, so one port sweep and one reference sweep can start from the
-same state.
+the remapped nonzero stream with its ``(D, cap, ...)`` worker axis — and
+returns the port's tensors on the device, so one port sweep and one
+reference sweep can start from the same state.
 """
 from __future__ import annotations
 
@@ -17,33 +17,49 @@ from .runtime.device import resolve_device
 __all__ = ["state_from_reference"]
 
 
-def state_from_reference(factors, lam, stream=None, *, device):
-    """Reference state → ``(factors, lam, stream)`` tensors on ``device``.
+def state_from_reference(factors, lam, stream=None, *, device=None,
+                         workers=None):
+    """Reference state → ``(factors, lam, stream)`` tensors on the device.
 
     Args:
       factors: ``(i_pad_n, R)`` float32 arrays, permuted row space.
       lam: ``(R,)`` column weights.
       stream: optional ``(stream_idx, stream_val, stream_mask)`` as the
-        reference's checkpoint holds them, with or without the leading
-        worker axis; only one worker is ported (ROADMAP A9).
-      device: ``None`` (CUDA), ``"cuda"`` or ``"cpu"``.
+        reference's runtime and checkpoint hold them, ``(D, cap, N)``,
+        ``(D, cap)``, ``(D, cap)``; a stream without the worker axis is
+        one worker's.
+      device: ``None`` (CUDA), ``"cuda"`` or ``"cpu"``; with ``workers``,
+        their device (another one raises ``ValueError``).
+      workers: ``None`` keeps every worker's layout, stacked, as
+        :class:`~.core.workers.LocalWorkers` holds them; a
+        :class:`~.core.workers.GroupWorkers` (or any ``core.workers``
+        object) keeps the slice of the workers it holds, its one rank.
 
-    Returns ``stream`` as ``(idx int32 (cap, N), val float32 (cap,), mask
-    bool (cap,))``, or ``None`` when none was given.
+    Returns ``stream`` as ``(idx int32 (L, cap, N), val float32 (L, cap),
+    mask bool (L, cap))`` over the ``L`` workers kept, or ``None`` when
+    none was given.
     """
-    dev = resolve_device(device)
+    if workers is None:
+        dev = resolve_device(device)
+    else:
+        dev = workers.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device!r} is not the workers' device "
+                             f"{dev}")
     tf = [torch.from_numpy(np.array(f, dtype=np.float32)).to(dev)
           for f in factors]
     tlam = torch.from_numpy(np.array(lam, dtype=np.float32)).to(dev)
     if stream is None:
         return tf, tlam, None
     idx, val, mask = (np.asarray(a) for a in stream)
-    if idx.ndim == 3:
-        if idx.shape[0] != 1:
-            raise NotImplementedError(
-                f"a stream of {idx.shape[0]} workers: the multi-GPU path is "
-                "not ported yet (ROADMAP A9)")
-        idx, val, mask = idx[0], val[0], mask[0]
+    if idx.ndim == 2:
+        idx, val, mask = idx[None], val[None], mask[None]
+    if workers is not None:
+        if idx.shape[0] != workers.num_workers:
+            raise ValueError(f"a stream of {idx.shape[0]} workers for "
+                             f"{workers.num_workers} workers")
+        sel = list(workers.ranks)
+        idx, val, mask = idx[sel], val[sel], mask[sel]
     return tf, tlam, (
         torch.from_numpy(np.array(idx, dtype=np.int32)).to(dev),
         torch.from_numpy(np.array(val, dtype=np.float32)).to(dev),

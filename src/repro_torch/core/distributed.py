@@ -1,16 +1,33 @@
-"""Owner-computes spMTTKRP with dynamic remapping, on one device.
+"""Owner-computes spMTTKRP with dynamic remapping, on D workers.
 
-Port of ``repro/core/distributed.py`` for one worker (one GPU): the
-runtime metadata, the initial packed layout, the permuted factor
-initialization, and the per-device mode step (:func:`device_mttkrp`) and
-remap (:func:`device_remap`). At D=1 the worker owns every row, so the
-all_gather of the JAX version is the identity and the remap is a stable
-re-sort into the next mode's row order. D>1 raises ``NotImplementedError``
-(ROADMAP A9).
+Port of ``repro/core/distributed.py`` (Alg. 2, Dynasor). Each of the D
+workers owns the output rows of the super-shards LPT-assigned to it
+(baked into the FLYCOO row permutation): worker ``d`` owns rows
+``[d·rows_cap, (d+1)·rows_cap)`` of every mode's ``i_pad``. Per mode it
+computes its rows alone (:func:`device_mttkrp`, no reduction: an
+all_gather re-replicates the factor), and between modes the nonzeros are
+re-bucketed for the next mode's owners and exchanged
+(:func:`device_remap`), the layout that keeps storage at ``2·|T|``.
+
+The reference runs this under ``shard_map`` on a device mesh; here the
+workers and their collectives are ``core.workers`` objects
+(:class:`~.workers.LocalWorkers`: D workers in one process, stacked on a
+leading axis; :class:`~.workers.GroupWorkers`: one worker per process of
+a ``torch.distributed`` group). Per-worker tensors carry a leading axis
+over the workers this process holds. The builders return plain callables
+over those tensors:
+
+* :func:`make_spmttkrp_all_modes` — spMTTKRP along all modes, and with
+  ``remap=False`` the paper's Fig. 9 "Case 2" (the layout stays in mode-0
+  order; later modes psum dense partial outputs);
+* :func:`make_baseline_all_modes` with :func:`even_split_pack` — the
+  ALTO/HiCOO-style nonzero-parallel baseline: every mode psums a dense
+  ``(i_pad, R)`` partial, the traffic Dynasor avoids.
 
 Host preprocessing (:func:`prepare_runtime`, :func:`init_factors`,
-:func:`unpermute_factor`) stays numpy and equals the reference exactly;
-the stream and factors move to the device in ``core.cpals``.
+:func:`unpermute_factor`, :func:`even_split_pack`) stays numpy and equals
+the reference exactly; the stream and factors move to the device in
+``core.cpals``.
 """
 from __future__ import annotations
 
@@ -23,6 +40,7 @@ import torch
 from ..kernels.mttkrp import ops as kops
 from . import remap as remap_lib
 from .flycoo import FlycooTensor, pack_mode
+from .mttkrp import mttkrp
 
 __all__ = [
     "DynasorRuntime",
@@ -31,7 +49,12 @@ __all__ = [
     "init_factors",
     "unpermute_factor",
     "device_mttkrp",
+    "local_mttkrp",
     "device_remap",
+    "make_spmttkrp_all_modes",
+    "make_baseline_all_modes",
+    "even_split_pack",
+    "stack_workers",
 ]
 
 
@@ -150,53 +173,177 @@ def unpermute_factor(ft: FlycooTensor, rt: DynasorRuntime, mode: int,
     return np.asarray(factor)[slot]
 
 
-def _require_one_worker(rt: DynasorRuntime) -> None:
-    if rt.num_workers != 1:
-        raise NotImplementedError(
-            f"num_workers={rt.num_workers}: the multi-GPU path is not "
-            "ported yet (ROADMAP A9); build FLYCOO with num_workers=1")
+def _check_local(x, workers, rt: DynasorRuntime) -> None:
+    if workers.num_workers != rt.num_workers:
+        raise ValueError(f"{workers.num_workers} workers for a runtime of "
+                         f"{rt.num_workers}")
+    if x.shape[0] != len(workers.ranks):
+        raise ValueError(f"leading axis {x.shape[0]}: this process holds "
+                         f"{len(workers.ranks)} workers")
+
+
+def stack_workers(xs):
+    """``torch.stack``, with no copy for one worker's tensor."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
 
 
 def device_mttkrp(idx, val, mask, factors, mode: int, rt: DynasorRuntime,
-                  backend: str):
-    """Owner-computes local MTTKRP for ``mode`` → ``(rows_cap, R)`` f32.
+                  backend: str, worker: int = 0):
+    """Owner-computes local MTTKRP of ``worker`` for ``mode`` →
+    ``(rows_cap, R)`` f32: the rows ``[worker·rows_cap, (worker+1)·rows_cap)``
+    of the output, from that worker's ``(cap, N)`` stream.
 
     ``backend`` is ``segsum`` (gather + ``index_add_``), ``auto`` (the
-    residency ladder, ``ops.select_backend``) or one of ``ops.BACKENDS``
-    (``ref``, and B1–B6 behind the JAX package's names, the bf16 ones
-    among them). The runtime's ``gather_dtype`` and ``ordering`` apply to
-    the fused and gather kernels.
+    residency ladder, ``ops.select_backend``, sized with the replicated
+    factors' rows) or one of ``ops.BACKENDS`` (``ref``, and B1–B6 behind
+    the JAX package's names, the bf16 ones among them). The runtime's
+    ``gather_dtype`` and ``ordering`` apply to the fused and gather
+    kernels. Padding entries (mask off) may point at any row: they are
+    masked before the row offset is subtracted.
     """
     kops.check_backend(backend, extra=("segsum",))
-    _require_one_worker(rt)
+    rows_cap = rt.rows_cap[mode]
     # segsum and ref compute the same plain gather + index_add_ here.
     return kops.mttkrp_device_step(
-        idx, val, mask, factors, mode=mode, rows_cap=rt.rows_cap[mode],
-        row_offset=0, blk=rt.blk, tile_rows=rt.tile_rows,
+        idx, val, mask, factors, mode=mode, rows_cap=rows_cap,
+        row_offset=worker * rows_cap, blk=rt.blk, tile_rows=rt.tile_rows,
         backend="ref" if backend == "segsum" else backend,
         gather_dtype=rt.gather_dtype, ordering=rt.ordering)
 
 
-def device_remap(idx, val, mask, next_mode: int, rt: DynasorRuntime):
+def local_mttkrp(idx, val, mask, factors, mode, rt, backend, workers):
+    """``(L, rows_cap, R)``: :func:`device_mttkrp` of each worker this
+    process holds (``workers.ranks``), on its ``(L, cap, ...)`` layouts."""
+    return stack_workers([
+        device_mttkrp(idx[l], val[l], mask[l], factors, mode, rt, backend,
+                      worker=d)
+        for l, d in enumerate(workers.ranks)])
+
+
+def device_remap(idx, val, mask, next_mode: int, rt: DynasorRuntime,
+                 workers):
     """Dynamic tensor remapping: re-bucket owned nonzeros for ``next_mode``.
 
-    Returns ``(idx', val', mask', dropped)`` — the new owner-sorted layout.
+    ``idx (L, cap, N)``, ``val``/``mask`` ``(L, cap)``: the layouts of the
+    ``L`` workers this process holds (``workers``, ``core.workers``). Each
+    worker buckets its nonzeros by the next mode's owner, into this
+    transition's capacity (``rt.bucket_cap_for``), the buckets go through
+    ``workers``' all_to_all, and each worker compacts what it received;
+    bucketing and compaction run over all local workers at once.
+
+    Returns ``(idx', val', mask', dropped)`` — the new owner-sorted
+    layouts, and each local worker's count of nonzeros that exceeded the
+    capacity (``(L,)``, 0 when the capacities come from
+    ``remap_capacities``).
     """
-    _require_one_worker(rt)
-    D = rt.num_workers
+    _check_local(idx, workers, rt)
+    D, L = rt.num_workers, idx.shape[0]
     cap = rt.bucket_cap_for((next_mode - 1) % rt.nmodes)
     dest = torch.where(
-        mask, torch.div(idx[:, next_mode], rt.rows_cap[next_mode],
+        mask, torch.div(idx[..., next_mode], rt.rows_cap[next_mode],
                         rounding_mode="floor"), D).to(torch.int32)
     (bidx, bval), bmask, dropped = remap_lib.bucket_by_destination(
         dest, (idx, val), D, cap)
-    (ridx, rval), rmask = remap_lib.exchange((bidx, bval), bmask, D)
-    ridx = ridx.reshape(D * cap, rt.nmodes)
-    key = ridx[:, next_mode]  # permuted slot == sort by local row
+    (ridx, rval), rmask = remap_lib.exchange((bidx, bval), bmask, workers)
+    del bidx, bval, bmask
+    ridx = ridx.reshape(L, -1, rt.nmodes)
+    key = ridx[..., next_mode]  # permuted slot == sort by local row
     (oidx, oval), omask = remap_lib.compact_sorted(
-        (ridx, rval.reshape(D * cap)), rmask.reshape(D * cap), key,
-        rt.nnz_cap)
+        (ridx, rval.reshape(L, -1)), rmask.reshape(L, -1), key, rt.nnz_cap)
     oval = torch.where(omask, oval, 0.0)
     # Padding entries point at row 0 (in-bounds gather, zero value: harmless).
-    oidx = torch.where(omask[:, None], oidx, 0)
+    oidx = torch.where(omask[..., None], oidx, 0)
     return oidx, oval, omask, dropped
+
+
+def _dense_partial_mttkrp(idx, val, mask, factors, mode: int,
+                          rt: DynasorRuntime, workers):
+    """Non-owner path: each worker's dense ``(i_pad, R)`` partial over
+    all rows (``index_add_``), then psum (the baseline's traffic)."""
+    return workers.psum(stack_workers([
+        mttkrp(torch.where(m[:, None], i, 0), torch.where(m, v, 0.0),
+               factors, mode, rt.i_pad[mode])
+        for i, v, m in zip(idx, val, mask)]))
+
+
+def make_spmttkrp_all_modes(rt: DynasorRuntime, workers, *,
+                            backend: str = "segsum", remap: bool = True):
+    """spMTTKRP along all modes (the paper's headline benchmark op).
+
+    Returns ``fn(idx, val, mask, *factors) -> (outs, (idx', val', mask'),
+    diagnostics)`` over the stacked layouts of the workers this process
+    holds (``workers``, ``core.workers``) and the replicated ``(i_pad_n, R)`` factors. ``outs`` are the replicated
+    ``(i_pad_n, R)`` MTTKRP results (pre-solve), the primed layouts the
+    remapped ones (back at mode 0 after a full cycle), and
+    ``diagnostics["dropped"]`` each local worker's ``(L,)`` count of
+    nonzeros past an exchange capacity.
+
+    ``remap=False`` is Fig. 9 "Case 2": the layout stays in mode-0 order;
+    for modes ≥ 1 each worker computes a dense partial over *all* rows
+    and they are psummed (the intermediate-value traffic Dynasor avoids).
+    """
+    kops.check_backend(backend, extra=("segsum",))
+
+    def run(idx, val, mask, *factors):
+        _check_local(idx, workers, rt)
+        factors = list(factors)
+        outs = []
+        dropped = torch.zeros(idx.shape[0], dtype=torch.int64,
+                              device=idx.device)
+        for n in range(rt.nmodes):
+            if remap or n == 0:
+                outs.append(workers.all_gather(local_mttkrp(
+                    idx, val, mask, factors, n, rt, backend, workers)))
+            else:
+                outs.append(_dense_partial_mttkrp(idx, val, mask, factors,
+                                                  n, rt, workers))
+            if remap:
+                idx, val, mask, d = device_remap(
+                    idx, val, mask, (n + 1) % rt.nmodes, rt, workers)
+                dropped = dropped + d
+        return outs, (idx, val, mask), {"dropped": dropped}
+
+    return run
+
+
+def make_baseline_all_modes(rt: DynasorRuntime, workers):
+    """ALTO/HiCOO-style nonzero-parallel baseline.
+
+    ``fn(idx, val, mask, *factors) -> outs`` on an even nonzero split
+    (:func:`even_split_pack`, no ownership structure): every mode psums a
+    dense ``(i_pad_n, R)`` partial per worker. Same outputs as Dynasor;
+    different (much larger) collective traffic.
+    """
+    def run(idx, val, mask, *factors):
+        _check_local(idx, workers, rt)
+        return [_dense_partial_mttkrp(idx, val, mask, list(factors), n, rt,
+                                      workers)
+                for n in range(rt.nmodes)]
+
+    return run
+
+
+def even_split_pack(ft: FlycooTensor, rt: DynasorRuntime):
+    """Nonzero-parallel layout for the baseline: even chunks, natural order.
+
+    Indices are still in permuted row space so baseline outputs are directly
+    comparable with Dynasor outputs. Returns numpy ``(idx (D, cap, N),
+    val (D, cap), mask (D, cap))``.
+    """
+    D = rt.num_workers
+    nnz = ft.nnz
+    cap = -(-nnz // D)
+    idx = np.zeros((D, cap, ft.nmodes), np.int32)
+    val = np.zeros((D, cap), np.float32)
+    mask = np.zeros((D, cap), bool)
+    perm_idx = _repad_indices(ft, ft.perm_indices.astype(np.int32),
+                              rt.rows_cap)
+    for d in range(D):
+        lo, hi = d * cap, min(nnz, (d + 1) * cap)
+        k = hi - lo
+        if k <= 0:
+            continue
+        idx[d, :k] = perm_idx[lo:hi]
+        val[d, :k] = ft.tensor.values[lo:hi]
+        mask[d, :k] = True
+    return idx, val, mask

@@ -15,12 +15,14 @@ torch.set_num_threads(1)
 from repro.core import cpals as jcpals  # noqa: E402
 from repro.core import distributed as jdist  # noqa: E402
 from repro.core import flycoo as jfly  # noqa: E402
+from repro.core import remap as jremap  # noqa: E402
 from repro.core import tensors as jten  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import cpals as tcpals  # noqa: E402
 from repro_torch.core import distributed as tdist  # noqa: E402
 from repro_torch.core import flycoo as tfly  # noqa: E402
 from repro_torch.core import tensors as tten  # noqa: E402
+from repro_torch.core.workers import LocalWorkers  # noqa: E402
 
 SHAPE, NNZ, RANK = (40, 30, 20), 2000, 8
 FAC_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -81,16 +83,18 @@ def test_one_sweep_from_reference_state(tensors, mesh):
             *jstream, np.broadcast_to(x2, (1,)).copy(), *jfac, jlam,
             jnp.asarray(sweep0))
         res = tcpals.als_sweep(tstream, tfac, tlam, torch.tensor(x2), rt,
-                               sweep0=sweep0, backend="pallas_fused_gather")
+                               workers=LocalWorkers(1, "cpu"), sweep0=sweep0,
+                               backend="pallas_fused_gather")
         for a, b in zip(res.factors, jfac2):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **FAC_TOL)
         np.testing.assert_allclose(res.lam.numpy(), np.asarray(jlam2),
                                    **FAC_TOL)
         assert abs(float(res.fit) - float(jfit)) < FIT_TOL
-        # The remapped stream is integer data: equal exactly.
-        np.testing.assert_array_equal(res.stream[0].numpy(), np.asarray(i2)[0])
-        np.testing.assert_array_equal(res.stream[1].numpy(), np.asarray(v2)[0])
-        np.testing.assert_array_equal(res.stream[2].numpy(), np.asarray(m2)[0])
+        # The remapped stream is integer data: equal exactly, with its
+        # (1, cap, ...) worker axis.
+        np.testing.assert_array_equal(res.stream[0].numpy(), np.asarray(i2))
+        np.testing.assert_array_equal(res.stream[1].numpy(), np.asarray(v2))
+        np.testing.assert_array_equal(res.stream[2].numpy(), np.asarray(m2))
         assert len(res.mttkrp) == 3
         state = ((i2, v2, m2), jfac2, jlam2)
 
@@ -159,9 +163,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tensors, monkeypatch):
 
 def test_unported_options_raise(tensors, mesh):
     ft, fj = tensors
+    # Two workers (ROADMAP A9) run: init_factors draws the same natural
+    # factors at every D, so one sweep equals the reference's on its
+    # one-device mesh in natural row order (fp32 tolerance: the column
+    # norms add over workers in another order).
     ft2 = tfly.build_flycoo(ft.tensor, 2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcpals.cp_als_distributed(ft2, RANK, device="cpu", iters=1)
+    got = tcpals.cp_als_distributed(ft2, RANK, device="cpu", iters=1)
+    want = jcpals.cp_als_distributed(fj, RANK, mesh, iters=1)
+    np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=FIT_TOL)
+    for a, b in zip(got.factors, want.factors):
+        np.testing.assert_allclose(a, b, **FAC_TOL)
     # bf16 gathers are ported: the bf16 names and gather_dtype="bfloat16"
     # give the JAX run's fits (one sweep from the same factors: fp32
     # tolerance); an unknown gather dtype raises ValueError.
@@ -178,9 +189,24 @@ def test_unported_options_raise(tensors, mesh):
                                   gather_dtype="bf16")
     with pytest.raises(NotImplementedError, match="A12"):
         tdist.prepare_runtime(ft, RANK, table=object())
-    rt, _ = tdist.prepare_runtime(ft2, RANK)
+    # The remap at two workers: each worker holds the reference oracle's
+    # (remap_local's) nonzeros of the next mode, in its row order.
+    rt, (idx, val, mask) = tdist.prepare_runtime(ft2, RANK)
     assert rt.num_workers == 2
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdist.device_remap(torch.zeros(4, 3, dtype=torch.int32),
-                           torch.zeros(4), torch.ones(4, dtype=torch.bool),
-                           1, rt)
+    fj2 = jfly.build_flycoo(fj.tensor, 2)
+    oidx, oval, omask, dropped = tdist.device_remap(
+        torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(mask),
+        1, rt, LocalWorkers(2, "cpu"))
+    assert dropped.tolist() == [0, 0]
+    widx, wval, wmask = jremap.remap_local(fj2, 1)
+    widx = jdist._repad_indices(fj2, widx, rt.rows_cap)
+    for d in range(2):
+        m = omask[d].numpy()
+        np.testing.assert_array_equal(m, wmask[d])
+        np.testing.assert_array_equal(oidx[d].numpy()[m, 1], widx[d][m, 1])
+        got_rows = np.concatenate(
+            [oidx[d].numpy()[m], oval[d].numpy()[m, None].view(np.int32)], 1)
+        want_rows = np.concatenate(
+            [widx[d][m], wval[d][m, None].view(np.int32)], 1)
+        np.testing.assert_array_equal(got_rows[np.lexsort(got_rows.T)],
+                                      want_rows[np.lexsort(want_rows.T)])

@@ -1006,3 +1006,80 @@ def test_fused_stage_wider_than_a_tensor_box(cuda, monkeypatch, ring, dtype):
     assert torch.allclose(b4, plain, rtol=1e-5, atol=1e-5 * scale)
     assert torch.equal(b4, K.fused_mttkrp_nmode_gather(vals, idx, factors,
                                                        rows, tob, **kw))
+
+
+# ---------------------------------------------------------------------------
+# D > 1 workers in one process (LocalWorkers): row offsets on the card
+# ---------------------------------------------------------------------------
+
+WORKER_BACKENDS = ("auto", "pallas_fused_gather", "pallas_fused_gather_tiled",
+                   "pallas_fused", "pallas_fused_tiled", "pallas",
+                   "pallas_fused_gather_stream")
+SMALL_FLYCOO = dict(m_bounds=(2, 8), g_bounds=(8, 64), cache_bytes=1 << 20)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_workers_backends_bitwise_and_match_cpu(cuda, D):
+    """Every backend at D workers, each worker's step at its row offset:
+    bitwise equal to B1 on the card, allclose to the CPU plain run; CP-ALS
+    on the card matches the CPU run."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.workers import LocalWorkers
+    t = tensors.random_sparse_tensor((30, 20, 10), 500, seed=3)
+    ft = flycoo.build_flycoo(t, D, **SMALL_FLYCOO)
+    rt, packed = dist.prepare_runtime(ft, 8)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        wk = LocalWorkers(D, dev)
+        stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
+                                                   workers=wk)
+        for backend in WORKER_BACKENDS:
+            got, _, diags = dist.make_spmttkrp_all_modes(
+                rt, wk, backend=backend)(*stream, *factors)
+            assert int(diags["dropped"].sum()) == 0
+            outs[dev.type, backend] = [o.cpu() for o in got]
+    for backend in WORKER_BACKENDS:
+        for a, b, p in zip(outs["cuda", backend],
+                           outs["cuda", "pallas_fused_gather"],
+                           outs["cpu", "pallas_fused_gather"]):
+            assert torch.equal(a, b), backend
+            scale = float(p.abs().max())
+            assert torch.allclose(a, p, rtol=1e-5, atol=1e-5 * scale)
+    got = cpals.cp_als_distributed(ft, 8, iters=3, tol=0.0, backend="auto")
+    want = cpals.cp_als_distributed(ft, 8, device="cpu", iters=3, tol=0.0,
+                                    backend="auto")
+    np.testing.assert_allclose(got.fits, want.fits, rtol=0, atol=1e-5)
+    for a, b in zip(got.factors, want.factors):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_worker_3_padding_at_row_0_changes_nothing(cuda):
+    """Worker 3's padding slots pointing at row 0 (as after a remap), at
+    its own first row (as packed) or cut off: B6's windows and every
+    backend's output at worker 3's row offset are the same."""
+    from repro_torch.core import distributed as dist
+    t = tensors.random_sparse_tensor((30, 20, 10), 500, seed=3)
+    ft = flycoo.build_flycoo(t, 4, **SMALL_FLYCOO)
+    rt, (idx, val, mask) = dist.prepare_runtime(ft, 8)
+    i, v, m = idx[3], val[3], mask[3]
+    assert (~m).any()
+    k = int(m.sum())
+    variants = [(i, v, m), (np.where(m[:, None], i, 0), v, m),
+                (i[:k], v[:k], m[:k])]
+    factors = [torch.from_numpy(f).to(cuda)
+               for f in dist.init_factors(ft, rt, seed=0)]
+    kw = dict(mode=0, rows_cap=rt.rows_cap[0], row_offset=3 * rt.rows_cap[0],
+              blk=rt.blk, tile_rows=rt.tile_rows)
+    windows, outs = [], []
+    for i_, v_, m_ in variants:
+        i_, v_, m_ = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                      for x in (i_, v_, m_))
+        args = ops.gather_operands(i_, v_, m_, factors, slab=16, **kw)
+        windows.append([s.shape[1] for s in _stream_args(args, blk=rt.blk)[5]])
+        outs.append([ops.mttkrp_device_step(i_, v_, m_, factors, backend=b,
+                                            **kw)
+                     for b in WORKER_BACKENDS])
+    assert windows[0] == windows[1] == windows[2]
+    for got in outs:
+        for a in got:
+            assert torch.equal(a, outs[0][1])

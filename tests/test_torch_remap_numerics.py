@@ -1,4 +1,5 @@
 """Port parity: dynamic remap (exact) and the guarded solve (levels + values)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from repro_torch.core import distributed as tdist  # noqa: E402
 from repro_torch.core import flycoo as tfly  # noqa: E402
 from repro_torch.core import remap as tremap  # noqa: E402
 from repro_torch.core import tensors as tten  # noqa: E402
+from repro_torch.core.workers import LocalWorkers  # noqa: E402
 from repro_torch.resilience import numerics as tnum  # noqa: E402
 
 FLYCOO_KW = dict(m_bounds=(2, 8), g_bounds=(8, 64), cache_bytes=1 << 20)
@@ -68,12 +70,34 @@ def test_remap_capacities_equal(workers):
 
 
 def test_exchange_is_identity_at_one_worker_and_raises_beyond():
-    b = torch.ones(1, 3, 4)
-    m = torch.ones(1, 3, dtype=torch.bool)
-    out, om = tremap.exchange(b, m, 1)
-    assert out is b and om is m
-    with pytest.raises(NotImplementedError, match="A9"):
-        tremap.exchange(torch.ones(2, 3, 4), torch.ones(2, 3, dtype=bool), 2)
+    """One worker keeps its buckets; D in {2, 4} workers in one process
+    exchange them as the reference's all_to_all does (run under
+    ``jax.vmap`` over a named axis, the D workers of a mesh); buckets
+    whose worker axes disagree with the workers raise."""
+    b = torch.ones(1, 1, 3, 4)
+    m = torch.ones(1, 1, 3, dtype=torch.bool)
+    (out,), om = tremap.exchange((b,), m, LocalWorkers(1, "cpu"))
+    assert torch.equal(out, b) and torch.equal(om, m)
+    for D in (2, 4):
+        rng = np.random.default_rng(D)
+        bn = rng.standard_normal((D, D, 3, 4)).astype(np.float32)
+        mn = rng.random((D, D, 3)) < 0.5
+        (out,), om = tremap.exchange((torch.from_numpy(bn),),
+                                     torch.from_numpy(mn),
+                                     LocalWorkers(D, "cpu"))
+        want, wmask = jax.vmap(lambda x, y: jremap.exchange(x, y, "w"),
+                               axis_name="w")(jnp.asarray(bn),
+                                              jnp.asarray(mn))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(om.numpy(), np.asarray(wmask))
+    with pytest.raises(ValueError, match="workers"):
+        tremap.exchange((torch.ones(2, 2, 3, 4),),
+                        torch.ones(2, 2, 3, dtype=torch.bool),
+                        LocalWorkers(4, "cpu"))
+    with pytest.raises(ValueError, match="destinations"):
+        tremap.exchange((torch.ones(2, 3, 3, 4),),
+                        torch.ones(2, 3, 3, dtype=torch.bool),
+                        LocalWorkers(2, "cpu"))
 
 
 @pytest.mark.parametrize("shape", [(30, 20, 10), (9, 8, 7, 6)])
@@ -84,12 +108,15 @@ def test_device_remap_equals_pack_mode(shape):
     t = tten.random_sparse_tensor(shape, 400, seed=5)
     ft = tfly.build_flycoo(t, 1)
     rt, (idx, val, mask) = tdist.prepare_runtime(ft, 8)
-    cur = (torch.from_numpy(idx[0]), torch.from_numpy(val[0]),
-           torch.from_numpy(mask[0]))
+    cur = (torch.from_numpy(idx), torch.from_numpy(val),
+           torch.from_numpy(mask))
     for n in range(len(shape)):
         nxt = (n + 1) % len(shape)
-        oidx, oval, omask, dropped = tdist.device_remap(*cur, nxt, rt)
-        assert int(dropped) == 0
+        oidx, oval, omask, dropped = tdist.device_remap(
+            *cur, nxt, rt, LocalWorkers(1, "cpu"))
+        assert dropped.tolist() == [0]
+        cur = (oidx, oval, omask)
+        oidx, oval, omask = oidx[0], oval[0], omask[0]
         pidx, pval, pmask = tfly.pack_mode(ft, nxt)
         pidx = tdist._repad_indices(ft, pidx, rt.rows_cap)
         k = int(pmask[0].sum())
@@ -102,7 +129,6 @@ def test_device_remap_equals_pack_mode(shape):
             [want_i, pval[0, :k, None].view(np.int32)], 1)
         np.testing.assert_array_equal(got_rows[np.lexsort(got_rows.T)],
                                       want_rows[np.lexsort(want_rows.T)])
-        cur = (oidx, oval, omask)
 
 
 def _healthy_vm(rng, r=6, rows=9):
