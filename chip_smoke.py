@@ -76,9 +76,22 @@ Phases (each prints its own lines; any failure exits non-zero):
       outputs, ms and the bytes each hands to the collectives;
   14. ``[dist-fit]``: CP-ALS at D=4 on the ``[bf16-fit]`` tensor against
       that phase's fp32 D=1 fits (5 sweeps, gap <= 1e-4);
-  15. one JSON line with all six kernels and the five bf16 variants
+  15. ``[resilience]`` on the nell-2 stand-in (D=1, R=16, ``auto``, 3
+      sweeps): the stepped driver with a ``RetryPolicy`` and a ``Tracer``
+      (fits within 1e-5 of ``[main]``'s, B1 only, its Chrome trace
+      validated, span ms per mode and phase); the same call under three
+      injected faults in sweep 0 (a transient and a resource fault at
+      ``ops.kernel``, so one mode step runs B2, a transient one at
+      ``distributed.remap``): all fired, counted and handled, factors and
+      fits bitwise the fault-free run's, the rung of each mode printed;
+      2 sweeps checkpointed (``keep=1``) and resumed to 3: bitwise, bytes
+      and seconds per save and restore; one profiled sweep of each driver
+      (wall, kernels, idle share); a chunked out-of-core step with a
+      replayed chunk, bitwise; ``python -m repro_torch.resilience --device
+      cuda`` in this process;
+  16. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
-      ``[dist-main]``), the
+      ``[dist-main]``, ``resilience_launches`` from ``[resilience]``), the
       card's name and power limit, and the last line
       ``{"ok": true, "device": {...}}``.
 
@@ -1786,6 +1799,246 @@ def phase_dist_fit(t, fits1, gpu: str):
             f"D={workers} fits {res.fits} vs D=1 {fits1[:sweeps]}")
 
 
+class _TimedCheckpoints:
+    """Bytes and seconds of each save and restore the CP-ALS driver makes:
+    ``resilience.checkpoint.save_state`` / ``restore_state`` wrapped for
+    the duration of a ``with`` block (the driver calls them through the
+    module, so it meets the wrappers)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.resilience import checkpoint as ck
+        self._ck, self._orig = ck, (ck.save_state, ck.restore_state)
+        save, restore = self._orig
+
+        def timed_save(mgr, state):
+            t0 = time.perf_counter()
+            path = save(mgr, state)
+            secs = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            self.rows.append(("save", nbytes, secs))
+            return path
+
+        def timed_restore(mgr, template, device=None):
+            t0 = time.perf_counter()
+            state, step = restore(mgr, template, device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if state is not None:
+                leaves = list(state["factors"]) + [
+                    v for k, v in state.items() if k != "factors"]
+                nbytes = sum(x.numel() * x.element_size() if
+                             isinstance(x, torch.Tensor) else x.nbytes
+                             for x in leaves)
+                self.rows.append(("restore", nbytes, secs))
+            return state, step
+
+        ck.save_state, ck.restore_state = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        self._ck.save_state, self._ck.restore_state = self._orig
+        return False
+
+
+def _mode_rungs(tracer, default: str):
+    """``{(sweep, mode): backend}`` from the stepped driver's spans: the
+    last degradation a mode's ``mttkrp`` span counted, else ``default``."""
+    from repro_torch.obs import split_key
+    by_sid = {r.sid: r for r in tracer.records}
+    rungs = {}
+    for r in tracer.records:
+        if r.name != "mttkrp":
+            continue
+        mode = by_sid[r.parent]
+        sweep = by_sid[mode.parent].args["sweep"]
+        to = [split_key(k)[1]["to"] for k in r.counters
+              if k.startswith("resilience.degradations")]
+        rungs[(sweep, mode.args["mode"])] = to[-1] if to else default
+    return rungs
+
+
+def _phase_ms(tracer) -> dict:
+    """``{(mode, phase): [ms per sweep]}`` of the stepped driver's spans."""
+    by_sid = {r.sid: r for r in tracer.records}
+    out = {}
+    for r in sorted(tracer.records, key=lambda r: r.t0):
+        if r.name in ("mttkrp", "solve", "remap"):
+            key = (by_sid[r.parent].args["mode"], r.name)
+            out.setdefault(key, []).append(round(r.duration_s * 1e3, 2))
+    return out
+
+
+def _profile_driver(fn):
+    """``(wall ms, device busy ms)`` of ``fn()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+    return wall, busy
+
+
+def phase_resilience(ft, main_fits, dev, gpu: str):
+    """``[resilience]`` (ROADMAP A10) on the nell-2 stand-in, D=1, R=16,
+    ``auto``, 3 sweeps: the stepped driver fault-free (its fits against
+    ``[main]``'s ``als_sweep`` fits, its Chrome trace validated), under
+    three injected faults (bitwise the fault-free run), checkpointed and
+    resumed (bitwise), the chunk site of the out-of-core executor, and the
+    chaos smoke ``python -m repro_torch.resilience --device cuda``."""
+    import shutil
+    import tempfile
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.kernels.mttkrp import ops
+    from repro_torch.obs import Tracer, use_registry, validate_chrome_trace
+    from repro_torch.oocore import executor, planner
+    from repro_torch.resilience import (FaultSpec, RetryPolicy, inject,
+                                        use_policy)
+    from repro_torch.resilience import __main__ as chaos_smoke
+    t_phase = time.perf_counter()
+    b1 = "fused_mttkrp_nmode_gather"
+    kw = dict(backend="auto", iters=3, tol=0.0)
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+
+    # --- 1. fault-free stepped run: counts zeroed before, read after ----
+    reset_counts()
+    tracer = Tracer()
+    run1 = cpals.cp_als_distributed(ft, 16, resilience=RetryPolicy(),
+                                    tracer=tracer, **kw)
+    launched = counts()
+    require_only(launched, b1, 9, "[resilience] stepped run (B1 per mode)")
+    gap = max(abs(a - b) for a, b in zip(run1.fits, main_fits))
+    log(f"[resilience] stepped cp_als_distributed R=16 auto, RetryPolicy + "
+        f"Tracer: fits {run1.fits}; [main] als_sweep fits {main_fits}; "
+        f"largest gap {gap:.3e}; ms per sweep "
+        f"{[round(s * 1e3, 2) for s in run1.sweep_seconds]}; B1 launches "
+        f"{launched[b1]}  [{gpu}]")
+    require(len(run1.fits) == 3 and gap <= 1e-5,
+            f"stepped fits {run1.fits} vs als_sweep {main_fits}")
+    with tempfile.TemporaryDirectory(dir=scratch) as td:
+        path = tracer.write_chrome_trace(os.path.join(td, "stepped.json"))
+        with open(path) as f:
+            trace = json.load(f)
+    errors = validate_chrome_trace(
+        trace, expect_names=("sweep", "mode", "mttkrp", "solve", "remap"))
+    require(not errors, f"stepped Chrome trace: {errors}")
+    for (mode, phase), ms in sorted(_phase_ms(tracer).items()):
+        log(f"[resilience] span ms per sweep, mode {mode} {phase}: {ms}")
+    log(f"[resilience] Chrome trace: {len(trace['traceEvents'])} events, "
+        "valid (sweep, mode, mttkrp, solve, remap)")
+
+    # --- 2. chaos: the same call under three faults, all in sweep 0 -----
+    specs = [FaultSpec("ops.kernel", 1, "transient"),
+             FaultSpec("ops.kernel", 2, "resource"),
+             FaultSpec("distributed.remap", 0, "transient")]
+    reset_counts()
+    tracer2 = Tracer()
+    with use_registry() as reg, inject(specs) as inj:
+        run2 = cpals.cp_als_distributed(ft, 16, resilience=RetryPolicy(),
+                                        tracer=tracer2, **kw)
+    launched2 = counts()
+    injected = reg.total("resilience.injected")
+    handled = reg.total("resilience.retries") \
+        + reg.total("resilience.degradations")
+    rungs = _mode_rungs(tracer2, "pallas_fused_gather")
+    log(f"[resilience] chaos {[(s.site, s.index, s.kind) for s in specs]}: "
+        f"fits {run2.fits}; injected {injected}, retries + degradations "
+        f"{handled}; counters "
+        f"{ {k: v for k, v in reg.snapshot().items() if k.startswith('resilience.') and 'site_calls' not in k} }; "
+        f"launches B1 {launched2[b1]}, B2 "
+        f"{launched2['fused_mttkrp_nmode_gather_tiled']}")
+    for (sweep, mode), rung in sorted(rungs.items()):
+        log(f"[resilience] chaos rung sweep {sweep} mode {mode}: {rung}")
+    require(inj.pending() == () and injected == 3 and handled >= 3,
+            f"chaos: pending {inj.pending()}, injected {injected}, "
+            f"handled {handled}")
+    require(rungs[(0, 1)] == "pallas_fused_gather_tiled"
+            and launched2[b1] == 8
+            and launched2["fused_mttkrp_nmode_gather_tiled"] == 1,
+            f"chaos: rungs {rungs}, launches {launched2}")
+    require(run2.fits == run1.fits
+            and all(np.array_equal(a, b)
+                    for a, b in zip(run2.factors, run1.factors)),
+            f"chaos fits {run2.fits} not bitwise the fault-free {run1.fits}")
+
+    # --- 3. checkpoint 2 sweeps (keep=1), resume to 3 -------------------
+    ckdir = tempfile.mkdtemp(dir=scratch)
+    try:
+        ck = dict(kw, checkpoint_dir=ckdir, checkpoint_keep=1)
+        with _TimedCheckpoints() as timed, use_registry() as reg:
+            cpals.cp_als_distributed(ft, 16, **dict(ck, iters=2))
+            run3 = cpals.cp_als_distributed(ft, 16, **ck)
+        restores = reg.get("resilience.checkpoint.restores")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for what, nbytes, secs in timed.rows:
+        log(f"[resilience] checkpoint {what}: {nbytes} B in {secs:.3f} s "
+            f"({nbytes / secs / 1e9:.3f} GB/s)  [{gpu}]")
+    log(f"[resilience] resumed fits {run3.fits}, restores {restores}")
+    require(restores == 1 and run3.fits == run1.fits
+            and all(np.array_equal(a, b)
+                    for a, b in zip(run3.factors, run1.factors)),
+            f"resume: restores {restores}, fits {run3.fits} vs {run1.fits}")
+
+    # --- 4. one sweep of each driver on one state, profiled -------------
+    rt, packed = dist.prepare_runtime(ft, 16)
+    wk = one_device(dev)
+    stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
+                                                  workers=wk)
+    del packed
+    drivers = {
+        "als_sweep": lambda: float(cpals.als_sweep(
+            stream, factors, lam, x2, rt, workers=wk, sweep0=True,
+            backend="auto").fit),
+        "stepped": lambda: cpals._cp_als_distributed_stepped(
+            ft, rt, stream, factors, lam, x2, workers=wk, iters=1, tol=0.0,
+            backend="auto", tracer=Tracer()),
+    }
+    drivers["als_sweep"]()   # first-use costs outside the profile
+    for name in ("als_sweep", "stepped", "stepped", "als_sweep"):
+        wall, busy = _profile_driver(drivers[name])
+        log(f"[resilience] profiled sweep 0, {name}: wall {wall:.2f} ms, "
+            f"kernels {busy:.2f} ms, device idle share "
+            f"{1 - busy / wall:.3f}  [{gpu}]")
+
+    # --- 5. the out-of-core chunk site: a replayed chunk, bitwise -------
+    blk, tile_rows, k = MAIN_STREAM_BLK, STREAM_TILE_ROWS, rt.nmodes - 1
+    cur = one_worker(stream)
+    num_blocks = ops.n_pad_for(cur[0].shape[0], rt.rows_cap[0], blk,
+                               tile_rows) // blk
+    okw = dict(mode=0, rows_cap=rt.rows_cap[0], blk=blk, tile_rows=tile_rows,
+               max_chunk_bytes=num_blocks * planner.stream_chunk_bytes(
+                   blk, k, (1,) * k) // 5)
+    out0, stats = executor.mttkrp_out_of_core(*cur, factors, **okw)
+    with use_registry() as reg, use_policy(), \
+            inject([FaultSpec("oocore.chunk", 2, "transient")]) as inj:
+        out1, _ = executor.mttkrp_out_of_core(*cur, factors, **okw)
+    retries = reg.get("resilience.retries", site="oocore.chunk")
+    log(f"[resilience] mttkrp_out_of_core mode 0 in {stats.chunks} chunks, "
+        f"transient fault at chunk 2: retries {retries}, bitwise "
+        f"{torch.equal(out0, out1)}")
+    require(stats.chunks >= 5 and inj.pending() == () and retries == 1
+            and torch.equal(out0, out1), "out-of-core chunk replay")
+    del stream, factors, cur, out0, out1
+
+    # --- 6. the chaos smoke, in this process -----------------------------
+    rc = chaos_smoke.main(["--device", "cuda"])
+    require(rc == 0, f"python -m repro_torch.resilience --device cuda: {rc}")
+    log(f"[resilience] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {b1: launched[b1]}
+
+
 def phase_four_mode(dev):
     from repro_torch.core import flycoo, tensors
     t = tensors.frostt_like("enron")
@@ -1840,19 +2093,22 @@ def main() -> int:
     # The [dist-main] path's launches, read apart from the D=1 paths'.
     dist_launches = {"fused_mttkrp_nmode_gather":
                      phase_dist_main(ft, dev, gpu)}
-    del ft
     phase_four_mode(dev)
     phase_recovery()
     phase_bf16_kernels(dev)
     t_fit, fits_fit = phase_bf16_fit(gpu)
     phase_dist_fit(t_fit, fits_fit, gpu)
     del t_fit
+    # The [resilience] path's launches (the stepped driver), read apart.
+    res_launches = phase_resilience(ft, b1_fits, dev, gpu)
+    del ft
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches,
             "dist_main_launches": dist_launches.get(name, 0),
+            "resilience_launches": res_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1869,7 +2125,8 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s; "
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
         "of the main path; launches are the D=1 main paths', "
-        "dist_main_launches the [dist-main] D=4 run's; "
+        "dist_main_launches the [dist-main] D=4 run's, "
+        "resilience_launches the [resilience] fault-free stepped run's; "
         "l2_bound_ms is the L2 bytes (rows gathered by "
         "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
         "factor element for the [bf16] variants) over the "

@@ -15,7 +15,13 @@ Port of ``repro/core/cpals.py``. Two drivers, one algorithm:
   :func:`als_sweep` is one sweep, the math of the reference's
   ``make_als_sweep``.
 
-Both run on CUDA unless the caller passes ``device="cpu"``.
+Both run on CUDA unless the caller passes ``device="cpu"``. Both take a
+``tracer`` (``repro_torch.obs``) and ``checkpoint_dir``: resumable sweeps
+through atomic checkpoints (``resilience.checkpoint``). An enabled
+tracer, a ``checkpoint_dir`` or a ``resilience`` policy switches
+:func:`cp_als_distributed` to the stepped driver, whose phases (each
+mode's MTTKRP, solve and remap) are host-level calls with spans, retries
+and counters; without them it runs :func:`als_sweep`.
 
 Fit = 1 - ||X - X̂||_F / ||X||_F from the sparse-CP identity (SPLATT):
 ||X̂||² = 1λᵀ(⊛_w Gramᵂ)λ1 and <X, X̂> = Σ_r λ_r Σ_i M_last[i,r]·A_last[i,r],
@@ -23,6 +29,7 @@ with ``M_last`` the last mode's pre-solve MTTKRP output.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -31,7 +38,11 @@ import numpy as np
 import torch
 
 from ..kernels.mttkrp import ops as kops
+from ..obs import counters as _obs
+from ..obs import tracer as _tracer
+from ..resilience import checkpoint as _ckpt
 from ..resilience import numerics as _numerics
+from ..resilience import policy as _rpolicy
 from ..runtime.device import resolve_device
 from . import distributed as dist
 from .flycoo import FlycooTensor
@@ -133,12 +144,23 @@ def _sweep(indices, values, factors, lam, shape, sweep0: bool):
 
 
 def cp_als(tensor, rank: int, *, device=None, iters: int = 10, seed: int = 0,
-           tol: float = 1e-5) -> CPResult:
+           tol: float = 1e-5, tracer=None,
+           checkpoint_dir: str | None = None,
+           checkpoint_every: int = 1) -> CPResult:
     """Single-device CP-ALS (paper Alg. 1) — the correctness oracle.
 
     Factors start from ``numpy.random.default_rng(seed)`` as in the
     reference, so both packages start from the same numbers.
+
+    ``tracer`` (default: the process tracer, normally the no-op) records
+    one ``sweep`` span per sweep. ``checkpoint_dir`` turns on resumable
+    sweeps: every ``checkpoint_every``-th completed sweep is persisted
+    atomically (factors, λ, fit trace, sweep index; backend fingerprint
+    ``"torch"``, so a checkpoint of the reference's ``cp_als`` is
+    refused), and a rerun pointed at the same directory restores the
+    newest complete checkpoint and continues from it.
     """
+    tracer = _tracer.get_tracer() if tracer is None else tracer
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     factors = [torch.as_tensor(rng.standard_normal((d, rank)),
@@ -149,12 +171,29 @@ def cp_als(tensor, rank: int, *, device=None, iters: int = 10, seed: int = 0,
     val = torch.as_tensor(tensor.values, dtype=torch.float32).to(dev)
     fits: list[float] = []
     seconds: list[float] = []
-    for it in range(iters):
+    start_it = 0
+    mgr = _ckpt.make_manager(checkpoint_dir)
+    if mgr is not None:
+        state, _ = _ckpt.restore_state(
+            mgr, _ckpt.make_state(factors, lam, fits, sweep=0, rank=rank,
+                                  backend="torch"), device=dev)
+        if state is not None:
+            factors, lam = list(state["factors"]), state["lam"]
+            fits = [float(x) for x in state["fits"]]
+            start_it = int(state["sweep"]) + 1
+    for it in range(start_it, iters):
         t0 = time.perf_counter()
-        factors, lam, fit = _sweep(idx, val, factors, lam,
-                                   tuple(tensor.shape), it == 0)
-        fits.append(float(fit))   # waits for the sweep
+        with tracer.span("sweep", sweep=it, driver="single"):
+            factors, lam, fit = _sweep(idx, val, factors, lam,
+                                       tuple(tensor.shape), it == 0)
+            fit = float(fit)   # waits for the sweep
         seconds.append(time.perf_counter() - t0)
+        _obs.add("cpals.sweep_s", seconds[-1], driver="single")
+        _obs.add("cpals.sweeps", driver="single")
+        fits.append(fit)
+        if mgr is not None and (it + 1) % checkpoint_every == 0:
+            _ckpt.save_state(mgr, _ckpt.make_state(
+                factors, lam, fits, sweep=it, rank=rank, backend="torch"))
         if it > 0 and abs(fits[-1] - fits[-2]) < tol:
             break
     return CPResult([f.cpu().numpy() for f in factors], lam.cpu().numpy(),
@@ -236,12 +275,139 @@ def device_state(ft: FlycooTensor, rt: dist.DynasorRuntime, packed, *,
     return stream, factors, lam, x_norm_sq
 
 
+def _sync(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work, so a phase's span and retry cover
+    it (a no-op on the CPU, where ops run eagerly)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ckpt_state(rt, backend, factors, lam, fits, sweep, stream):
+    """One distributed-sweep checkpoint, the stream included."""
+    return _ckpt.make_state(factors, lam, fits, sweep=sweep, rank=rt.rank,
+                            ordering=rt.ordering, backend=backend,
+                            stream=stream)
+
+
+def _cp_als_distributed_stepped(ft, rt, stream, factors, lam, x_norm_sq, *,
+                                workers, iters: int, tol: float,
+                                backend: str, tracer, mgr=None,
+                                checkpoint_every: int = 1) -> CPResult:
+    """Stepped Dynasor CP-ALS: each phase a host-level call.
+
+    The counterpart of the reference's ``_cp_als_distributed_traced``,
+    with the same phases, spans and counters. Per mode:
+
+    * ``mttkrp``: each local worker's owner-computes MTTKRP, then the
+      full pre-solve ``M`` as ``workers.all_gather`` of the local outputs
+      (under ``pol.run("ops.kernel", ...)`` when a policy is active; the
+      kernel dispatch inside walks the degradation ladder);
+    * ``solve``: :func:`_solve_v_guarded` and :func:`_normalize_columns`
+      on the full matrix, as the reference's stepped driver does (row for
+      row the owned-rows solve of :func:`als_sweep`); the guard level is
+      decided once, and a level above 0 adds to
+      ``resilience.solve.guards``;
+    * ``remap``: :func:`dist.device_remap` into the next mode's owners
+      (under ``pol.run("distributed.remap", ...)``).
+
+    Each phase ends with ``torch.cuda.synchronize`` on CUDA, so its span
+    and ``cpals.phase_s`` cover its device work and a fault that retries
+    it finds nothing in flight. ``M`` is always built by the all_gather,
+    so no layout pin is needed before the solve (the reference pins one:
+    there ``M`` arrives sharded mid-run and whole on resume).
+    Checkpoints (``mgr``) hold the factors, λ, fits, the sweep index and
+    the remapped stream with its worker axis, so a resumed run continues
+    from the exact post-sweep state.
+    """
+    dev = workers.device
+    idx, val, mask = stream
+    fits: list[float] = []
+    seconds: list[float] = []
+    start_it = 0
+    if mgr is not None:
+        state, _ = _ckpt.restore_state(
+            mgr, _ckpt_state(rt, backend, factors, lam, fits, 0,
+                             (idx, val, mask)), device=dev)
+        if state is not None:
+            factors, lam = state["factors"], state["lam"]
+            fits = [float(x) for x in state["fits"]]
+            idx, val, mask = (state["stream_idx"], state["stream_val"],
+                              state["stream_mask"])
+            start_it = int(state["sweep"]) + 1
+    pol = _rpolicy.get_policy()
+    factors = list(factors)
+    grams = [f.T @ f for f in factors]
+    for it in range(start_it, iters):
+        t_sweep = time.perf_counter()
+        with tracer.span("sweep", sweep=it, driver="distributed"):
+            M = A = None
+            for n in range(rt.nmodes):
+                with tracer.span("mode", mode=n):
+                    t0 = time.perf_counter()
+                    with tracer.span("mttkrp", backend=backend):
+                        def _mttkrp(n=n, idx=idx, val=val, mask=mask,
+                                    factors=tuple(factors)):
+                            out = workers.all_gather(dist.local_mttkrp(
+                                idx, val, mask, list(factors), n, rt,
+                                backend, workers))
+                            _sync(dev)
+                            return out
+                        M = (_mttkrp() if pol is None
+                             else pol.run("ops.kernel", _mttkrp))
+                    _obs.add("cpals.phase_s", time.perf_counter() - t0,
+                             phase="mttkrp", mode=n)
+                    t0 = time.perf_counter()
+                    with tracer.span("solve"):
+                        A, level = _solve_v_guarded(grams, n, M)
+                        A, norms = _normalize_columns(A, it == 0)
+                        _sync(dev)
+                        if level:
+                            _obs.add("resilience.solve.guards",
+                                     level=_numerics.GUARD_LEVELS[level],
+                                     mode=n)
+                    _obs.add("cpals.phase_s", time.perf_counter() - t0,
+                             phase="solve", mode=n)
+                    factors[n] = A
+                    grams[n] = A.T @ A
+                    lam = norms
+                    t0 = time.perf_counter()
+                    with tracer.span("remap", transition=n):
+                        def _remap(n=n, idx=idx, val=val, mask=mask):
+                            out = dist.device_remap(
+                                idx, val, mask, (n + 1) % rt.nmodes, rt,
+                                workers)[:3]
+                            _sync(dev)
+                            return out
+                        idx, val, mask = (
+                            _remap() if pol is None
+                            else pol.run("distributed.remap", _remap))
+                    _obs.add("cpals.phase_s", time.perf_counter() - t0,
+                             phase="remap", mode=n)
+            fit = float(fit_from_parts(x_norm_sq, lam, grams, M, A))
+        seconds.append(time.perf_counter() - t_sweep)
+        _obs.add("cpals.sweep_s", seconds[-1], driver="distributed")
+        _obs.add("cpals.sweeps", driver="distributed")
+        fits.append(fit)
+        if mgr is not None and (it + 1) % checkpoint_every == 0:
+            _ckpt.save_state(mgr, _ckpt_state(rt, backend, factors, lam,
+                                              fits, it, (idx, val, mask)))
+        if it > 0 and abs(fits[-1] - fits[-2]) < tol:
+            break
+    nat = [dist.unpermute_factor(ft, rt, n, f.cpu().numpy())
+           for n, f in enumerate(factors)]
+    return CPResult(nat, lam.cpu().numpy(), fits, len(fits), seconds)
+
+
 def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
                        workers=None, iters: int = 10, seed: int = 0,
                        tol: float = 1e-5, backend: str = "segsum",
                        tile_rows: int = 8, gather_dtype: str = "float32",
                        ordering: str | None = None,
-                       blk: int | None = None) -> CPResult:
+                       blk: int | None = None, tracer=None,
+                       checkpoint_dir: str | None = None,
+                       checkpoint_every: int = 1, checkpoint_keep: int = 3,
+                       resilience: _rpolicy.RetryPolicy | None = None
+                       ) -> CPResult:
     """Dynasor CP-ALS on ``ft.params.num_workers`` workers: FLYCOO layout +
     :func:`als_sweep`.
 
@@ -265,6 +431,20 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     (``reorder.ORDERINGS``; ``None`` inherits ``ft.ordering``) ranks each
     mode step's output-tile runs by factor-tile locality. The factors
     returned are replicated, in natural row order.
+
+    ``tracer`` defaults to the process tracer (``repro_torch.obs``),
+    normally the no-op. An *enabled* tracer, a ``checkpoint_dir`` or a
+    ``resilience`` policy (a ``resilience.RetryPolicy``) switch to the
+    stepped driver (:func:`_cp_als_distributed_stepped`): nested
+    ``sweep → mode → mttkrp|solve|remap`` spans; under the policy every
+    mode step, remap and chunk launch gets bounded retry and a counted
+    walk down the degradation ladder. ``checkpoint_dir`` persists every
+    ``checkpoint_every``-th sweep atomically (the newest
+    ``checkpoint_keep`` kept), stream included, and a rerun resumes from
+    the newest one. A checkpoint needs every worker's stream in this
+    process: with workers spread over processes (a
+    :class:`~.workers.GroupWorkers` of more than one rank) it raises
+    ``NotImplementedError`` (ROADMAP A10b).
     """
     kops.check_backend(backend, extra=("segsum",))
     if workers is None:
@@ -275,12 +455,26 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     if workers.num_workers != ft.params.num_workers:
         raise ValueError(f"{workers.num_workers} workers for a FLYCOO "
                          f"tensor built for {ft.params.num_workers}")
+    if checkpoint_dir is not None and \
+            len(workers.ranks) != workers.num_workers:
+        raise NotImplementedError(
+            "checkpoint_dir with workers spread over processes (gather the "
+            "streams to rank 0, restore each rank's slice) is ROADMAP A10b")
+    tracer = _tracer.get_tracer() if tracer is None else tracer
     rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows,
                                       gather_dtype=gather_dtype,
                                       ordering=ordering)
     stream, factors, lam, x_norm_sq = device_state(ft, rt, packed, seed=seed,
                                                    workers=workers)
     del packed
+    mgr = _ckpt.make_manager(checkpoint_dir, keep=checkpoint_keep)
+    if tracer.enabled or resilience is not None or mgr is not None:
+        with (contextlib.nullcontext() if resilience is None
+              else _rpolicy.use_policy(resilience)):
+            return _cp_als_distributed_stepped(
+                ft, rt, stream, factors, lam, x_norm_sq, workers=workers,
+                iters=iters, tol=tol, backend=backend, tracer=tracer,
+                mgr=mgr, checkpoint_every=checkpoint_every)
     fits: list[float] = []
     seconds: list[float] = []
     for it in range(iters):
@@ -290,6 +484,8 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
             sweep0=it == 0, backend=backend)
         fits.append(float(fit))   # waits for the whole sweep
         seconds.append(time.perf_counter() - t0)
+        _obs.add("cpals.sweep_s", seconds[-1], driver="distributed")
+        _obs.add("cpals.sweeps", driver="distributed")
         if it > 0 and abs(fits[-1] - fits[-2]) < tol:
             break
     nat = [dist.unpermute_factor(ft, rt, n, f.cpu().numpy())

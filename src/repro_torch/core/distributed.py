@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.mttkrp import ops as kops
+from ..resilience import faults as _faults
 from . import remap as remap_lib
 from .flycoo import FlycooTensor, pack_mode
 from .mttkrp import mttkrp
@@ -235,7 +236,13 @@ def device_remap(idx, val, mask, next_mode: int, rt: DynasorRuntime,
     layouts, and each local worker's count of nonzeros that exceeded the
     capacity (``(L,)``, 0 when the capacities come from
     ``remap_capacities``).
+
+    The remap is the ``distributed.remap`` fault site
+    (``resilience.faults``): the exchange is the one collective of the
+    sweep. It fires before any work, so the stepped CP-ALS driver can
+    retry the whole call.
     """
+    _faults.fault_site("distributed.remap")
     _check_local(idx, workers, rt)
     D, L = rt.num_workers, idx.shape[0]
     cap = rt.bucket_cap_for((next_mode - 1) % rt.nmodes)

@@ -21,7 +21,10 @@ the Hadamard product, as the reference's type promotion does. B5 takes
 fp32 only: its contribution is made in fp32 on every path.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute,
-and those of its bf16 variant in ``launches_bf16``.
+and those of its bf16 variant in ``launches_bf16``. Where a wrapper picks
+its route (kernel or plain version) it calls the ``execution.resolve``
+fault site (``resilience.faults``, the counterpart of the reference's
+``resolve_interpret``): once per wrapper call.
 The ``*_smem_bytes`` functions give each kernel's per-CTA shared memory,
 which the launch checks and the residency planner
 (``oocore.planner.plan_residency``) both read.
@@ -56,6 +59,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...resilience import faults as _faults
 from ...runtime.device import require_sm90
 from . import build as _build
 
@@ -392,6 +396,7 @@ def _dispatch(vals, idx_stream, factors, local_row_in_tile, tile_of_block,
 
     Returns ``(out, launched)``.
     """
+    _faults.fault_site("execution.resolve")
     kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
               out_init=out_init)
     if vals.device.type == "cpu":
@@ -764,6 +769,7 @@ def fused_mttkrp_nmode_gather_stream_chunk(
     tail = _carry_meta(tile_of_block, carry, split_tail, blk)
     kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
               frow_tile=frow_tile, out_init=out_init)
+    _faults.fault_site("execution.resolve")
     if vals.device.type == "cpu":
         out = _plain_stream(vals, idx_stream, factors, local_row_in_tile,
                             tile_of_block, scheds, **kw)
@@ -1070,6 +1076,7 @@ def _fused_dispatch(vals, rows, local_row_in_tile, tile_of_block, *,
                     slab: int, **kw):
     """CPU tensor: plain version; CUDA tensor: the kernel. Returns
     ``(out, launched)``."""
+    _faults.fault_site("execution.resolve")
     if vals.device.type == "cpu":
         return _plain_fused(vals, rows, local_row_in_tile, tile_of_block,
                             **kw), False
@@ -1241,6 +1248,7 @@ def segment_accumulate(contrib, local_row_in_tile, tile_of_block, *,
     """
     _check_segment_args(contrib, local_row_in_tile, tile_of_block,
                         rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    _faults.fault_site("execution.resolve")
     if contrib.device.type == "cpu":
         return segment_accumulate_plain(
             contrib, local_row_in_tile, tile_of_block, rows_cap=rows_cap,

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from ...core.mttkrp import hadamard_rows
 from ...oocore import planner as _planner
 from ...reorder import ordering as _reorder
+from ...resilience import faults as _faults
+from ...resilience import policy as _policy
 from . import kernel as _kernel
 from . import ref as _ref
 
@@ -459,6 +461,12 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
     the data (:func:`stream_schedules`) and launches once; its window must
     fit shared memory (the kernel raises otherwise).
 
+    The step is the ``ops.kernel`` fault site (``resilience.faults``).
+    Under an active policy (``resilience.use_policy``) an injected
+    transient fault retries the step and an injected resource fault runs
+    it one rung down ``resilience.DEGRADATION_LADDER``; anything else
+    raises, as with no policy.
+
     Returns ``(rows_cap, R)`` float32 output rows.
     """
     gdt = check_gather_dtype(gather_dtype)
@@ -470,47 +478,63 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
         smem_budget=smem_budget, l2_budget=l2_budget,
         factor_rows=tuple(factors[w].shape[0] for w in range(nmodes)
                           if w != mode))
-    if backend in BF16_BACKENDS:
-        backend, gdt = BF16_BACKENDS[backend], torch.bfloat16
-    if backend in ("ref", "pallas"):
-        # The per-nonzero contribution is materialized, then scattered.
-        local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
-        safe_idx = torch.where(valid[:, None], idx, 0)
-        ell = hadamard_rows(safe_idx, torch.where(valid, val, 0.0), factors,
-                            mode).float()
-        return mttkrp_blocked(ell, local_row.to(torch.int32), valid,
-                              rows_cap=rows_cap, blk=blk,
-                              tile_rows=tile_rows, use_ref=backend == "ref")
-    if backend == STREAM_BACKEND:
-        slab = min(padded_rank(rank), _kernel.STREAM_RANK_SLAB)
-    elif backend in ("pallas_fused_gather_tiled", "pallas_fused_tiled"):
-        slab = tiled_rank_slab(rank)
-    else:
-        slab = padded_rank(rank)
-    vals, idx_al, fmats, r_al, tob = gather_operands(
-        idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
-        row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab,
-        ordering=ordering, dtype=gdt)
-    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
-    if backend in FUSED_BACKENDS:
-        rows = pregathered_rows(idx_al, fmats)
-        del idx_al, fmats
-        if backend == "pallas_fused_tiled":
-            out = _kernel.fused_mttkrp_nmode_tiled(vals, rows, r_al, tob,
-                                                   rank_slab=slab, **kw)
+
+    def _dispatch(backend: str, gdt=gdt):
+        if backend in BF16_BACKENDS:
+            backend, gdt = BF16_BACKENDS[backend], torch.bfloat16
+        if backend in ("ref", "pallas"):
+            # The per-nonzero contribution is materialized, then scattered.
+            local_row = torch.where(valid, idx[:, mode] - row_offset, 0)
+            safe_idx = torch.where(valid[:, None], idx, 0)
+            ell = hadamard_rows(safe_idx, torch.where(valid, val, 0.0),
+                                factors, mode).float()
+            return mttkrp_blocked(ell, local_row.to(torch.int32), valid,
+                                  rows_cap=rows_cap, blk=blk,
+                                  tile_rows=tile_rows,
+                                  use_ref=backend == "ref")
+        if backend == STREAM_BACKEND:
+            slab = min(padded_rank(rank), _kernel.STREAM_RANK_SLAB)
+        elif backend in ("pallas_fused_gather_tiled", "pallas_fused_tiled"):
+            slab = tiled_rank_slab(rank)
         else:
-            out = _kernel.fused_mttkrp_nmode(vals, rows, r_al, tob, **kw)
-    elif backend == STREAM_BACKEND:
-        fmats = tuple(_pad_factor_rows(f, _kernel.FACTOR_ROW_TILE)
-                      for f in fmats)
-        scheds, _, _ = stream_schedules(idx_al, blk,
-                                        tuple(f.shape[0] for f in fmats))
-        out = _kernel.fused_mttkrp_nmode_gather_stream(
-            vals, idx_al, fmats, r_al, tob, scheds, rank_slab=slab, **kw)
-    elif backend == "pallas_fused_gather_tiled":
-        out = _kernel.fused_mttkrp_nmode_gather_tiled(
-            vals, idx_al, fmats, r_al, tob, rank_slab=slab, **kw)
-    else:
-        out = _kernel.fused_mttkrp_nmode_gather(
-            vals, idx_al, fmats, r_al, tob, **kw)
-    return out[:, :rank]
+            slab = padded_rank(rank)
+        vals, idx_al, fmats, r_al, tob = gather_operands(
+            idx, val, valid, factors, mode=mode, rows_cap=rows_cap,
+            row_offset=row_offset, blk=blk, tile_rows=tile_rows, slab=slab,
+            ordering=ordering, dtype=gdt)
+        kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+        if backend in FUSED_BACKENDS:
+            rows = pregathered_rows(idx_al, fmats)
+            del idx_al, fmats
+            if backend == "pallas_fused_tiled":
+                out = _kernel.fused_mttkrp_nmode_tiled(
+                    vals, rows, r_al, tob, rank_slab=slab, **kw)
+            else:
+                out = _kernel.fused_mttkrp_nmode(vals, rows, r_al, tob, **kw)
+        elif backend == STREAM_BACKEND:
+            fmats = tuple(_pad_factor_rows(f, _kernel.FACTOR_ROW_TILE)
+                          for f in fmats)
+            scheds, _, _ = stream_schedules(idx_al, blk,
+                                            tuple(f.shape[0] for f in fmats))
+            out = _kernel.fused_mttkrp_nmode_gather_stream(
+                vals, idx_al, fmats, r_al, tob, scheds, rank_slab=slab, **kw)
+        elif backend == "pallas_fused_gather_tiled":
+            out = _kernel.fused_mttkrp_nmode_gather_tiled(
+                vals, idx_al, fmats, r_al, tob, rank_slab=slab, **kw)
+        else:
+            out = _kernel.fused_mttkrp_nmode_gather(
+                vals, idx_al, fmats, r_al, tob, **kw)
+        return out[:, :rank]
+
+    def _attempt(backend: str):
+        # Registered failure boundary (repro_torch.resilience): where a
+        # kernel's build or resources fail. It fires before any work, so a
+        # retry or a lower rung starts from the same inputs.
+        _faults.fault_site("ops.kernel")
+        return _dispatch(backend)
+
+    pol = _policy.get_policy()
+    if pol is None:
+        # No active policy: fail fast, one attempt at the selected backend.
+        return _attempt(backend)
+    return pol.dispatch(_attempt, backend)

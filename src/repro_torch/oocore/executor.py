@@ -10,8 +10,12 @@ also hands that tile's partial sums to the next call
 (``kernel.StreamCarry``), so the chunked result is bitwise the
 single-pass one.
 
-Left out of this port for now: the reference's obs counters and spans
-(ROADMAP A11) and its resilience policy around each chunk (A10).
+Each chunk launch is the ``oocore.chunk`` fault site
+(``resilience.faults``); under an active policy
+(``resilience.use_policy``) a transient fault there replays the chunk,
+from the same ``out_init`` and carry. Left out of this port for now: the
+reference's obs counters and spans around the mode step and its chunks
+(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 from ..kernels.mttkrp import kernel as _kernel
 from ..kernels.mttkrp import ops as _ops
 from ..reorder import ordering as _reorder
+from ..resilience import faults as _faults
+from ..resilience import policy as _policy
 from ..runtime.device import resolve_device
 from . import planner as _planner
 
@@ -210,14 +216,25 @@ def mttkrp_out_of_core(
 
     out = torch.zeros(rows_cap, rpad, dtype=torch.float32, device=dev)
     carry = None
+    pol = _policy.get_policy()
     for (start, stop), cw in zip(chunks, cwindows):
-        sl = slice(start * blk, stop * blk)
-        out, carry = _kernel.fused_mttkrp_nmode_gather_stream_chunk(
-            vals[sl], idx_al[sl], fmats, r_al[sl], tob[start:stop],
-            tuple(s[start:stop, :cw[i]].contiguous()
-                  for i, s in enumerate(scheds)),
-            rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
-            frow_tile=frow_tile, rank_slab=slab, out_init=out, carry=carry,
-            split_tail=bool(stop < num_blocks
-                            and tob_host[stop] == tob_host[stop - 1]))
+        def _launch(out=out, carry=carry, start=start, stop=stop, cw=cw):
+            # Registered failure boundary: one chunk is one kernel launch,
+            # the unit a transient fault costs and the policy replays. The
+            # kernel never writes out_init or the carry, so a replay
+            # starts from the same state.
+            _faults.fault_site("oocore.chunk")
+            sl = slice(start * blk, stop * blk)
+            return _kernel.fused_mttkrp_nmode_gather_stream_chunk(
+                vals[sl], idx_al[sl], fmats, r_al[sl], tob[start:stop],
+                tuple(s[start:stop, :cw[i]].contiguous()
+                      for i, s in enumerate(scheds)),
+                rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+                frow_tile=frow_tile, rank_slab=slab, out_init=out,
+                carry=carry,
+                split_tail=bool(stop < num_blocks
+                                and tob_host[stop] == tob_host[stop - 1]))
+
+        out, carry = (_launch() if pol is None
+                      else pol.run("oocore.chunk", _launch))
     return out[:, :rank], stats

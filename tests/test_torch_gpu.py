@@ -1083,3 +1083,68 @@ def test_worker_3_padding_at_row_0_changes_nothing(cuda):
     for got in outs:
         for a in got:
             assert torch.equal(a, outs[0][1])
+
+
+# ---------------------------------------------------------------------------
+# Resilience (ROADMAP A10) on the card: chaos and resume, bitwise
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_resilience_chaos_and_resume_bitwise(cuda, tmp_path, D):
+    """The stepped driver under a transient and a resource fault at
+    ``ops.kernel`` (one mode step of one worker runs B2 in place of B1)
+    and a transient one at the remap gives bitwise the fault-free run's
+    factors; a run checkpointed at sweep 1 and resumed equals it too."""
+    from repro_torch.core.workers import LocalWorkers
+    from repro_torch.obs import counters as ocnt
+    from repro_torch.resilience import RetryPolicy, inject
+    t = tensors.random_sparse_tensor((300, 200, 400), 20000, seed=0)
+    ft = flycoo.build_flycoo(t, D)
+    kw = dict(workers=LocalWorkers(D, cuda), backend="auto", iters=3,
+              tol=0.0)
+    clean = cpals.cp_als_distributed(ft, 16, resilience=RetryPolicy(), **kw)
+    specs = [("ops.kernel", 1, "transient"), ("ops.kernel", 2, "resource"),
+             ("distributed.remap", 0, "transient")]
+    K.fused_mttkrp_nmode_gather.launches = 0
+    K.fused_mttkrp_nmode_gather_tiled.launches = 0
+    with ocnt.use_registry() as reg, inject(specs) as inj:
+        chaos = cpals.cp_als_distributed(ft, 16, resilience=RetryPolicy(),
+                                         **kw)
+    assert inj.pending() == ()
+    assert reg.total("resilience.injected") == 3
+    assert reg.total("resilience.retries") == 2
+    assert reg.total("resilience.degradations") == 1
+    assert K.fused_mttkrp_nmode_gather_tiled.launches == 1
+    assert K.fused_mttkrp_nmode_gather.launches == 3 * 3 * D - 1
+    assert chaos.fits == clean.fits
+    for a, b in zip(chaos.factors, clean.factors):
+        np.testing.assert_array_equal(a, b)
+    d = str(tmp_path / "ck")
+    with ocnt.use_registry() as reg:
+        cpals.cp_als_distributed(ft, 16, checkpoint_dir=d,
+                                 **dict(kw, iters=2))
+        resumed = cpals.cp_als_distributed(ft, 16, checkpoint_dir=d, **kw)
+        assert reg.get("resilience.checkpoint.restores") == 1
+    assert resumed.fits == clean.fits
+    for a, b in zip(resumed.factors, clean.factors):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_resilience_chunk_replay_bitwise(cuda):
+    """A transient fault at one chunk of the out-of-core step (B6) under a
+    policy replays that chunk: bitwise the fault-free chunked result."""
+    from repro_torch.obs import counters as ocnt
+    from repro_torch.resilience import inject, use_policy
+    idx, val, valid, factors = _stream(cuda, 2, 16, 20000, 96, seed=4)
+    kw = dict(mode=0, rows_cap=96, blk=BLK, tile_rows=TILE,
+              max_chunk_bytes=20000, device=cuda)
+    clean, stats = executor.mttkrp_out_of_core(idx, val, valid, factors,
+                                               **kw)
+    assert stats.chunks >= 5
+    with ocnt.use_registry() as reg, use_policy(), \
+            inject([("oocore.chunk", 3, "transient")]) as inj:
+        again, _ = executor.mttkrp_out_of_core(idx, val, valid, factors,
+                                               **kw)
+    assert inj.pending() == ()
+    assert reg.get("resilience.retries", site="oocore.chunk") == 1
+    assert torch.equal(clean, again)
