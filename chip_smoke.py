@@ -89,11 +89,31 @@ Phases (each prints its own lines; any failure exits non-zero):
       (wall, kernels, idle share); a chunked out-of-core step with a
       replayed chunk, bitwise; ``python -m repro_torch.resilience --device
       cuda`` in this process;
-  16. one JSON line with all six kernels and the five bf16 variants
+  16. ``[obs]`` (ROADMAP A11): the counted baseline workload
+      (``repro_torch.obs.baseline.collect``, D=4, ``auto``, plus the
+      forced-multichunk out-of-core step over three orderings) on the
+      card, its counters equal to the committed
+      ``bench_torch/obs/BASELINE_counters.json`` key for key and its
+      launches equal to its dispatch and chunk counts; its Chrome trace
+      validated with the spans ``sweep, mode, mttkrp, solve, remap,
+      oocore.mode_step, oocore.chunk``; the steady-state profiler
+      (``run_profile``, 3 repeats, 1 warmup) with each phase's median and
+      MAD and the roofline rows; ``ops.timed_device_step`` per mode on the
+      nell-2 stand-in (``auto`` = B1, R=16), bitwise the ``auto`` sweep's
+      mode steps, with its modeled bytes, seconds and rate; then
+      ``[auto-stream]``: ``auto`` at blk=64 on a tensor with FROSTT
+      flickr's mode sizes (power-law, 20 M draws), whose factors exceed
+      L2, must take the stream rung (B6) on every mode, counted by
+      ``dispatch.backend`` exactly as launched, with factors and fits
+      bitwise the forced-B1 run's, sweep ms on CUDA events, B6 ms per
+      launch and peak memory;
+  17. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
-      ``[dist-main]``, ``resilience_launches`` from ``[resilience]``), the
-      card's name and power limit, and the last line
-      ``{"ok": true, "device": {...}}``.
+      ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
+      ``obs_launches`` from ``[obs]``'s counted run,
+      ``auto_stream_launches`` from ``[auto-stream]``), the card's name
+      and power limit, and the last line ``{"ok": true, "device":
+      {...}}``.
 
 B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
 factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
@@ -2039,6 +2059,448 @@ def phase_resilience(ft, main_fits, dev, gpu: str):
     return {b1: launched[b1]}
 
 
+# [auto-stream]: FROSTT flickr's mode sizes with its nonzeros cut to this
+# many draws (before dedup) for host and chip time. The batch sets the
+# skew (each batch is scaled by its own largest draw); it was chosen so
+# ~18 M distinct nonzeros survive, not taken from flickr, and the kernel
+# times of [auto-stream] hold for it only.
+AUTO_STREAM_NNZ = 20_000_000
+AUTO_STREAM_BATCH = 20_000
+OBS_SPANS = ("sweep", "mode", "mttkrp", "solve", "remap", "oocore.mode_step",
+             "oocore.chunk")
+
+
+class _SweepEvents:
+    """CUDA-event ms of each ``cpals.als_sweep`` the CP-ALS driver makes
+    inside a ``with`` block (it calls the sweep through the module)."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def __enter__(self):
+        from repro_torch.core import cpals
+        self._mod, self._orig = cpals, cpals.als_sweep
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*args, **kw)
+            stop.record()
+            self.pairs.append((start, stop))
+            return out
+
+        cpals.als_sweep = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.als_sweep = self._orig
+        return False
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [round(a.elapsed_time(b), 3) for a, b in self.pairs]
+
+
+def phase_obs(ft, dev, gpu: str) -> dict:
+    """``[obs]`` (ROADMAP A11) on the card: the counted baseline against
+    the committed one key for key, the pinned run's Chrome trace, the
+    steady-state profiler with its roofline, gated against the committed
+    timed baseline (``bench_torch/obs/PROF_baseline.json``, a copy of an
+    earlier run's ``PROF_run.json`` from this phase; a fingerprint or
+    host-noise SKIP passes, a regression fails), ``ops.timed_device_step`` per
+    mode on the nell-2 stand-in that phase_main built (bitwise the
+    ``auto`` sweep's mode steps), then ``[auto-stream]``. Returns the
+    launches of the counted run and of ``[auto-stream]``'s ``auto`` run."""
+    import tempfile
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.kernels.mttkrp import ops
+    from repro_torch.obs import (Tracer, baseline, use_registry, use_tracer,
+                                 validate_chrome_trace)
+    from repro_torch.obs.prof import __main__ as prof_cli
+    from repro_torch.obs.prof import gate, selftime
+    t_phase = time.perf_counter()
+    b1, b6 = "fused_mttkrp_nmode_gather", "fused_mttkrp_nmode_gather_stream"
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+
+    # --- 1. the counted baseline: counts zeroed before, read after ------
+    reset_counts()
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    current = baseline.collect(tracer=tracer, device=dev)
+    secs = time.perf_counter() - t0
+    obs_launched = counts()
+    committed = baseline.load_baseline()
+    mismatches = baseline.diff(current, committed)
+    for m in mismatches:
+        log(f"[obs] FAIL {m}")
+    cur = current["counters"]
+    log(f"[obs] counted baseline on {dev}: {len(cur)} counters in "
+        f"{secs:.2f} s, {len(mismatches)} mismatches against "
+        f"{os.path.relpath(baseline.BASELINE_PATH, ROOT)} (collected on "
+        f"the {committed['meta'].get('device')}); launches "
+        f"{ {k: v for k, v in obs_launched.items() if v} }")
+    require(not mismatches, "the counters collected on the card differ "
+            "from the committed baseline")
+    dispatched = cur["dispatch.backend{backend=pallas_fused_gather,"
+                     "source=static}"]
+    require_only({k: v for k, v in obs_launched.items() if k != b6}, b1,
+                 dispatched, "[obs] counted run (B1 per dispatch)")
+    require(obs_launched[b6] == cur["oocore.chunks"],
+            f"[obs] B6 launches {obs_launched[b6]} != oocore.chunks "
+            f"{cur['oocore.chunks']}")
+
+    # --- 2. its Chrome trace ---------------------------------------------
+    with tempfile.TemporaryDirectory(dir=scratch) as td:
+        path = tracer.write_chrome_trace(
+            os.path.join(td, "obs.json"),
+            meta={"workload": baseline.WORKLOAD, "counters": cur})
+        with open(path) as f:
+            trace = json.load(f)
+    errors = validate_chrome_trace(trace, expect_names=OBS_SPANS)
+    require(not errors, f"[obs] Chrome trace: {errors}")
+    log(f"[obs] Chrome trace: {len(trace['traceEvents'])} events, valid "
+        f"({', '.join(OBS_SPANS)})")
+
+    # --- 3. the profiler (timed, CUDA-fenced), gated ----------------------
+    # Written where `python -m repro_torch.obs.prof run` writes it: the
+    # committed baseline is this phase's own profile: the pinned run's
+    # host-bound phases time differently here, after the earlier phases,
+    # than in a fresh process, so both sides are taken in the same place.
+    prof, records = prof_cli.run_profile(repeats=3, warmup=1, device=dev)
+    errors = gate.validate_prof(prof)
+    require(not errors, f"[obs] PROF artifact: {errors}")
+    prof_cli._write_json(prof, prof_cli.RUN_PATH)
+    selftime.write_flamegraph(records, prof_cli.FLAME_PATH, overwrite=True)
+    verdict = gate.compare(prof, prof_cli._load_json(prof_cli.BASELINE_PATH))
+    for m in verdict.messages:
+        log(f"[obs] gate against "
+            f"{os.path.relpath(prof_cli.BASELINE_PATH, ROOT)}: {m}")
+    require(verdict.status != "fail", "[obs] the profile regressed past "
+            "the timed gate against the committed baseline")
+    fp = prof["meta"]["fingerprint"]
+    log(f"[obs] profile: repeats 3, warmup 1, noise mad_frac "
+        f"{prof['meta']['noise']['mad_frac']:.4f}; fingerprint "
+        f"{fp['devices']}, {fp.get('power_limit')}  [{gpu}]")
+    for name, ph in sorted(prof["phases"].items(),
+                           key=lambda kv: -kv[1]["median_s"]):
+        log(f"[obs] phase {name}: median {ph['median_s'] * 1e3:.3f} ms, MAD "
+            f"{ph['mad_s'] * 1e3:.3f} ms ({100 * ph['mad_frac']:.1f}% "
+            f"sigma-equivalent)  [{gpu}]")
+    for row in prof["roofline"]:
+        log(f"[obs] roofline {row['span']} [{row['backend']}/{row['rung']}/"
+            f"{row['ordering']}]: {row['moved_bytes']} B ({row['basis']}) "
+            f"in {row['time_s'] * 1e3:.3f} ms x{row['calls']}, "
+            f"{row['achieved_gbps']:.3f} GB/s  [{gpu}]")
+    require(prof["roofline"], "[obs] the profile has no roofline row")
+
+    # --- 4. timed_device_step per mode on the nell-2 stand-in ------------
+    rt, packed = dist.prepare_runtime(ft, 16)
+    wk = one_device(dev)
+    stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
+                                                  workers=wk)
+    del packed
+    res = cpals.als_sweep(stream, factors, lam, x2, rt, workers=wk,
+                          sweep0=True, backend="auto")
+    cur_stream = one_worker(stream)
+    del stream
+    reset_counts()
+    for n in range(rt.nmodes):
+        facs = list(res.factors[:n]) + list(factors[n:])
+        for rep in range(2):
+            with use_registry() as reg, use_tracer(Tracer()):
+                out = ops.timed_device_step(
+                    *cur_stream, facs, mode=n, rows_cap=rt.rows_cap[n],
+                    backend="auto", blk=rt.blk, tile_rows=rt.tile_rows)
+            require(torch.equal(out, res.mttkrp[n][0]),
+                    f"[obs] timed_device_step mode {n} differs from the "
+                    "auto sweep's mode step")
+            model_b = reg.get("ops.step.model_bytes", backend="auto")
+            step_s = reg.get("ops.step_s", backend="auto")
+            log(f"[obs] timed_device_step mode {n} (call {rep + 1}) auto "
+                f"R=16: ops.step.model_bytes {model_b}, ops.step_s "
+                f"{step_s * 1e3:.3f} ms, {model_b / step_s / 1e12:.3f} TB/s "
+                f"of modeled bytes (HBM 3.35 TB/s, L2 probe "
+                f"{L2_BYTES_PER_S / 1e12:.3f} TB/s); == [main]'s mode step "
+                f"bitwise  [{gpu}]")
+        cur_stream = remap_one(cur_stream, (n + 1) % rt.nmodes, rt)
+    launched = counts()
+    require_only(launched, b1, 2 * rt.nmodes,
+                 "[obs] timed_device_step (auto = B1)")
+    del cur_stream, res, factors, out
+
+    # --- 5. [auto-stream] ------------------------------------------------
+    auto_stream = phase_auto_stream(dev, gpu)
+    log(f"[obs] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"obs_launches": obs_launched, "auto_stream_launches": auto_stream}
+
+
+def wide_powerlaw_tensor(shape, nnz: int, seed: int):
+    """``nnz`` power-law coordinate draws (the generator of
+    ``random_sparse_tensor(distribution="powerlaw")``, seeded), in batches
+    of AUTO_STREAM_BATCH, duplicates summed. Two changes from that function, both
+    forced by the shape: it dedups through ``np.ravel_multi_index``, which
+    raises once the element count passes int64 (FROSTT flickr's is
+    1.44e19), so duplicates are found here with ``np.lexsort``; and it
+    scales each draw by the largest of its call, so one call of 20 M draws
+    puts nearly all of them on the first rows (43,621 distinct nonzeros),
+    while batches of 20,000 keep ~18 M."""
+    from repro_torch.core import tensors
+    rng = np.random.default_rng(seed)
+    idx = np.concatenate([
+        tensors._powerlaw_columns(rng, shape,
+                                  min(AUTO_STREAM_BATCH, nnz - i), 1.1)
+        for i in range(0, nnz, AUTO_STREAM_BATCH)])
+    val = rng.standard_normal(nnz).astype(np.float32)
+    val[val == 0] = 1.0
+    order = np.lexsort(tuple(idx[:, n] for n in reversed(range(len(shape)))))
+    idx, val = idx[order], val[order]
+    start = np.flatnonzero(np.concatenate(
+        [[True], (idx[1:] != idx[:-1]).any(axis=1)]))
+    return tensors.SparseTensor(idx[start].astype(np.int32),
+                                np.add.reduceat(val, start), tuple(shape))
+
+
+def fp32_sum_check(outs: dict, operands, what: str, *, rows_cap: int,
+                   blk: int, tile_rows: int) -> dict:
+    """Hold fp32 MTTKRP outputs to the float64 sum of the same products.
+
+    Per output element, with ``n`` nonzeros in its row, K input modes and
+    ``u = 2^-24``: ``|out - exact| <= g * sum|term|``, ``g = m*u/(1-m*u)``,
+    ``m = n + K`` (K roundings per product, n - 1 per sum, in any order):
+    the worst-case bound of fp32 summation. It is the tolerance for rows
+    that sum many terms (power-law hubs), where two fp32 orders may differ
+    by more than a fixed ``allclose``. ``operands`` are B1's (block-aligned
+    values, indices, factors, local rows, tiles). Returns ``{name: largest
+    |out - exact| / bound}``."""
+    vals, idx_al, fmats, r_al, tob = operands
+    live = vals != 0
+    rows = (torch.repeat_interleave(tob.long(), blk) * tile_rows
+            + r_al.long())[live]
+    term = vals[live].double()[:, None]
+    for i, f in enumerate(fmats):
+        term = term * f[idx_al[live, i].long()].double()
+    exact = torch.zeros(rows_cap, term.shape[1], dtype=torch.float64,
+                        device=vals.device).index_add_(0, rows, term)
+    mag = torch.zeros_like(exact).index_add_(0, rows, term.abs())
+    m = torch.bincount(rows, minlength=rows_cap).double()[:, None] \
+        + len(fmats)
+    bound = m * 2.0 ** -24 / (1 - m * 2.0 ** -24) * mag
+    ratios = {}
+    for name, out in outs.items():
+        gap = (out[:, :term.shape[1]].double() - exact).abs()
+        require(bool((gap <= bound).all()),
+                f"{what} {name}: |fp32 - fp64| {float(gap.max()):.3e} "
+                "beyond the fp32 summation bound")
+        ratios[name] = float((gap / bound.clamp_min(1e-300)).max())
+    return ratios
+
+
+def block_subset(operands, keep, blk: int):
+    """B1's operands restricted to the blocks ``keep`` selects (a bool
+    mask or a slice over blocks), in stream order; the factors are
+    shared."""
+    vals, idx_al, fmats, r_al, tob = operands
+    nb, k = tob.shape[0], idx_al.shape[1]
+    return (vals.view(nb, blk)[keep].reshape(-1).contiguous(),
+            idx_al.view(nb, blk, k)[keep].reshape(-1, k).contiguous(), fmats,
+            r_al.view(nb, blk)[keep].reshape(-1).contiguous(),
+            tob[keep].contiguous())
+
+
+def tile_occupancy(operands, *, blk: int, tile_rows: int,
+                   rows_cap: int) -> dict:
+    """How the aligned stream fills its output: distinct output rows and
+    live tiles (tiles with a nonzero) against ``rows_cap`` and the tiles,
+    blocks with a nonzero, the trailing all-padding blocks that
+    ``ops.build_block_layout`` clips onto the last tile (the static length
+    ``ops.n_pad_for`` gives every tile ``blk`` slots), and the busiest
+    tile (most blocks with a nonzero)."""
+    vals, _, _, r_al, tob = operands
+    nb = tob.shape[0]
+    live_blk = (vals.view(nb, blk) != 0).any(1)
+    end = int(torch.nonzero(live_blk).max()) + 1
+    nz = vals != 0
+    rows = (torch.repeat_interleave(tob.long(), blk) * tile_rows
+            + r_al.long())[nz]
+    per_tile = torch.bincount(tob.long()[live_blk],
+                              minlength=rows_cap // tile_rows)
+    busiest = int(per_tile.argmax())
+    return {"rows_cap": rows_cap, "distinct_rows": int(rows.unique().numel()),
+            "tiles": rows_cap // tile_rows,
+            "live_tiles": int((per_tile > 0).sum()), "blocks": nb,
+            "live_blocks": int(live_blk.sum()), "end": end,
+            "trailing": nb - end, "busiest": busiest,
+            "busiest_blocks": int(per_tile[busiest]),
+            "busiest_nnz": int(nz[torch.repeat_interleave(
+                tob == busiest, blk)].sum()),
+            "live_mask": live_blk}
+
+
+def stream_breakdown(b1_ops, occ: dict, out_b6, out_b1, *, rows_cap: int,
+                     blk: int, tile_rows: int, what: str) -> dict:
+    """B6 and B1 on two parts of one aligned stream: the stream without
+    its trailing all-padding blocks, and the busiest tile's blocks alone.
+    Each output must be bitwise the full stream's on the rows it covers
+    (padding adds nothing; a tile's run is summed in the same order).
+    Returns ``{part: (B6 ms, B1 ms, B6 windows)}``."""
+    from repro_torch.kernels.mttkrp import kernel as K
+    tob = b1_ops[4]
+    lo = occ["busiest"] * tile_rows
+    parts = {"trimmed": slice(0, occ["end"]),
+             "busiest": (tob == occ["busiest"]) & occ["live_mask"]}
+    res = {}
+    for part, keep in parts.items():
+        sub = block_subset(b1_ops, keep, blk)
+        s_sub, windows = stream_operands(sub, blk)
+        kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+        o6 = K.fused_mttkrp_nmode_gather_stream(*s_sub, **kw)
+        o1 = K.fused_mttkrp_nmode_gather(*sub, **kw)
+        for o, full, name in ((o6, out_b6, "B6"), (o1, out_b1, "B1")):
+            if part == "trimmed":
+                same = torch.equal(o, full)
+            else:
+                same = torch.equal(o[lo:lo + tile_rows],
+                                   full[lo:lo + tile_rows])
+            require(same, f"{what} {name} on the {part} stream differs "
+                    "from the full stream's output")
+        res[part] = (cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+                         *s_sub, **kw), 3),
+                     cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*sub, **kw),
+                             3), windows)
+        del sub, s_sub, o6, o1
+    return res
+
+
+def phase_auto_stream(dev, gpu: str) -> dict:
+    """``[auto-stream]``: ``auto`` on a tensor whose factors are beyond
+    L2, with FROSTT flickr's mode sizes, power-law indices, seed 0, its
+    nonzeros cut to AUTO_STREAM_NNZ draws. At blk=64 and R=16 the ladder
+    takes the stream rung (B6) on every mode: ``dispatch.backend`` must
+    count B6 exactly as often as it launched, and the factors and fits
+    must be bitwise those of the same call forced to B1."""
+    from repro_torch.core import cpals, distributed as dist, flycoo, tensors
+    from repro_torch.kernels.mttkrp import kernel as K, ops
+    from repro_torch.obs import use_registry
+    b6 = "fused_mttkrp_nmode_gather_stream"
+    prof = tensors.FROSTT_PROFILES["flickr"]
+    shape, rank, blk = prof["shape"], 16, MAIN_STREAM_BLK
+    t0 = time.perf_counter()
+    require(prof["distribution"] == "powerlaw", "flickr's profile changed")
+    t = wide_powerlaw_tensor(shape, AUTO_STREAM_NNZ, seed=0)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ft = flycoo.build_flycoo(t, 1)
+    t_fly = time.perf_counter() - t0
+    log(f"[auto-stream] flickr stand-in shape={shape} nnz={t.nnz} "
+        f"(nonzeros cut from the profile's {prof['nnz']} to "
+        f"{AUTO_STREAM_NNZ} power-law draws in batches of "
+        f"{AUTO_STREAM_BATCH}, seed 0, before dedup): "
+        f"generate {t_gen:.1f} s, build_flycoo {t_fly:.1f} s")
+    del t
+    kw = dict(iters=2, tol=0.0, blk=blk)
+
+    # --- the driven path: counts zeroed just before, read just after ---
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with use_registry() as reg, _SweepEvents() as ev:
+        res = cpals.cp_als_distributed(ft, rank, backend="auto", **kw)
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decisions = {k: v for k, v in reg.snapshot().items()
+                 if k.startswith("dispatch.backend")}
+    chosen = reg.get("dispatch.backend", backend=ops.STREAM_BACKEND,
+                     source="static")
+    log(f"[auto-stream] cp_als_distributed R={rank} auto blk={blk}, 2 "
+        f"sweeps: fits {res.fits}; sweep ms on CUDA events {ev.ms()}, on "
+        f"the host {[round(x * 1e3, 3) for x in res.sweep_seconds]}; "
+        f"dispatch {decisions}; B6 launches {launched[b6]}; peak device "
+        f"memory {peak_gb:.2f} GB  [{gpu}]")
+    require(decisions == {"dispatch.backend{backend="
+                          f"{ops.STREAM_BACKEND},source=static}}": chosen}
+            and chosen == 2 * len(shape),
+            f"[auto-stream] auto did not take the stream rung on every "
+            f"mode: {decisions}")
+    require_only(launched, b6, chosen, "[auto-stream] auto (B6 per mode)")
+    require(all(np.isfinite(res.fits)), f"fits {res.fits}")
+
+    # --- comparisons (launches here are not counted) ---
+    res_b1 = cpals.cp_als_distributed(ft, rank,
+                                      backend="pallas_fused_gather", **kw)
+    require(res.fits == res_b1.fits
+            and all(np.array_equal(a, b)
+                    for a, b in zip(res.factors, res_b1.factors)),
+            f"[auto-stream] fits {res.fits} not bitwise the forced-B1 "
+            f"run's {res_b1.fits}")
+    log(f"[auto-stream] factors and fits bitwise the forced-B1 run's "
+        f"(fits {res_b1.fits}, host ms per sweep "
+        f"{[round(x * 1e3, 3) for x in res_b1.sweep_seconds]})")
+    del res, res_b1
+
+    # B6 per launch at the path's inputs (sweep-0 streams, initial factors)
+    rt, packed = dist.prepare_runtime(ft, rank, blk=blk)
+    stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
+                                               workers=one_device(dev))
+    del packed
+    cur = one_worker(stream)
+    del stream
+    for n in range(rt.nmodes):
+        b1_ops = ops.gather_operands(
+            *cur, factors, mode=n, rows_cap=rt.rows_cap[n], row_offset=0,
+            blk=blk, tile_rows=rt.tile_rows, slab=ops.padded_rank(rank))
+        s_ops, windows = stream_operands(b1_ops, blk)
+        skw = dict(rows_cap=rt.rows_cap[n], blk=blk, tile_rows=rt.tile_rows)
+        out = K.fused_mttkrp_nmode_gather_stream(*s_ops, **skw)
+        require(torch.equal(out, K.fused_mttkrp_nmode_gather(*b1_ops,
+                                                             **skw)),
+                f"[auto-stream] mode {n}: B6 differs from B1")
+        plain = K.fused_mttkrp_nmode_gather_stream_plain(*s_ops, **skw)
+        ratios = fp32_sum_check({"B6": out, "plain": plain}, b1_ops,
+                                f"[auto-stream] mode {n}", **skw)
+        err = float((out - plain).abs().max())
+        t_k = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *s_ops, **skw), 3)
+        t_b1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*b1_ops, **skw),
+                       3)
+        bound, by = kernel_bound_ms(b1_ops, rows_cap=rt.rows_cap[n],
+                                    tile_rows=rt.tile_rows, scheds=s_ops[5])
+        nnz = int((s_ops[0] != 0).sum())
+        log(f"[auto-stream] B6 mode {n}: {nnz} nnz, "
+            f"windows {windows}, {t_k:.3f} ms per launch (B1 on the same "
+            f"stream {t_b1:.3f} ms), bound {bound:.3f} ms ({by}); == B1 "
+            f"bitwise; |B6 - plain| {err:.3e} (max|plain| "
+            f"{float(plain.abs().max()):.3e}); against the fp64 sum, the "
+            f"largest share of the fp32 summation bound: B6 "
+            f"{ratios['B6']:.3e}, plain {ratios['plain']:.3e}  [{gpu}]")
+        # Where B6's time goes: the output's occupancy, then B6 and B1 on
+        # the stream without its trailing padding and on the busiest tile.
+        occ = tile_occupancy(b1_ops, blk=blk, tile_rows=rt.tile_rows,
+                             rows_cap=rt.rows_cap[n])
+        parts = stream_breakdown(
+            b1_ops, occ, out, K.fused_mttkrp_nmode_gather(*b1_ops, **skw),
+            what=f"[auto-stream] mode {n}", **skw)
+        log(f"[auto-stream] occupancy mode {n}: distinct output rows "
+            f"{occ['distinct_rows']} / rows_cap {occ['rows_cap']} "
+            f"({occ['distinct_rows'] / occ['rows_cap']:.4f}); live tiles "
+            f"{occ['live_tiles']} / {occ['tiles']} "
+            f"({occ['live_tiles'] / occ['tiles']:.4f}); blocks "
+            f"{occ['blocks']}, of them with a nonzero {occ['live_blocks']}, "
+            f"trailing padding on the last tile {occ['trailing']}; busiest "
+            f"tile {occ['busiest']}: {occ['busiest_blocks']} blocks, "
+            f"{occ['busiest_nnz']} nnz ({occ['busiest_nnz'] / nnz:.4f} of "
+            f"the nonzeros)")
+        for part, (ms6, ms1, win) in parts.items():
+            log(f"[auto-stream] mode {n} {part} stream: B6 {ms6:.3f} ms "
+                f"(full {t_k:.3f}), B1 {ms1:.3f} ms (full {t_b1:.3f}), "
+                f"windows {win}; bitwise the full stream's rows  [{gpu}]")
+        del b1_ops, s_ops, out, plain, occ, parts
+        cur = remap_one(cur, (n + 1) % rt.nmodes, rt)
+    del cur, factors, ft
+    return launched
+
+
 def phase_four_mode(dev):
     from repro_torch.core import flycoo, tensors
     t = tensors.frostt_like("enron")
@@ -2101,6 +2563,8 @@ def main() -> int:
     del t_fit
     # The [resilience] path's launches (the stepped driver), read apart.
     res_launches = phase_resilience(ft, b1_fits, dev, gpu)
+    # The [obs] paths' launches: the counted run and [auto-stream]'s auto.
+    obs = phase_obs(ft, dev, gpu)
     del ft
     kernels = []
     for name, (launches, rows) in main_rows.items():
@@ -2109,6 +2573,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches,
             "dist_main_launches": dist_launches.get(name, 0),
             "resilience_launches": res_launches.get(name, 0),
+            "obs_launches": obs["obs_launches"][name],
+            "auto_stream_launches": obs["auto_stream_launches"][name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -2126,7 +2592,9 @@ def main() -> int:
         "kernel ms/plain_ms/bound_ms are means per launch over the modes "
         "of the main path; launches are the D=1 main paths', "
         "dist_main_launches the [dist-main] D=4 run's, "
-        "resilience_launches the [resilience] fault-free stepped run's; "
+        "resilience_launches the [resilience] fault-free stepped run's, "
+        "obs_launches the [obs] counted baseline run's, "
+        "auto_stream_launches [auto-stream]'s auto run's; "
         "l2_bound_ms is the L2 bytes (rows gathered by "
         "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
         "factor element for the [bf16] variants) over the "

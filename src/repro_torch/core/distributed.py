@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.mttkrp import ops as kops
+from ..obs import counters as _obs
 from ..resilience import faults as _faults
 from . import remap as remap_lib
 from .flycoo import FlycooTensor, pack_mode
@@ -105,7 +106,10 @@ def prepare_runtime(
 
     ``gather_dtype`` (``"float32"`` or ``"bfloat16"``) goes to every mode
     step through the runtime. ``table`` (calibration tables, ROADMAP A12)
-    must be ``None``.
+    must be ``None``. Each call counts the exchange's per-transition
+    allocation (``obs.counters.record_remap_exchange``: ``remap.a2a.*``,
+    ``remap.transitions``), so every driver that builds a runtime counts
+    its collective bytes.
     """
     if table is not None:
         raise NotImplementedError(
@@ -117,6 +121,7 @@ def prepare_runtime(
     i_pad = tuple(D * rc for rc in rows_cap)
     blk = int(blk if blk is not None else min(ft.params.g, 512))
     caps = remap_lib.remap_capacities(ft)
+    _obs.record_remap_exchange(caps, D, ft.nmodes)
     rt = DynasorRuntime(
         num_workers=D, nmodes=ft.nmodes, rank=rank, rows_cap=rows_cap,
         i_pad=i_pad, nnz_cap=ft.nnz_cap,

@@ -11,6 +11,9 @@ Port of ``repro/kernels/mttkrp/ops.py``:
   stream kernel's per-block window (equal to the reference's).
 * :func:`select_backend` resolves ``auto`` on the Hopper residency ladder
   (``oocore.planner.plan_residency``) and passes explicit names through.
+* :func:`step_traffic_bytes` is the counted traffic model of a mode
+  step, and :func:`timed_device_step` runs a mode step fenced and timed
+  from the host, emitting both (``ops.step.model_bytes``, ``ops.step_s``).
 * :func:`mttkrp_device_step` runs one mode step through the backends of
   :data:`BACKENDS` — the JAX package's names, on CUDA kernels: ``ref``
   (materialized ``index_add_``), ``pallas`` (materialized contribution,
@@ -26,10 +29,14 @@ Port of ``repro/kernels/mttkrp/ops.py``:
 """
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.nn.functional as F
 
 from ...core.mttkrp import hadamard_rows
+from ...obs import counters as _obs
+from ...obs import tracer as _tracer
 from ...oocore import planner as _planner
 from ...reorder import ordering as _reorder
 from ...resilience import faults as _faults
@@ -60,9 +67,11 @@ __all__ = [
     "padded_rank",
     "pregathered_rows",
     "select_backend",
+    "step_traffic_bytes",
     "stream_schedules",
     "tile_schedule",
     "tiled_rank_slab",
+    "timed_device_step",
 ]
 
 # Backends this module runs. ``segsum`` is accepted one level up, in
@@ -179,17 +188,25 @@ def select_backend(backend: str, *, nmodes: int, rank: int, blk: int = 512,
     names, the bf16 ones among them, pass through; an unknown one raises
     ``ValueError``. A calibration ``table`` raises
     ``NotImplementedError`` (ROADMAP A12).
+
+    Every resolution counts ``dispatch.backend{backend,source}``: the
+    decision and why (``explicit`` or ``static``; the reference's
+    ``table`` comes with A12). The count is per call, the reference's per
+    jit trace (``obs.counters``).
     """
     if table is not None:
         raise NotImplementedError(
             "calibration tables are not ported yet (ROADMAP A12)")
     check_backend(backend)
     if backend != "auto":
+        _obs.add("dispatch.backend", backend=backend, source="explicit")
         return backend
-    return _planner.plan_residency(
+    chosen = _planner.plan_residency(
         nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
         factor_rows=factor_rows, smem_budget=smem_budget,
         l2_budget=l2_budget).backend
+    _obs.add("dispatch.backend", backend=chosen, source="static")
+    return chosen
 
 
 def n_pad_for(cap: int, rows_cap: int, blk: int, tile_rows: int) -> int:
@@ -538,3 +555,61 @@ def mttkrp_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
         # No active policy: fail fast, one attempt at the selected backend.
         return _attempt(backend)
     return pol.dispatch(_attempt, backend)
+
+
+def step_traffic_bytes(*, cap: int, nmodes: int, rank: int, rows_cap: int,
+                       gather_dtype: str = "float32",
+                       rank_multiple: int = _kernel.RANK_MULTIPLE) -> int:
+    """First-order counted traffic model of one device mode step.
+
+    What the step minimally moves, whatever the backend: the nonzero
+    stream (value, local row and K gathered-mode indices, 4 B each), one
+    gathered factor row per nonzero per input mode (``rpad`` elements of
+    the gather dtype), and the output factor written once. A *model*, not
+    a measurement: the byte count the roofline divides a measured step
+    time by. ``rpad`` is the rank padded to ``rank_multiple`` (the port's
+    16; the reference pads to its MXU's 128, which ``rank_multiple=128``
+    reproduces).
+    """
+    k = nmodes - 1
+    gi = check_gather_dtype(gather_dtype).itemsize
+    rpad = _kernel.padded_rank(rank, rank_multiple)
+    return cap * (4 + 4 + 4 * k) + cap * k * rpad * gi + rows_cap * rpad * 4
+
+
+def timed_device_step(idx, val, valid, factors, *, mode: int, rows_cap: int,
+                      backend: str = "pallas_fused_gather",
+                      gather_dtype: str = "float32", **step_kw):
+    """:func:`mttkrp_device_step`, fenced and timed from the host.
+
+    An ``ops.device_step`` span around the call, with the step's modeled
+    traffic (:func:`step_traffic_bytes`, ``ops.step.model_bytes``) emitted
+    inside it so the roofline can join measured seconds with counted
+    bytes, then ``ops.step_s`` (host seconds). On CUDA the clock starts
+    after ``torch.cuda.synchronize`` on the inputs' device, so work queued
+    before the call is not counted, and the call ends with another, where
+    the reference calls ``block_until_ready``; on the CPU, which runs
+    eagerly, nothing needs fencing. The labels carry the *requested* backend
+    (``auto`` stays ``auto``), as in the reference: the step's own
+    ``dispatch.backend`` count says what it resolved to. ``step_kw``
+    (``row_offset``, ``blk``, ``tile_rows``, ``ordering``, the budgets) go
+    to :func:`mttkrp_device_step`.
+    """
+    tracer = _tracer.get_tracer()
+    model_b = step_traffic_bytes(
+        cap=int(idx.shape[0]), nmodes=int(idx.shape[1]),
+        rank=int(factors[mode].shape[-1]), rows_cap=rows_cap,
+        gather_dtype=gather_dtype)
+    if idx.is_cuda:
+        torch.cuda.synchronize(idx.device)
+    t0 = time.perf_counter()
+    with tracer.span("ops.device_step", backend=backend, mode=mode,
+                     ordering=step_kw.get("ordering", "none")):
+        _obs.add("ops.step.model_bytes", model_b, backend=backend)
+        out = mttkrp_device_step(idx, val, valid, factors, mode=mode,
+                                 rows_cap=rows_cap, backend=backend,
+                                 gather_dtype=gather_dtype, **step_kw)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+    _obs.add("ops.step_s", time.perf_counter() - t0, backend=backend)
+    return out

@@ -1,29 +1,48 @@
 """Process-wide counter registry: one namespace for every counted metric.
 
 Port of ``repro/obs/counters.py``. Every layer emits into one flat dotted
-namespace (``resilience.retries{site=ops.kernel}``,
-``cpals.phase_s{mode=0,phase=mttkrp}``), and tooling (the span tracer's
-per-span counter deltas, the chaos smoke's injected-vs-handled check)
-reads it back uniformly.
+namespace (``oocore.dma.scheduled_bytes``, ``remap.a2a.bytes{transition=0}``,
+``dispatch.backend{backend=pallas_fused_gather,source=static}``), and
+tooling (the span tracer's per-span counter deltas, ``python -m
+repro_torch.obs report``, the counted baseline gate
+:mod:`repro_torch.obs.baseline`, the roofline of
+:mod:`repro_torch.obs.prof`) reads it back uniformly.
 
 Design rules, as in the reference:
 
 * **Closed namespace.** Every counter's base name must be a member of
   :data:`NAMESPACES`; an undocumented counter is a ``ValueError`` at the
-  emit site. The port's namespace holds only what it emits: the CP-ALS
-  driver's ``cpals.*`` and the resilience layer's ``resilience.*``. The
-  reference's ``resilience.interpret_fallbacks`` is left out (the port
-  has no interpreter to fall back to), and so is
-  ``resilience.table_fallbacks`` (calibration tables, ROADMAP A12).
+  emit site. The port's namespace holds what it emits: the reference's
+  names, less those of layers it does not have yet. Left out, each with
+  what brings it: ``execution.*`` and ``resilience.interpret_fallbacks``
+  (the port has no interpreter to resolve or fall back to; a CUDA tensor
+  runs the kernel, a CPU tensor its plain version), ``dryrun.*`` (the
+  compile-validation tier, ROADMAP A13), ``tune.*`` and
+  ``resilience.table_fallbacks`` (calibration tables, A12), ``serve.*``
+  (the LM scaffolding, A15).
+* **A TPU fact translated.** The reference's ``planner.vmem.plan_bytes``
+  is the one VMEM budget of its ladder. The Hopper ladder has two
+  (``oocore.planner.plan_residency``): shared memory per CTA and the L2
+  the gathered factors take. So the plan's bytes are
+  ``planner.smem.plan_bytes`` (``ResidencyPlan.smem_bytes``) and
+  ``planner.l2.plan_bytes`` (``ResidencyPlan.l2_bytes``).
 * **Labels, not name explosions.** Breakdowns attach as sorted
   ``{key=value}`` suffixes (:func:`counter_key`), so the base name stays
   a stable aggregation key (:meth:`CounterRegistry.total`).
-* **Counted, not timed, unless suffixed ``_s``.**
+* **Counted, not timed, unless suffixed ``_s``.** Counted metrics are
+  host-independent and go into the baseline gate; ``_s`` ones never do.
 * **stdlib only**, so any layer can emit without an import cycle.
 
-The reference's absorbers ``record_stream_stats`` (oocore DMA bytes) and
-``record_remap_exchange`` (all_to_all sizing) are not here: they come
-with their emit sites (``oocore.dma.*``, ``remap.a2a.*``) in ROADMAP A11.
+**Sites fire per call, not per trace.** The reference's ``dispatch.*``
+and ``planner.*`` counters fire while ``jax.jit`` traces a mode step:
+once per static signature per process, 4 for the baseline's 4-mode
+run. The port runs eagerly, so ``ops.select_backend`` and
+``oocore.planner.plan_residency`` count every call: per worker, per mode,
+per sweep (32 in that run: 4 workers x 4 modes x 2 sweeps), as the fault
+sites' ``resilience.site_calls`` do (``resilience.faults``). The other
+counted names (``oocore.*``, ``reorder.*``, ``remap.*``,
+``cpals.sweeps``) fire once per host-level step in both packages and
+equal the reference's at its geometry.
 """
 from __future__ import annotations
 
@@ -36,6 +55,8 @@ __all__ = [
     "add",
     "counter_key",
     "get_registry",
+    "record_remap_exchange",
+    "record_stream_stats",
     "split_key",
     "use_registry",
 ]
@@ -45,6 +66,27 @@ NAMESPACES = (
     "cpals.phase_s",
     "cpals.sweep_s",
     "cpals.sweeps",
+    "dispatch.backend",
+    "oocore.chunks",
+    "oocore.dma.distinct_bytes",
+    "oocore.dma.index_stream_bytes",
+    "oocore.dma.pipelined_bytes",
+    "oocore.dma.scheduled_bytes",
+    "oocore.mode_step_s",
+    "oocore.mode_steps",
+    "ops.step.model_bytes",
+    "ops.step_s",
+    "planner.l2.plan_bytes",
+    "planner.plans",
+    "planner.smem.plan_bytes",
+    "remap.a2a.bytes",
+    "remap.a2a.uniform_bytes",
+    "remap.transitions",
+    "reorder.dma.postsort_distinct_bytes",
+    "reorder.dma.postsort_scheduled_bytes",
+    "reorder.dma.presort_distinct_bytes",
+    "reorder.dma.presort_scheduled_bytes",
+    "reorder.perms",
     "resilience.checkpoint.restores",
     "resilience.checkpoint.saves",
     "resilience.degradations",
@@ -159,3 +201,60 @@ def use_registry(registry: CounterRegistry | None = None):
         yield scoped
     finally:
         _REGISTRY = previous
+
+
+# ---------------------------------------------------------------------------
+# Absorbers: the counted structs of other layers -> one namespace
+# ---------------------------------------------------------------------------
+
+def record_stream_stats(stats) -> None:
+    """Absorb an out-of-core ``StreamStats`` into the registry.
+
+    Duck-typed on the stat fields, so this module never imports the
+    executor. Each field maps to exactly one counter, so the stats'
+    ordering (``scheduled >= distinct``, ``scheduled >= pipelined``)
+    survives the round trip. A reordered stream also records the
+    before/after tile bytes under ``reorder.dma.*``, labelled with the
+    ordering: presort is what the stream as given would have cost,
+    postsort repeats the ``oocore.dma.*`` bytes.
+    """
+    reg = _REGISTRY
+    reg.add("oocore.mode_steps", 1, backend=stats.backend)
+    reg.add("oocore.chunks", stats.chunks)
+    reg.add("oocore.dma.scheduled_bytes", stats.scheduled_tile_bytes)
+    reg.add("oocore.dma.distinct_bytes", stats.distinct_tile_bytes)
+    reg.add("oocore.dma.pipelined_bytes", stats.pipelined_tile_bytes)
+    reg.add("oocore.dma.index_stream_bytes", stats.index_stream_bytes)
+    if getattr(stats, "ordering", "none") != "none":
+        o = stats.ordering
+        reg.add("reorder.dma.presort_scheduled_bytes",
+                stats.presort_scheduled_tile_bytes, ordering=o)
+        reg.add("reorder.dma.presort_distinct_bytes",
+                stats.presort_distinct_tile_bytes, ordering=o)
+        reg.add("reorder.dma.postsort_scheduled_bytes",
+                stats.scheduled_tile_bytes, ordering=o)
+        reg.add("reorder.dma.postsort_distinct_bytes",
+                stats.distinct_tile_bytes, ordering=o)
+
+
+def record_remap_exchange(caps, num_workers: int, nmodes: int) -> None:
+    """Absorb a runtime's per-transition all_to_all sizing.
+
+    ``caps`` is ``remap_capacities(ft)``: entry ``n`` bounds the mode
+    ``n -> n+1`` exchange. Bytes per transition are the reference's
+    allocated payload ``D * D * cap * (4 * nmodes + 4)``: an int32
+    coordinate per mode and a float32 value per slot. The port's exchange
+    sends the same coordinates and values, as two tensors, plus a bool
+    mask per slot (``core.remap.exchange``); the counter keeps the
+    reference's arithmetic, so the two packages' counts stay comparable.
+    ``remap.a2a.uniform_bytes`` is what one capacity of ``max(caps)`` for
+    every transition would allocate, as the reference computes it; the
+    port always sizes each transition by its own capacity.
+    """
+    reg = _REGISTRY
+    caps = [int(c) for c in caps]
+    per_pair = num_workers * num_workers * (4 * nmodes + 4)
+    for n, cap in enumerate(caps):
+        reg.add("remap.a2a.bytes", cap * per_pair, transition=n)
+    reg.add("remap.a2a.uniform_bytes", len(caps) * max(caps) * per_pair)
+    reg.add("remap.transitions", len(caps))

@@ -13,18 +13,29 @@ single-pass one.
 Each chunk launch is the ``oocore.chunk`` fault site
 (``resilience.faults``); under an active policy
 (``resilience.use_policy``) a transient fault there replays the chunk,
-from the same ``out_init`` and carry. Left out of this port for now: the
-reference's obs counters and spans around the mode step and its chunks
-(ROADMAP A11).
+from the same ``out_init`` and carry.
+
+Observability, as in the reference: an ``oocore.mode_step`` span around
+the step and an ``oocore.chunk`` span around each chunk (the tracer of
+``obs.tracer.get_tracer()``), the step's counted traffic
+(``obs.counters.record_stream_stats``) emitted inside the mode-step span
+so the roofline (``obs.prof.roofline``) can join it with the span's time,
+and ``oocore.mode_step_s`` after it. Under an enabled tracer each chunk
+ends with ``torch.cuda.synchronize`` on CUDA, so its span covers its
+kernel. Like the fault sites, the counters fire per call; here that is
+the reference's count too (its executor is a host loop).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
 from ..kernels.mttkrp import kernel as _kernel
 from ..kernels.mttkrp import ops as _ops
+from ..obs import counters as _obs
+from ..obs import tracer as _tracer
 from ..reorder import ordering as _reorder
 from ..resilience import faults as _faults
 from ..resilience import policy as _policy
@@ -214,27 +225,39 @@ def mttkrp_out_of_core(
         presort_distinct_tile_bytes=presort_distinct_b,
     )
 
+    tracer = _tracer.get_tracer()
     out = torch.zeros(rows_cap, rpad, dtype=torch.float32, device=dev)
     carry = None
     pol = _policy.get_policy()
-    for (start, stop), cw in zip(chunks, cwindows):
-        def _launch(out=out, carry=carry, start=start, stop=stop, cw=cw):
-            # Registered failure boundary: one chunk is one kernel launch,
-            # the unit a transient fault costs and the policy replays. The
-            # kernel never writes out_init or the carry, so a replay
-            # starts from the same state.
-            _faults.fault_site("oocore.chunk")
-            sl = slice(start * blk, stop * blk)
-            return _kernel.fused_mttkrp_nmode_gather_stream_chunk(
-                vals[sl], idx_al[sl], fmats, r_al[sl], tob[start:stop],
-                tuple(s[start:stop, :cw[i]].contiguous()
-                      for i, s in enumerate(scheds)),
-                rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
-                frow_tile=frow_tile, rank_slab=slab, out_init=out,
-                carry=carry,
-                split_tail=bool(stop < num_blocks
-                                and tob_host[stop] == tob_host[stop - 1]))
+    t_step = time.perf_counter()
+    with tracer.span("oocore.mode_step", mode=mode, chunks=len(chunks),
+                     backend=_planner.STREAM_BACKEND, rung="stream",
+                     ordering=ordering):
+        # Inside the span, so the byte deltas land in its self_counters.
+        _obs.record_stream_stats(stats)
+        for ci, ((start, stop), cw) in enumerate(zip(chunks, cwindows)):
+            def _launch(out=out, carry=carry, start=start, stop=stop, cw=cw):
+                # Registered failure boundary: one chunk is one kernel
+                # launch, the unit a transient fault costs and the policy
+                # replays. The kernel never writes out_init or the carry,
+                # so a replay starts from the same state.
+                _faults.fault_site("oocore.chunk")
+                sl = slice(start * blk, stop * blk)
+                return _kernel.fused_mttkrp_nmode_gather_stream_chunk(
+                    vals[sl], idx_al[sl], fmats, r_al[sl], tob[start:stop],
+                    tuple(s[start:stop, :cw[i]].contiguous()
+                          for i, s in enumerate(scheds)),
+                    rows_cap=rows_cap, blk=blk, tile_rows=tile_rows,
+                    frow_tile=frow_tile, rank_slab=slab, out_init=out,
+                    carry=carry,
+                    split_tail=bool(stop < num_blocks
+                                    and tob_host[stop] == tob_host[stop - 1]))
 
-        out, carry = (_launch() if pol is None
-                      else pol.run("oocore.chunk", _launch))
+            with tracer.span("oocore.chunk", chunk=ci, blocks=stop - start):
+                out, carry = (_launch() if pol is None
+                              else pol.run("oocore.chunk", _launch))
+                if tracer.enabled and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+    _obs.add("oocore.mode_step_s", time.perf_counter() - t_step,
+             backend=_planner.STREAM_BACKEND, ordering=ordering)
     return out[:, :rank], stats

@@ -30,6 +30,7 @@ import torch
 
 from ..kernels.mttkrp import kernel as _kernel
 from ..kernels.mttkrp import ops as _ops
+from ..obs import counters as _obs
 
 __all__ = [
     "FACTOR_ROW_TILE",
@@ -322,6 +323,11 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
     → ``ref``, is left out: it avoids padding a small rank to the TPU's
     128-wide MXU, while the port pads to 16 and ``ref`` is plain PyTorch,
     not a kernel.
+
+    Each call counts ``planner.plans`` and the chosen plan's bytes,
+    ``planner.smem.plan_bytes`` and ``planner.l2.plan_bytes`` (labelled
+    with the backend): the Hopper ladder's two budgets in place of the
+    reference's one ``planner.vmem.plan_bytes``.
     """
     k, rpad = nmodes - 1, _kernel.padded_rank(rank)
     per_mode, total = _normalize_factor_rows(factor_rows, k)
@@ -339,6 +345,9 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
                  STREAM_BACKEND: rpad // min(rpad, _kernel.STREAM_RANK_SLAB),
                  "pallas_fused_tiled": rpad // min(rpad, _kernel.RANK_SLAB),
                  "pallas": rpad // _kernel.segment_slab(rpad)}.get(backend, 1)
+        _obs.add("planner.plans")
+        _obs.add("planner.smem.plan_bytes", int(smem), backend=backend)
+        _obs.add("planner.l2.plan_bytes", int(l2), backend=backend)
         return ResidencyPlan(
             backend=backend, nmodes=nmodes, rank=rank, blk=blk,
             tile_rows=tile_rows, smem_budget=smem_budget,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.mttkrp import kernel as _kernel
+from ..obs import counters as _obs
 
 __all__ = [
     "FACTOR_ROW_TILE",
@@ -143,11 +144,15 @@ def locality_lexsort(idx_in: torch.Tensor, ordering: str, *, primaries=(),
                      max_rows: int | None = None) -> torch.Tensor:
     """Stable permutation: ``primaries`` (most significant first), then
     the locality keys, then position — ``"none"`` is a stable sort by
-    the primaries alone."""
+    the primaries alone. A locality ordering counts
+    ``reorder.perms{ordering}``."""
     keys = locality_keys(idx_in, ordering, frow_tile=frow_tile,
                          max_rows=max_rows)
-    return lexsort(tuple(p.long() for p in primaries) + keys,
+    perm = lexsort(tuple(p.long() for p in primaries) + keys,
                    n=idx_in.shape[0], device=idx_in.device)
+    if ordering != "none":
+        _obs.add("reorder.perms", ordering=ordering)
+    return perm
 
 
 def reorder_stream(idx, val, valid, *, mode: int, ordering: str,

@@ -1148,3 +1148,26 @@ def test_resilience_chunk_replay_bitwise(cuda):
     assert inj.pending() == ()
     assert reg.get("resilience.retries", site="oocore.chunk") == 1
     assert torch.equal(clean, again)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas_fused_gather_stream"])
+def test_timed_device_step_equals_device_step(cuda, backend):
+    """``ops.timed_device_step`` on the card: bitwise the output of
+    ``mttkrp_device_step`` on the same inputs, with its modeled bytes in
+    the ``ops.device_step`` span and its host seconds after it."""
+    from repro_torch.obs import counters as ocnt
+    from repro_torch.obs import tracer as otr
+    idx, val, valid, factors = _stream(cuda, 2, 16, 20000, 96, seed=5)
+    kw = dict(mode=0, rows_cap=96, blk=BLK, tile_rows=TILE, backend=backend)
+    want = ops.mttkrp_device_step(idx, val, valid, factors, **kw)
+    tracer = otr.Tracer()
+    with ocnt.use_registry() as reg, otr.use_tracer(tracer):
+        got = ops.timed_device_step(idx, val, valid, factors, **kw)
+    assert torch.equal(got, want)
+    model_b = ops.step_traffic_bytes(cap=20000, nmodes=3, rank=16,
+                                     rows_cap=96)
+    assert reg.get("ops.step.model_bytes", backend=backend) == model_b
+    assert reg.get("ops.step_s", backend=backend) > 0
+    (span,) = [r for r in tracer.records if r.name == "ops.device_step"]
+    assert span.self_counters[
+        f"ops.step.model_bytes{{backend={backend}}}"] == model_b

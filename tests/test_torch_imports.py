@@ -59,7 +59,10 @@ def test_import_leaves_jax_unloaded():
     "repro_torch.core.distributed", "repro_torch.resilience.policy",
     "repro_torch.resilience.checkpoint", "repro_torch.resilience.__main__",
     "repro_torch.checkpoint.manager", "repro_torch.obs.tracer",
-    "repro_torch.runtime.fault_tolerance", "repro_torch.core.cpals"])
+    "repro_torch.runtime.fault_tolerance", "repro_torch.core.cpals",
+    "repro_torch.obs.counters", "repro_torch.obs.baseline",
+    "repro_torch.obs.__main__", "repro_torch.obs.prof.harness",
+    "repro_torch.obs.prof.__main__"])
 def test_new_modules_import_first_without_jax(module):
     """Each module of the stream and dispatch paths imports on its own
     (the package's import cycle between ops, the planner and the

@@ -46,9 +46,14 @@ def test_counter_key_and_split_key_equal_reference(name, labels):
 
 
 def test_namespace_is_the_reference_subset_this_slice_emits():
+    # The reference's names less the layers the port lacks, with the one
+    # VMEM plan budget translated into the Hopper ladder's two
+    # (tests/test_torch_obs_sites.py names each exclusion).
     assert list(ocnt.NAMESPACES) == sorted(set(ocnt.NAMESPACES))
-    assert set(ocnt.NAMESPACES) <= set(jcnt.NAMESPACES)
-    assert set(ocnt.NAMESPACES) == {
+    own = {"planner.smem.plan_bytes", "planner.l2.plan_bytes"}
+    assert set(ocnt.NAMESPACES) - own <= set(jcnt.NAMESPACES)
+    assert {n for n in ocnt.NAMESPACES
+            if n.startswith(("cpals.", "resilience."))} == {
         n for n in jcnt.NAMESPACES
         if n.startswith(("cpals.", "resilience."))} - {
         "resilience.interpret_fallbacks", "resilience.table_fallbacks"}
@@ -67,7 +72,7 @@ def test_registry_add_get_total_reset_and_rejects_unknown():
     reg.reset()
     assert len(reg) == 0 and snap["cpals.sweeps"] == 1
     with pytest.raises(ValueError, match="NAMESPACES"):
-        reg.add("oocore.dma.scheduled_bytes", 1)   # A11, not this slice
+        reg.add("tune.points", 1)   # calibration tables: not ported
 
 
 def test_use_registry_scopes_and_restores():
