@@ -97,8 +97,9 @@ Phases (each prints its own lines; any failure exits non-zero):
       launches equal to its dispatch and chunk counts; its Chrome trace
       validated with the spans ``sweep, mode, mttkrp, solve, remap,
       oocore.mode_step, oocore.chunk``; the steady-state profiler
-      (``run_profile``, 3 repeats, 1 warmup) with each phase's median and
-      MAD and the roofline rows; ``ops.timed_device_step`` per mode on the
+      (``python -m repro_torch.obs.prof run``, 3 repeats, 1 warmup, in a
+      fresh process) with each phase's median and MAD and the roofline
+      rows, gated against ``bench_torch/obs/PROF_baseline.json``; ``ops.timed_device_step`` per mode on the
       nell-2 stand-in (``auto`` = B1, R=16), bitwise the ``auto`` sweep's
       mode steps, with its modeled bytes, seconds and rate; then
       ``[auto-stream]``: ``auto`` at blk=64 on a tensor with FROSTT
@@ -107,13 +108,24 @@ Phases (each prints its own lines; any failure exits non-zero):
       ``dispatch.backend`` exactly as launched, with factors and fits
       bitwise the forced-B1 run's, sweep ms on CUDA events, B6 ms per
       launch and peak memory;
-  17. one JSON line with all six kernels and the five bf16 variants
+  17. ``[tune]`` (ROADMAP A12): ``repro_torch.tune.calibrate`` over the
+      port's quick grid on the card (every backend, the hand-written
+      kernels among them, each case's trailing all-padding blocks
+      counted), the table saved under ``build/tune/``; per key the
+      static, calibrated and oracle backends with their regret, every key
+      consistent; ``cp_als_distributed(table=)`` on the nell-2 stand-in
+      (R=16, ``auto``, 2 sweeps): each mode's plan, sweep ms beside
+      [main]'s, each tuned mode step against the plain ``index_add_``
+      step and bitwise the static configuration's where the plan is it;
+      the static and calibrated rungs at ``[auto-stream]``'s keys;
+  18. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
       ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
       ``obs_launches`` from ``[obs]``'s counted run,
-      ``auto_stream_launches`` from ``[auto-stream]``), the card's name
-      and power limit, and the last line ``{"ok": true, "device":
-      {...}}``.
+      ``auto_stream_launches`` from ``[auto-stream]``, ``tune_launches``
+      from ``[tune]``'s calibration, ``tune_main_launches`` from its
+      tuned CP-ALS run), the card's name and power limit, and the last
+      line ``{"ok": true, "device": {...}}``.
 
 B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
 factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
@@ -145,6 +157,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # The card's L2 read rate (bytes/s), measured by phase_build.
 L2_BYTES_PER_S = None
+# Host ms of each sweep of [main]'s static auto run (phase_main).
+MAIN_SWEEP_MS: list = []
 # rtol, and atol as a fraction of max|plain|: the kernel sums in another
 # fp32 order than index_add_.
 RTOL, ATOL_FRAC = 1e-5, 1e-5
@@ -761,6 +775,7 @@ def phase_main(dev, gpu: str):
     b1_launches = launched["fused_mttkrp_nmode_gather"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fits = res.fits
+    MAIN_SWEEP_MS[:] = [s * 1e3 for s in res.sweep_seconds]
     log(f"[main] cp_als_distributed R=16 backend=auto: fits {fits}; "
         f"ms per sweep {[round(s * 1e3, 2) for s in res.sweep_seconds]}; "
         f"call {wall:.1f} s incl. host prepare_runtime; peak device memory "
@@ -2105,10 +2120,11 @@ class _SweepEvents:
 def phase_obs(ft, dev, gpu: str) -> dict:
     """``[obs]`` (ROADMAP A11) on the card: the counted baseline against
     the committed one key for key, the pinned run's Chrome trace, the
-    steady-state profiler with its roofline, gated against the committed
-    timed baseline (``bench_torch/obs/PROF_baseline.json``, a copy of an
-    earlier run's ``PROF_run.json`` from this phase; a fingerprint or
-    host-noise SKIP passes, a regression fails), ``ops.timed_device_step`` per
+    steady-state profiler with its roofline (``python -m
+    repro_torch.obs.prof run`` in a fresh process), gated against the
+    committed timed baseline (``bench_torch/obs/PROF_baseline.json``; a
+    fingerprint or host-noise SKIP passes, a regression fails),
+    ``ops.timed_device_step`` per
     mode on the nell-2 stand-in that phase_main built (bitwise the
     ``auto`` sweep's mode steps), then ``[auto-stream]``. Returns the
     launches of the counted run and of ``[auto-stream]``'s ``auto`` run."""
@@ -2118,7 +2134,7 @@ def phase_obs(ft, dev, gpu: str) -> dict:
     from repro_torch.obs import (Tracer, baseline, use_registry, use_tracer,
                                  validate_chrome_trace)
     from repro_torch.obs.prof import __main__ as prof_cli
-    from repro_torch.obs.prof import gate, selftime
+    from repro_torch.obs.prof import gate
     t_phase = time.perf_counter()
     b1, b6 = "fused_mttkrp_nmode_gather", "fused_mttkrp_nmode_gather_stream"
     scratch = os.path.join(ROOT, "build")
@@ -2164,15 +2180,25 @@ def phase_obs(ft, dev, gpu: str) -> dict:
         f"({', '.join(OBS_SPANS)})")
 
     # --- 3. the profiler (timed, CUDA-fenced), gated ----------------------
-    # Written where `python -m repro_torch.obs.prof run` writes it: the
-    # committed baseline is this phase's own profile: the pinned run's
-    # host-bound phases time differently here, after the earlier phases,
-    # than in a fresh process, so both sides are taken in the same place.
-    prof, records = prof_cli.run_profile(repeats=3, warmup=1, device=dev)
+    # `python -m repro_torch.obs.prof run` in a fresh process: this
+    # process has run torch.profiler sessions (CUPTI) in earlier phases,
+    # after which the pinned run's host-bound phases time 1.4-2.2x slower
+    # and vary from run to run (PERF.md); the fresh process times
+    # the workload alone. It writes bench_torch/obs/PROF_run.json, its
+    # flamegraph and trace.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.prof", "run", "--repeats",
+         "3", "--warmup", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT,
+                                                                  "src")))
+    require(proc.returncode == 0, f"[obs] prof run failed: {proc.stdout}"
+            f"{proc.stderr}")
+    log(f"[obs] profile of the pinned run in a fresh process "
+        f"({time.perf_counter() - t0:.1f} s)")
+    prof = prof_cli._load_json(prof_cli.RUN_PATH)
     errors = gate.validate_prof(prof)
     require(not errors, f"[obs] PROF artifact: {errors}")
-    prof_cli._write_json(prof, prof_cli.RUN_PATH)
-    selftime.write_flamegraph(records, prof_cli.FLAME_PATH, overwrite=True)
     verdict = gate.compare(prof, prof_cli._load_json(prof_cli.BASELINE_PATH))
     for m in verdict.messages:
         log(f"[obs] gate against "
@@ -2231,10 +2257,11 @@ def phase_obs(ft, dev, gpu: str) -> dict:
     del cur_stream, res, factors, out
 
     # --- 5. [auto-stream] ------------------------------------------------
-    auto_stream = phase_auto_stream(dev, gpu)
+    auto_stream, auto_stream_keys = phase_auto_stream(dev, gpu)
     log(f"[obs] phase {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
-    return {"obs_launches": obs_launched, "auto_stream_launches": auto_stream}
+    return {"obs_launches": obs_launched, "auto_stream_launches": auto_stream,
+            "auto_stream_keys": auto_stream_keys}
 
 
 def wide_powerlaw_tensor(shape, nnz: int, seed: int):
@@ -2498,7 +2525,192 @@ def phase_auto_stream(dev, gpu: str) -> dict:
         del b1_ops, s_ops, out, plain, occ, parts
         cur = remap_one(cur, (n + 1) % rt.nmodes, rt)
     del cur, factors, ft
-    return launched
+    # The dispatch keys auto asked about, per mode ([tune] queries them).
+    keys = [dict(nmodes=rt.nmodes, rank=rank, blk=blk,
+                 tile_rows=rt.tile_rows,
+                 factor_rows=tuple(rt.i_pad[w] for w in range(rt.nmodes)
+                                   if w != n))
+            for n in range(rt.nmodes)]
+    return launched, keys
+
+
+# The kernel each ops backend launches (the bf16 names: B3 and B1 on bf16
+# operands); ref and segsum launch none.
+KERNEL_OF = {b: k for k, b in BACKEND_OF.items()}
+KERNEL_OF["pallas_fused_bf16"] = "fused_mttkrp_nmode" + BF16
+KERNEL_OF["pallas_fused_gather_bf16"] = "fused_mttkrp_nmode_gather" + BF16
+
+
+def phase_tune(ft, main_fits, auto_stream_keys, dev, gpu: str) -> dict:
+    """``[tune]`` (ROADMAP A12) on the card:
+
+    (a) ``tune.calibrate`` over the port's quick grid (16 points x every
+        backend, cases of ``CARD_CASE_NNZ`` nonzeros), the table saved
+        under ``build/tune/``; per point the best backend, every backend's
+        ms, and the case's nonzeros, live tiles and trailing all-padding
+        blocks; every kernel a backend names must have launched;
+    (b) per key what ``python -m repro_torch.tune check`` prints: static,
+        calibrated and oracle with each policy's regret; every key must
+        be consistent;
+    (c) ``cp_als_distributed`` on the nell-2 stand-in that phase_main
+        built, R=16, ``backend="auto"``, ``table=``, 2 sweeps: each
+        mode's plan, the sweep ms beside [main]'s static ones, the
+        launches the plans name (counts zeroed just before, read just
+        after); per mode on sweep 0's inputs the tuned step against the
+        plain ``index_add_`` step (``compare``'s tolerance), and bitwise
+        against the static configuration's step where the plan is that
+        configuration (all modes so: the fits bitwise [main]'s);
+    (d) ``select_backend("auto", table=...)`` at ``[auto-stream]``'s
+        keys and factor rows: the static and the calibrated rung per
+        mode (queried, not run).
+
+    Returns ``(calibration launches, tuned-run launches)``."""
+    from repro_torch import tune
+    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.kernels.mttkrp import ops
+    from repro_torch.tune import cli as tune_cli, microbench
+    t_phase = time.perf_counter()
+
+    # --- (a) calibration: counts zeroed before, read after ---
+    reset_counts()
+    t0 = time.perf_counter()
+    table = tune.calibrate(quick=True, device=dev, warmup=1, iters=3)
+    cal_s = time.perf_counter() - t0
+    cal_launched = counts()
+    path = table.save(os.path.join(ROOT, "build", "tune",
+                                   "calibration_card.json"))
+    cases = {(c["nmodes"], c["rank"], c["blk"], c["tile_rows"],
+              c["density"]): c for c in table.meta["obs"]["cases"]}
+    obs_meta = table.meta["obs"]
+    log(f"[tune] calibrated {len(table.entries)} points x "
+        f"{len(microbench.BACKENDS)} backends in {cal_s:.1f} s (cases of "
+        f"{obs_meta['case_nnz']} nonzeros, {obs_meta['side_dim']}-row "
+        f"input factors; median of 3 after 1 warmup) -> "
+        f"{os.path.relpath(path, ROOT)}")
+    for e in table.entries:
+        c = cases[(e.nmodes, e.rank, e.blk, e.tile_rows, e.density)]
+        ms = " ".join(f"{b}={t * 1e3:.4f}" for b, t in e.timings_s.items())
+        log(f"[tune] point nmodes={e.nmodes} R={e.rank} blk={e.blk} "
+            f"tile_rows={e.tile_rows} density={e.density}: best={e.best}; "
+            f"ms {ms}; case nnz {c['nnz']}, live tiles {c['live_tiles']}/"
+            f"{c['num_tiles']}, trailing all-padding blocks "
+            f"{c['trailing_blocks']}/{c['blocks']}, busiest tile "
+            f"{c['busiest_tile_nnz']} nnz ("
+            f"{c['busiest_tile_nnz'] / c['nnz']:.3f})  [{gpu}]")
+    want = {KERNEL_OF[b] for b in microbench.BACKENDS if b in KERNEL_OF}
+    require(all(cal_launched[k] > 0 for k in want),
+            f"[tune] calibration did not launch every kernel: "
+            f"{cal_launched}")
+
+    # --- (b) check: static, calibrated, oracle and regret per key ---
+    bad = 0
+    for ok, line, _ in tune_cli.check_lines(table):
+        bad += not ok
+        log(f"[tune] check {line}")
+    require(bad == 0, f"[tune] {bad} dispatch keys inconsistent")
+    log(f"[tune] {len(table.shape_keys())}/{len(table.shape_keys())} "
+        "dispatch keys consistent")
+
+    # --- (c) the main path with the table: counts zeroed just before ---
+    rank = 16
+    rt, packed = dist.prepare_runtime(ft, rank, table=table)
+    require(rt.mode_plans is not None, "[tune] the table gave no plans")
+    # The static runtime: the tuned one without its plans (the grid has
+    # one tile height, 8, the static one, so rows_cap and the layout are
+    # prepare_runtime(ft, rank)'s).
+    require({p.tile_rows for p in rt.mode_plans} == {rt.tile_rows},
+            f"[tune] plans {rt.mode_plans} change the tile height")
+    rt_s = dataclasses.replace(rt, mode_plans=None)
+    static = [rt_s.plan_for(n, ops.select_backend(
+        "auto", nmodes=rt_s.nmodes, rank=rank, blk=rt_s.blk,
+        tile_rows=rt_s.tile_rows,
+        factor_rows=tuple(rt_s.i_pad[w] for w in range(rt_s.nmodes)
+                          if w != n))) for n in range(rt_s.nmodes)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with _SweepEvents() as ev:
+        res = cpals.cp_als_distributed(ft, rank, backend="auto", iters=2,
+                                       tol=0.0, table=table)
+    wall = time.perf_counter() - t0
+    main_launched = counts()
+    same = [p == s for p, s in zip(rt.mode_plans, static)]
+    for n, (p, s) in enumerate(zip(rt.mode_plans, static)):
+        log(f"[tune] nell-2 mode {n} plan: backend={p.backend} blk={p.blk} "
+            f"tile_rows={p.tile_rows} rank_slabs={p.rank_slabs} "
+            f"ordering={p.ordering}; static: backend={s.backend} "
+            f"blk={s.blk} tile_rows={s.tile_rows}"
+            + (" (the same)" if same[n] else ""))
+    log(f"[tune] cp_als_distributed R={rank} auto table=, 2 sweeps: fits "
+        f"{res.fits}; sweep ms on the host "
+        f"{[round(x * 1e3, 3) for x in res.sweep_seconds]}, on CUDA events "
+        f"{ev.ms()}; [main]'s static auto sweeps (host) "
+        f"{[round(x, 3) for x in MAIN_SWEEP_MS]}; call {wall:.1f} s incl. "
+        f"host prepare_runtime; launches "
+        f"{ {k: v for k, v in main_launched.items() if v} }  [{gpu}]")
+    expect = {k: 0 for k in SOURCE}
+    for p in rt.mode_plans:
+        if p.backend in KERNEL_OF:
+            expect[KERNEL_OF[p.backend]] += 2
+    require(main_launched == expect,
+            f"[tune] launches {main_launched}, expected {expect}")
+    require(all(np.isfinite(res.fits)) and max(res.fits) <= 1.0,
+            f"[tune] fits {res.fits}")
+    if all(same):
+        require(res.fits == main_fits[:2],
+                f"[tune] plans equal the static configuration but fits "
+                f"{res.fits} differ from [main]'s {main_fits[:2]}")
+        log("[tune] every plan is the static configuration: fits bitwise "
+            "[main]'s")
+    del res
+
+    # Per mode on sweep 0's inputs: tuned step vs plain and vs static.
+    wk = one_device(dev)
+    stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
+                                                  workers=wk)
+    del packed
+    res0 = cpals.als_sweep(stream, factors, lam, x2, rt, workers=wk,
+                           sweep0=True, backend="auto")
+    cur = one_worker(stream)
+    del stream
+    for n in range(rt.nmodes):
+        facs = list(res0.factors[:n]) + list(factors[n:])
+        tuned = res0.mttkrp[n][0]
+        plain = ops.mttkrp_device_step(*cur, facs, mode=n,
+                                       rows_cap=rt.rows_cap[n],
+                                       backend="ref")
+        err = compare(tuned, plain, f"[tune] mode {n} tuned step")
+        step = lambda r: dist.device_mttkrp(*cur, facs, n, r, "auto")
+        t_tuned = cuda_ms(lambda: step(rt), 3)
+        t_static = cuda_ms(lambda: step(rt_s), 3)
+        note = f", static configuration's step {t_static:.3f} ms"
+        if same[n]:
+            require(torch.equal(tuned, step(rt_s)),
+                    f"[tune] mode {n}: plan is the static configuration "
+                    "but the step is not bitwise")
+            note += " (bitwise the tuned step)"
+        log(f"[tune] nell-2 mode {n} ({rt.mode_plans[n].backend}): tuned "
+            f"step {t_tuned:.3f} ms{note}; |tuned - plain index_add_| "
+            f"{err:.3e} (max|plain| {float(plain.abs().max()):.3e})  "
+            f"[{gpu}]")
+        del plain
+        cur = remap_one(cur, (n + 1) % rt.nmodes, rt)
+    del cur, factors, res0
+
+    # --- (d) [auto-stream]'s keys: static vs calibrated rung, not run ---
+    for n, kw in enumerate(auto_stream_keys):
+        st = ops.select_backend("auto", **kw)
+        cal = ops.select_backend("auto", table=table, **kw)
+        best = table.best_backend(
+            **{k: kw[k] for k in ("nmodes", "rank", "blk", "tile_rows")},
+            allowed=ops.AUTO_BACKENDS)
+        log(f"[tune] [auto-stream] mode {n} (nmodes={kw['nmodes']} "
+            f"R={kw['rank']} blk={kw['blk']} tile_rows={kw['tile_rows']} "
+            f"factor rows {kw['factor_rows']}): static {st}, calibrated "
+            f"{cal} (the table's argmin {best}"
+            + ("" if best == cal else ", which the residency planner "
+               "rejects") + "); not run")
+    log(f"[tune] phase took {time.perf_counter() - t_phase:.1f} s")
+    return cal_launched, main_launched
 
 
 def phase_four_mode(dev):
@@ -2565,6 +2777,9 @@ def main() -> int:
     res_launches = phase_resilience(ft, b1_fits, dev, gpu)
     # The [obs] paths' launches: the counted run and [auto-stream]'s auto.
     obs = phase_obs(ft, dev, gpu)
+    # The [tune] paths' launches: the calibration and the tuned run.
+    tune_launches, tune_main_launches = phase_tune(
+        ft, b1_fits, obs["auto_stream_keys"], dev, gpu)
     del ft
     kernels = []
     for name, (launches, rows) in main_rows.items():
@@ -2575,6 +2790,8 @@ def main() -> int:
             "resilience_launches": res_launches.get(name, 0),
             "obs_launches": obs["obs_launches"][name],
             "auto_stream_launches": obs["auto_stream_launches"][name],
+            "tune_launches": tune_launches[name],
+            "tune_main_launches": tune_main_launches[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -2594,7 +2811,9 @@ def main() -> int:
         "dist_main_launches the [dist-main] D=4 run's, "
         "resilience_launches the [resilience] fault-free stepped run's, "
         "obs_launches the [obs] counted baseline run's, "
-        "auto_stream_launches [auto-stream]'s auto run's; "
+        "auto_stream_launches [auto-stream]'s auto run's, "
+        "tune_launches the [tune] calibration's, tune_main_launches the "
+        "[tune] tuned CP-ALS run's; "
         "l2_bound_ms is the L2 bytes (rows gathered by "
         "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
         "factor element for the [bf16] variants) over the "

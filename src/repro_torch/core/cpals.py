@@ -406,8 +406,8 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
                        blk: int | None = None, tracer=None,
                        checkpoint_dir: str | None = None,
                        checkpoint_every: int = 1, checkpoint_keep: int = 3,
-                       resilience: _rpolicy.RetryPolicy | None = None
-                       ) -> CPResult:
+                       resilience: _rpolicy.RetryPolicy | None = None,
+                       table=None) -> CPResult:
     """Dynasor CP-ALS on ``ft.params.num_workers`` workers: FLYCOO layout +
     :func:`als_sweep`.
 
@@ -431,6 +431,13 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     (``reorder.ORDERINGS``; ``None`` inherits ``ft.ordering``) ranks each
     mode step's output-tile runs by factor-tile locality. The factors
     returned are replicated, in natural row order.
+
+    ``table`` (a ``repro_torch.tune`` calibration table or cost model)
+    goes to :func:`prepare_runtime`: each mode then gets a tuned
+    ``(backend, blk, tile_rows)`` plan, which ``backend="auto"`` follows
+    in both drivers (every mode step reads its configuration from
+    ``rt.plan_for``); an explicit ``backend`` keeps the plan's block and
+    tile only. ``None`` keeps the static configuration, bit for bit.
 
     ``tracer`` defaults to the process tracer (``repro_torch.obs``),
     normally the no-op. An *enabled* tracer, a ``checkpoint_dir`` or a
@@ -463,7 +470,7 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     tracer = _tracer.get_tracer() if tracer is None else tracer
     rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows,
                                       gather_dtype=gather_dtype,
-                                      ordering=ordering)
+                                      ordering=ordering, table=table)
     stream, factors, lam, x_norm_sq = device_state(ft, rt, packed, seed=seed,
                                                    workers=workers)
     del packed

@@ -32,13 +32,14 @@ the reference exactly; the stream and factors move to the device in
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels.mttkrp import ops as kops
 from ..obs import counters as _obs
+from ..oocore import planner as _planner
 from ..resilience import faults as _faults
 from . import remap as remap_lib
 from .flycoo import FlycooTensor, pack_mode
@@ -46,6 +47,7 @@ from .mttkrp import mttkrp
 
 __all__ = [
     "DynasorRuntime",
+    "ModePlan",
     "prepare_runtime",
     "permuted_factor_init",
     "init_factors",
@@ -60,9 +62,29 @@ __all__ = [
 ]
 
 
+class ModePlan(NamedTuple):
+    """One mode's kernel configuration: tuned (``repro_torch.tune``), or
+    the runtime's static one (:meth:`DynasorRuntime.plan_for`)."""
+
+    backend: str                # segsum | ref | auto | any ops backend
+    blk: int                    # nonzero block of this mode's layout
+    tile_rows: int              # output row tile of this mode's layout
+    # Column slabs the resolved backend runs (oocore.planner.rung_slabs:
+    # RANK_SLAB for B2/B4, STREAM_RANK_SLAB for B6, B5's own slab; 1
+    # otherwise). Metadata: the kernels derive their grids from shapes.
+    rank_slabs: int = 1
+    # Stream-window widths per *input* mode, in FACTOR_ROW_TILE-row tiles
+    # (the data-blind bound), when the backend is the stream kernel, else
+    # (). Metadata: the mode step tightens the windows to the data.
+    window_tiles: tuple = ()
+    # reorder.ORDERINGS policy of the mode step: not metadata, it
+    # changes the aligned stream the kernel sees.
+    ordering: str = "none"
+
+
 @dataclasses.dataclass(frozen=True)
 class DynasorRuntime:
-    """Static metadata of one decomposition (the fields this slice reads)."""
+    """Static metadata of one decomposition."""
 
     num_workers: int
     nmodes: int
@@ -75,8 +97,12 @@ class DynasorRuntime:
     blk: int = 512              # nonzero block
     tile_rows: int = 8          # output row tile
     # Per-transition exchange capacities (entry n bounds mode n -> n+1);
-    # None means bucket_cap for every transition.
+    # None means bucket_cap for every transition (``uniform_cap``).
     bucket_caps: tuple[int, ...] | None = None
+    # Tuned (backend, blk, tile_rows) per mode from a calibration table;
+    # None: every mode takes (blk, tile_rows) above and the caller's
+    # backend.
+    mode_plans: tuple[ModePlan, ...] | None = None
     # The element type the fused family gathers factor rows in, "float32"
     # or "bfloat16" (bf16 gathers, fp32 products and sums): threaded to
     # every mode step, never chosen by ``auto``.
@@ -96,39 +122,82 @@ class DynasorRuntime:
             return self.bucket_cap
         return self.bucket_caps[from_mode]
 
+    def plan_for(self, mode: int, backend: str = "auto") -> ModePlan:
+        """The kernel configuration of ``mode``: what every mode step
+        reads its ``(backend, blk, tile_rows, ordering)`` from.
+
+        A tuned runtime always takes the plan's ``(blk, tile_rows)``
+        (``rows_cap`` was rounded to the plan's tile) and substitutes the
+        plan's backend only when the caller asked for ``auto``; an
+        untuned one gives ``(backend, blk, tile_rows, ordering)`` of the
+        runtime. ``rank_slabs`` and ``window_tiles`` are re-derived from
+        the resolved backend (``oocore.planner.rung_slabs``, the
+        data-blind window over each input mode's ``i_pad``), so an
+        explicit override never carries a plan's stale metadata; for an
+        unresolved ``auto`` they stay trivial.
+        """
+        if self.mode_plans is not None:
+            p = self.mode_plans[mode]
+            if backend != "auto":
+                p = p._replace(backend=backend)
+        else:
+            p = ModePlan(backend, self.blk, self.tile_rows,
+                         ordering=self.ordering)
+        window = ()
+        if p.backend == _planner.STREAM_BACKEND:
+            window = tuple(_planner.stream_window_tiles(p.blk, self.i_pad[w])
+                           for w in range(self.nmodes) if w != mode)
+        return p._replace(rank_slabs=_planner.rung_slabs(p.backend,
+                                                         self.rank),
+                          window_tiles=window)
+
 
 def prepare_runtime(
     ft: FlycooTensor, rank: int, *, blk: int | None = None,
-    tile_rows: int = 8, table=None,
+    tile_rows: int = 8, uniform_cap: bool = False, table=None,
     gather_dtype: str = "float32", ordering: str | None = None,
 ) -> tuple[DynasorRuntime, tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Runtime metadata + the initial mode-0 packed layout (H_0), numpy.
 
-    ``gather_dtype`` (``"float32"`` or ``"bfloat16"``) goes to every mode
-    step through the runtime. ``table`` (calibration tables, ROADMAP A12)
-    must be ``None``. Each call counts the exchange's per-transition
-    allocation (``obs.counters.record_remap_exchange``: ``remap.a2a.*``,
+    Args:
+      uniform_cap: the escape hatch: size every remap exchange to the
+        largest transition's capacity instead of each transition's own
+        ``remap_capacities`` bound (``bucket_caps=None``).
+      table: a calibration table or cost model (``repro_torch.tune``).
+        Each mode then gets a tuned ``(backend, blk, tile_rows)`` plan
+        (``tune.model.plan_modes``), its ``rows_cap`` rounds to the
+        plan's tile, and ``backend="auto"`` callers follow it. ``None``,
+        or a table that cannot answer, keeps the static configuration.
+      gather_dtype: ``"float32"`` or ``"bfloat16"``, to every mode step.
+      ordering: ``reorder.ORDERINGS`` policy of every mode step; ``None``
+        inherits ``ft.ordering``.
+
+    Each call counts the exchange's per-transition allocation
+    (``obs.counters.record_remap_exchange``: ``remap.a2a.*``,
     ``remap.transitions``), so every driver that builds a runtime counts
     its collective bytes.
     """
-    if table is not None:
-        raise NotImplementedError(
-            "calibration tables are not ported yet (ROADMAP A12)")
     ordering = ft.ordering if ordering is None else ordering
     D = ft.params.num_workers
-    rows_cap = tuple(int(-(-mp.rows_cap // tile_rows) * tile_rows)
-                     for mp in ft.modes)
+    plans = None
+    if table is not None:
+        from ..tune.model import plan_modes  # deferred: tune imports core
+        plans = plan_modes(table, ft, rank, ordering=ordering)
+    tiles = (tuple(p.tile_rows for p in plans) if plans is not None
+             else (tile_rows,) * ft.nmodes)
+    rows_cap = tuple(int(-(-mp.rows_cap // t) * t)       # round to tile
+                     for mp, t in zip(ft.modes, tiles))
     i_pad = tuple(D * rc for rc in rows_cap)
     blk = int(blk if blk is not None else min(ft.params.g, 512))
     caps = remap_lib.remap_capacities(ft)
-    _obs.record_remap_exchange(caps, D, ft.nmodes)
+    _obs.record_remap_exchange(caps, D, ft.nmodes, uniform_cap=uniform_cap)
     rt = DynasorRuntime(
         num_workers=D, nmodes=ft.nmodes, rank=rank, rows_cap=rows_cap,
         i_pad=i_pad, nnz_cap=ft.nnz_cap,
         bucket_cap=max(caps), shape=ft.tensor.shape,
         blk=blk, tile_rows=tile_rows,
-        bucket_caps=tuple(caps),
-        gather_dtype=gather_dtype, ordering=ordering,
+        bucket_caps=None if uniform_cap else tuple(caps),
+        mode_plans=plans, gather_dtype=gather_dtype, ordering=ordering,
     )
     # pack_mode used flycoo rows_cap; re-pad indices to tile-rounded layout.
     idx, val, mask = pack_mode(ft, 0)
@@ -202,19 +271,25 @@ def device_mttkrp(idx, val, mask, factors, mode: int, rt: DynasorRuntime,
     ``backend`` is ``segsum`` (gather + ``index_add_``), ``auto`` (the
     residency ladder, ``ops.select_backend``, sized with the replicated
     factors' rows) or one of ``ops.BACKENDS`` (``ref``, and B1–B6 behind
-    the JAX package's names, the bf16 ones among them). The runtime's
-    ``gather_dtype`` and ``ordering`` apply to the fused and gather
-    kernels. Padding entries (mask off) may point at any row: they are
-    masked before the row offset is subtracted.
+    the JAX package's names, the bf16 ones among them). The mode step's
+    ``(backend, blk, tile_rows, ordering)`` come from
+    ``rt.plan_for(mode, backend)``: a tuned runtime's plan (its backend
+    when the caller asks for ``auto``, and it may be ``segsum``), else
+    the runtime's static configuration. The runtime's ``gather_dtype``
+    applies to the fused and gather kernels. Padding entries (mask off)
+    may point at any row: they are masked before the row offset is
+    subtracted.
     """
     kops.check_backend(backend, extra=("segsum",))
+    plan = rt.plan_for(mode, backend)
     rows_cap = rt.rows_cap[mode]
     # segsum and ref compute the same plain gather + index_add_ here.
     return kops.mttkrp_device_step(
         idx, val, mask, factors, mode=mode, rows_cap=rows_cap,
-        row_offset=worker * rows_cap, blk=rt.blk, tile_rows=rt.tile_rows,
-        backend="ref" if backend == "segsum" else backend,
-        gather_dtype=rt.gather_dtype, ordering=rt.ordering)
+        row_offset=worker * rows_cap, blk=plan.blk,
+        tile_rows=plan.tile_rows,
+        backend="ref" if plan.backend == "segsum" else plan.backend,
+        gather_dtype=rt.gather_dtype, ordering=plan.ordering)
 
 
 def local_mttkrp(idx, val, mask, factors, mode, rt, backend, workers):

@@ -10,7 +10,9 @@ Port of ``repro/kernels/mttkrp/ops.py``:
 * :func:`tile_schedule` lists the factor tiles each block reads, the
   stream kernel's per-block window (equal to the reference's).
 * :func:`select_backend` resolves ``auto`` on the Hopper residency ladder
-  (``oocore.planner.plan_residency``) and passes explicit names through.
+  (``oocore.planner.plan_residency``), or by a calibration table's
+  measured argmin where the ladder's budgets accept it, and passes
+  explicit names through.
 * :func:`step_traffic_bytes` is the counted traffic model of a mode
   step, and :func:`timed_device_step` runs a mode step fenced and timed
   from the host, emitting both (``ops.step.model_bytes``, ``ops.step_s``).
@@ -185,22 +187,41 @@ def select_backend(backend: str, *, nmodes: int, rank: int, blk: int = 512,
     and are skipped without it. ``auto`` never resolves to a bf16 name
     and does not see the gather dtype (as in the reference): a bf16 mode
     step takes the rung an fp32 one takes, and runs it in bf16. Explicit
-    names, the bf16 ones among them, pass through; an unknown one raises
-    ``ValueError``. A calibration ``table`` raises
-    ``NotImplementedError`` (ROADMAP A12).
+    names, the bf16 ones among them, pass through and ignore ``table``;
+    an unknown one raises ``ValueError``.
+
+    With a calibration ``table`` (``repro_torch.tune``; duck-typed: its
+    ``best_backend``), ``auto`` takes the table's interpolated argmin
+    over :data:`AUTO_BACKENDS`, so never a bf16 name nor ``segsum``,
+    when the residency planner accepts it (``oocore.planner
+    .backend_fits`` on ``smem_budget`` and ``l2_budget``; the gather and
+    stream rungs need ``factor_rows`` to be certified). An answer it
+    rejects, or no answer, falls through to the static ladder. The
+    reference also keeps the table off its kernels below
+    ``MIN_MXU_RANK`` unless that rank was measured; the port's ladder
+    has no rung that guard protects (``tune.model``), so it keeps none.
+    ``table=None`` is the static ladder, bit for bit.
 
     Every resolution counts ``dispatch.backend{backend,source}``: the
-    decision and why (``explicit`` or ``static``; the reference's
-    ``table`` comes with A12). The count is per call, the reference's per
-    jit trace (``obs.counters``).
+    decision and why (``explicit``, ``table`` or ``static``). The count
+    is per call, the reference's per jit trace (``obs.counters``).
     """
-    if table is not None:
-        raise NotImplementedError(
-            "calibration tables are not ported yet (ROADMAP A12)")
     check_backend(backend)
     if backend != "auto":
         _obs.add("dispatch.backend", backend=backend, source="explicit")
         return backend
+    if table is not None:
+        choice = table.best_backend(nmodes=nmodes, rank=rank, blk=blk,
+                                    tile_rows=tile_rows,
+                                    allowed=AUTO_BACKENDS)
+        if choice is not None and not _planner.backend_fits(
+                choice, nmodes=nmodes, rank=rank, blk=blk,
+                tile_rows=tile_rows, factor_rows=factor_rows,
+                smem_budget=smem_budget, l2_budget=l2_budget):
+            choice = None               # infeasible extrapolation
+        if choice is not None:
+            _obs.add("dispatch.backend", backend=choice, source="table")
+            return choice
     chosen = _planner.plan_residency(
         nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
         factor_rows=factor_rows, smem_budget=smem_budget,

@@ -17,9 +17,8 @@ Design rules, as in the reference:
   what brings it: ``execution.*`` and ``resilience.interpret_fallbacks``
   (the port has no interpreter to resolve or fall back to; a CUDA tensor
   runs the kernel, a CPU tensor its plain version), ``dryrun.*`` (the
-  compile-validation tier, ROADMAP A13), ``tune.*`` and
-  ``resilience.table_fallbacks`` (calibration tables, A12), ``serve.*``
-  (the LM scaffolding, A15).
+  LM multi-pod dry run ``repro/launch/dryrun.py``: LM scaffolding,
+  ROADMAP A15) and ``serve.*`` (the LM scaffolding, A15).
 * **A TPU fact translated.** The reference's ``planner.vmem.plan_bytes``
   is the one VMEM budget of its ladder. The Hopper ladder has two
   (``oocore.planner.plan_residency``): shared memory per CTA and the L2
@@ -94,6 +93,9 @@ NAMESPACES = (
     "resilience.retries",
     "resilience.site_calls",
     "resilience.solve.guards",
+    "resilience.table_fallbacks",
+    "tune.measure_s",
+    "tune.points",
 )
 
 _NAMESPACE_SET = frozenset(NAMESPACES)
@@ -237,7 +239,8 @@ def record_stream_stats(stats) -> None:
                 stats.distinct_tile_bytes, ordering=o)
 
 
-def record_remap_exchange(caps, num_workers: int, nmodes: int) -> None:
+def record_remap_exchange(caps, num_workers: int, nmodes: int, *,
+                          uniform_cap: bool = False) -> None:
     """Absorb a runtime's per-transition all_to_all sizing.
 
     ``caps`` is ``remap_capacities(ft)``: entry ``n`` bounds the mode
@@ -248,13 +251,15 @@ def record_remap_exchange(caps, num_workers: int, nmodes: int) -> None:
     mask per slot (``core.remap.exchange``); the counter keeps the
     reference's arithmetic, so the two packages' counts stay comparable.
     ``remap.a2a.uniform_bytes`` is what one capacity of ``max(caps)`` for
-    every transition would allocate, as the reference computes it; the
-    port always sizes each transition by its own capacity.
+    every transition allocates, as the reference computes it; with
+    ``uniform_cap`` (``prepare_runtime``'s escape hatch) every
+    transition's ``remap.a2a.bytes`` is that capacity's.
     """
     reg = _REGISTRY
     caps = [int(c) for c in caps]
     per_pair = num_workers * num_workers * (4 * nmodes + 4)
-    for n, cap in enumerate(caps):
+    cap_used = [max(caps)] * len(caps) if uniform_cap else caps
+    for n, cap in enumerate(cap_used):
         reg.add("remap.a2a.bytes", cap * per_pair, transition=n)
     reg.add("remap.a2a.uniform_bytes", len(caps) * max(caps) * per_pair)
     reg.add("remap.transitions", len(caps))

@@ -22,11 +22,11 @@ The timed artifact is separate from the *counted* baseline (``python -m
 repro_torch.obs baseline``): counted bytes gate strictly because they are
 exact; timed medians gate with MAD-scaled tolerance and a host-noise skip
 because they are not. The committed ``PROF_baseline.json`` is the card's:
-its fingerprint names the card and its power limit. It is a copy of the
-``PROF_run.json`` that ``chip_smoke.py``'s ``[obs]`` phase writes, which
-gates its profile against it: the pinned run's host-bound phases time
-differently there, after the script's earlier phases, than in a fresh
-``run`` process, so both sides are taken in the same place.
+its fingerprint names the card and its power limit. ``chip_smoke.py``'s
+``[obs]`` phase runs ``run`` in a fresh process and gates the result
+against it: in a process that has run a ``torch.profiler`` session, the
+pinned run's host-bound phases time slower and vary from run to run
+(``bench_torch/profiler_after_effect.py``).
 """
 import argparse
 import functools

@@ -49,6 +49,7 @@ __all__ = [
     "plan_chunks",
     "plan_residency",
     "predict_stream_traffic",
+    "rung_slabs",
     "stream_chunk_bytes",
     "stream_fits_smem",
     "stream_window_tiles",
@@ -269,6 +270,21 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
     return smem <= smem_budget and l2 <= l2_budget
 
 
+def rung_slabs(backend: str, rank: int) -> int:
+    """Column slabs ``backend`` runs at ``rank``: the padded rank over
+    ``RANK_SLAB`` (B2, B4), ``STREAM_RANK_SLAB`` (B6) or B5's own slab;
+    1 for the kernels that take the whole padded rank at once and for
+    the plain paths."""
+    rpad = _kernel.padded_rank(rank)
+    if backend in ("pallas_fused_gather_tiled", "pallas_fused_tiled"):
+        return rpad // min(rpad, _kernel.RANK_SLAB)
+    if backend == STREAM_BACKEND:
+        return rpad // min(rpad, _kernel.STREAM_RANK_SLAB)
+    if backend == "pallas":
+        return rpad // _kernel.segment_slab(rpad)
+    return 1
+
+
 def _factor_states(per_mode, total, k: int, backend: str, rpad: int,
                    windows, gi: int) -> tuple[FactorResidency, ...]:
     if total is None:
@@ -340,11 +356,6 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
         smem, l2, windows = _rung_cost(
             backend, k=k, rpad=rpad, tile_rows=tile_rows, blk=blk,
             per_mode=per_mode, total=total, gi=gather_itemsize)
-        slabs = {"pallas_fused_gather_tiled": rpad // min(rpad,
-                                                          _kernel.RANK_SLAB),
-                 STREAM_BACKEND: rpad // min(rpad, _kernel.STREAM_RANK_SLAB),
-                 "pallas_fused_tiled": rpad // min(rpad, _kernel.RANK_SLAB),
-                 "pallas": rpad // _kernel.segment_slab(rpad)}.get(backend, 1)
         _obs.add("planner.plans")
         _obs.add("planner.smem.plan_bytes", int(smem), backend=backend)
         _obs.add("planner.l2.plan_bytes", int(l2), backend=backend)
@@ -353,7 +364,7 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
             tile_rows=tile_rows, smem_budget=smem_budget,
             l2_budget=l2_budget, gather_itemsize=gather_itemsize,
             smem_bytes=smem, l2_bytes=l2,
-            rank_slabs=slabs, window_tiles=windows,
+            rank_slabs=rung_slabs(backend, rank), window_tiles=windows,
             factors=_factor_states(per_mode, total, k, backend, rpad,
                                    windows, gather_itemsize)
             if backend in _FACTOR_RUNGS else ())

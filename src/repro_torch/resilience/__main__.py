@@ -10,15 +10,15 @@ counterpart of the reference's 4-device mesh), on ``--device`` (default
 ``cuda``; ``cpu`` runs the plain versions of the kernels).
 
 1. **Chaos completes and converges.** The stepped CP-ALS run under a
-   seeded fault schedule (one fault at each site the port reaches:
-   kernel dispatch, route decision and remap during the sweeps, chunk
-   launch in the out-of-core step) finishes with fits allclose to the
-   fault-free run. ``tune.table_load`` is left out: calibration tables
-   are ROADMAP A12.
+   seeded fault schedule (one fault at every registered site: kernel
+   dispatch, route decision and remap during the sweeps, chunk launch in
+   the out-of-core step, and a corrupt calibration-table load for
+   ``tune.table_load``, which the registry skips and counts) finishes
+   with fits allclose to the fault-free run.
 2. **Zero silent fallbacks.** Every scheduled fault fired
    (``pending() == ()``), every firing is counted
    (``resilience.injected`` == schedule size), and every recovery is
-   visible (retries + degradations >= injected).
+   visible (retries + degradations + table fallbacks >= injected).
 3. **Resume is exact.** A run checkpointed at sweep 1 and resumed to 4
    gives bitwise the fits and factors of the same run left
    uninterrupted (the checkpoint carries the remapped stream).
@@ -30,6 +30,7 @@ Exit status 0 iff every check holds.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import tempfile
 
@@ -78,6 +79,15 @@ def _run_oocore(device):
     return out, stats.chunks
 
 
+def _run_table_probes(tmpdir: str, calls: int):
+    """``tune.table_load`` site: a valid table found ``calls`` times."""
+    from ..tune.table import CalibrationTable, find_table
+
+    CalibrationTable(entries=[], meta={}).save(
+        os.path.join(tmpdir, "table.json"))
+    return [find_table(tmpdir) is not None for _ in range(calls)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.resilience")
     ap.add_argument("--seed", type=int, default=20240809,
@@ -107,17 +117,17 @@ def main(argv=None) -> int:
     print(f"fault-free fits: {[round(f, 6) for f in ref.fits]}; "
           f"out-of-core step in {chunks} chunks")
 
-    # -- chaos: every site the port reaches scheduled ---------------------
-    sites = tuple(s for s in SITES if s != "tune.table_load")
-    specs = seeded_schedule(args.seed, sites=sites, per_site=1,
+    # -- chaos: every registered site scheduled ---------------------------
+    specs = seeded_schedule(args.seed, sites=SITES, per_site=1,
                             horizon=horizon)
     print(f"schedule (seed {args.seed}): "
-          + ", ".join(f"{s.site}#{s.index}:{s.kind}" for s in specs)
-          + " (tune.table_load: no caller until ROADMAP A12)")
-    with _obs.use_registry() as reg, inject(specs) as inj:
+          + ", ".join(f"{s.site}#{s.index}:{s.kind}" for s in specs))
+    with _obs.use_registry() as reg, inject(specs) as inj, \
+            tempfile.TemporaryDirectory() as td:
         chaos = _run_cpals(ft, args.device, resilience=RetryPolicy())
         with use_policy():   # chunk retries need an active policy scope
             chaos_oocore, _ = _run_oocore(args.device)
+        probes = _run_table_probes(td, calls=horizon)
 
         check(len(chaos.fits) == len(ref.fits), "chaos run completed")
         check(bool(np.allclose(chaos.fits, ref.fits, rtol=1e-4, atol=1e-5)),
@@ -134,10 +144,14 @@ def main(argv=None) -> int:
               f"injected counter == schedule size ({injected} == "
               f"{len(specs)})")
         handled = (reg.total("resilience.retries")
-                   + reg.total("resilience.degradations"))
+                   + reg.total("resilience.degradations")
+                   + reg.total("resilience.table_fallbacks"))
         check(handled >= len(specs),
               f"every fault visibly handled (recoveries {int(handled)} >= "
               f"injected {len(specs)}) — zero silent fallbacks")
+        check(probes.count(False) == 1,
+              "corrupt table skipped exactly once, valid loads otherwise "
+              f"({probes})")
         for k, v in sorted(reg.snapshot().items()):
             if k.startswith("resilience.") and "site_calls" not in k:
                 print(f"  {k} = {int(v)}")

@@ -16,8 +16,9 @@ Design rules, as in the reference:
 
 * **Closed site registry.** :data:`SITES` is the complete list and
   equals the reference's, so :func:`seeded_schedule` gives the same
-  schedule for the same seed. ``tune.table_load`` is registered but has
-  no caller until calibration tables are ported (ROADMAP A12).
+  schedule for the same seed. ``tune.table_load`` is
+  ``tune.table.CalibrationTable.load``, which the registry
+  (``tune.table.find_table``) calls for every table it reads.
 * **Seeded, bit-reproducible schedules** (``np.random.default_rng``).
 * **Typed faults.** :class:`TransientFault` (retry-able),
   :class:`ResourceFault` (not retry-able at the same rung; the policy
@@ -67,7 +68,7 @@ SITES = (
     "execution.resolve",     # kernels.mttkrp.kernel — each wrapper's route
     "oocore.chunk",          # oocore.executor — per-chunk kernel launch
     "ops.kernel",            # kernels.mttkrp.ops.mttkrp_device_step dispatch
-    "tune.table_load",       # no caller until calibration tables (A12)
+    "tune.table_load",       # tune.table.CalibrationTable.load
 )
 _SITE_SET = frozenset(SITES)
 

@@ -187,8 +187,21 @@ def test_unported_options_raise(tensors, mesh):
     with pytest.raises(ValueError, match="gather_dtype"):
         tcpals.cp_als_distributed(ft, RANK, device="cpu", iters=1,
                                   gather_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tdist.prepare_runtime(ft, RANK, table=object())
+    # Calibration tables are ported: prepare_runtime(table=) builds a plan
+    # per mode (a table that always answers B5 at blk=32, tile_rows=8),
+    # with rows_cap rounded to each plan's tile, as the reference's does.
+    from repro import tune as jtune
+    from repro_torch import tune as ttune
+    entries = dict(nmodes=3, rank=RANK, blk=32, tile_rows=8, density=1.0,
+                   timings_s={"pallas": 0.001, "segsum": 1.0})
+    rt, _ = tdist.prepare_runtime(ft, RANK, table=ttune.CalibrationTable(
+        [ttune.CalibrationEntry(**entries)]))
+    rj, _ = jdist.prepare_runtime(fj, RANK, table=jtune.CalibrationTable(
+        [jtune.CalibrationEntry(**entries)]))
+    assert [(p.backend, p.blk, p.tile_rows) for p in rt.mode_plans] == \
+        [(p.backend, p.blk, p.tile_rows) for p in rj.mode_plans] == \
+        [("pallas", 32, 8)] * 3
+    assert rt.rows_cap == rj.rows_cap
     # The remap at two workers: each worker holds the reference oracle's
     # (remap_local's) nonzeros of the next mode, in its row order.
     rt, (idx, val, mask) = tdist.prepare_runtime(ft2, RANK)

@@ -153,9 +153,50 @@ def test_unknown_names_raise_value_error(backend):
         tops.select_backend(backend, nmodes=3, rank=16)
 
 
-def test_table_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tops.select_backend("auto", nmodes=3, rank=16, table=object())
+class _Table:
+    """A duck-typed calibration table that always answers ``choice``."""
+
+    def __init__(self, choice):
+        self.choice = choice
+
+    def best_backend(self, *, allowed, **kw):
+        assert tuple(allowed) == tops.AUTO_BACKENDS
+        return self.choice
+
+
+def test_table_path_answers_where_the_ladder_accepts():
+    """A table's answer is taken where the residency planner accepts it
+    (counted ``source=table``); an answer it rejects, or none, falls
+    through to the static ladder; explicit names ignore the table."""
+    from repro_torch.obs import counters as ocnt
+    kw = dict(nmodes=3, rank=16, blk=512, tile_rows=8,
+              factor_rows=NELL2_INPUT_ROWS[0])
+    with ocnt.use_registry() as reg:
+        assert tops.select_backend("auto", table=_Table("pallas"),
+                                   **kw) == "pallas"
+        # B1 with no factor sizes cannot be certified: static (B3).
+        nofit = dict(kw, factor_rows=None)
+        assert tops.select_backend("auto", table=_Table(
+            "pallas_fused_gather"), **nofit) == "pallas_fused"
+        assert tops.select_backend("auto", table=_Table(None),
+                                   **kw) == "pallas_fused_gather"
+        assert tops.select_backend("pallas_fused_tiled",
+                                   table=_Table("pallas"),
+                                   **kw) == "pallas_fused_tiled"
+    assert reg.snapshot() == {
+        "dispatch.backend{backend=pallas,source=table}": 1,
+        "dispatch.backend{backend=pallas_fused,source=static}": 1,
+        "dispatch.backend{backend=pallas_fused_gather,source=static}": 1,
+        "dispatch.backend{backend=pallas_fused_tiled,source=explicit}": 1,
+        "planner.l2.plan_bytes{backend=pallas_fused}": 0,
+        "planner.l2.plan_bytes{backend=pallas_fused_gather}":
+            sum(NELL2_INPUT_ROWS[0]) * 16 * 4,
+        "planner.plans": 2,
+        "planner.smem.plan_bytes{backend=pallas_fused}":
+            tk.fused_smem_bytes(2, 16, 8),
+        "planner.smem.plan_bytes{backend=pallas_fused_gather}":
+            tk.gather_smem_bytes(2, 16, 8),
+    }
 
 
 def test_auto_never_yields_bf16_and_stays_in_the_reference_set():

@@ -1171,3 +1171,72 @@ def test_timed_device_step_equals_device_step(cuda, backend):
     (span,) = [r for r in tracer.records if r.name == "ops.device_step"]
     assert span.self_counters[
         f"ops.step.model_bytes{{backend={backend}}}"] == model_b
+
+
+# ---------------------------------------------------------------------------
+# Calibration tables on the card (repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+_TUNE_GRID = None
+
+
+def _tune_table(dev):
+    """A real calibration of two points over every backend, timed once
+    per session."""
+    global _TUNE_GRID
+    from repro_torch import tune
+    if _TUNE_GRID is None:
+        grid = [tune.GridPoint(3, 16, 64, 8, 2.0),
+                tune.GridPoint(4, 256, 512, 8, 0.5)]
+        K.fused_mttkrp_nmode_gather.launches = 0
+        _TUNE_GRID = (tune.calibrate(grid=grid, device=dev, iters=3),
+                      K.fused_mttkrp_nmode_gather.launches)
+    return _TUNE_GRID
+
+
+def test_tune_real_calibration_times_every_backend(cuda):
+    from repro_torch.tune import microbench
+    table, b1_launches = _tune_table(cuda)
+    assert len(table.entries) == 2
+    for e in table.entries:
+        assert set(e.timings_s) == set(microbench.BACKENDS)
+        assert all(np.isfinite(s) and s > 0 for s in e.timings_s.values())
+    assert table.meta["device_type"] == "cuda"
+    assert table.meta["device_name"] == torch.cuda.get_device_name(0)
+    # The kernels ran: B1 at least warmup + iters times per point.
+    assert b1_launches >= 2 * 4
+    for case in table.meta["obs"]["cases"]:
+        assert case["nnz"] == microbench.CARD_CASE_NNZ
+        assert case["trailing_blocks"] >= 0
+
+
+def test_tune_check_exits_zero_on_a_card_table(cuda, tmp_path):
+    from repro_torch.tune import cli
+    table, _ = _tune_table(cuda)
+    path = table.save(str(tmp_path / "t.json"))
+    assert cli.main(["check", "--table", path]) == 0
+    assert cli.main(["show", "--table", path]) == 0
+
+
+def test_tune_plans_equal_to_static_are_bitwise_the_static_run(cuda):
+    """A table whose plans are the static configuration (B1 at the
+    runtime's blk and tile) gives the static run bit for bit on the card."""
+    from repro_torch import tune
+    from repro_torch.core import distributed as dist
+    t = tensors.random_sparse_tensor((300, 200, 100), 20000, seed=0)
+    ft = flycoo.build_flycoo(t, 1)
+    rt0, _ = dist.prepare_runtime(ft, 16)
+    table = tune.CalibrationTable([tune.CalibrationEntry(
+        nmodes=3, rank=16, blk=rt0.blk, tile_rows=8, density=1.0,
+        timings_s={"pallas_fused_gather": 0.001, "segsum": 1.0})])
+    rt, _ = dist.prepare_runtime(ft, 16, table=table)
+    assert [(p.backend, p.blk, p.tile_rows) for p in rt.mode_plans] == \
+        [("pallas_fused_gather", rt0.blk, 8)] * 3
+    a = cpals.cp_als_distributed(ft, 16, iters=3, tol=0.0, backend="auto")
+    K.fused_mttkrp_nmode_gather.launches = 0
+    b = cpals.cp_als_distributed(ft, 16, iters=3, tol=0.0, backend="auto",
+                                 table=table)
+    assert K.fused_mttkrp_nmode_gather.launches == 9
+    assert a.fits == b.fits
+    for x, y in zip(a.factors, b.factors):
+        assert np.array_equal(x, y)

@@ -62,7 +62,10 @@ def test_import_leaves_jax_unloaded():
     "repro_torch.runtime.fault_tolerance", "repro_torch.core.cpals",
     "repro_torch.obs.counters", "repro_torch.obs.baseline",
     "repro_torch.obs.__main__", "repro_torch.obs.prof.harness",
-    "repro_torch.obs.prof.__main__"])
+    "repro_torch.obs.prof.__main__", "repro_torch.tune",
+    "repro_torch.tune.table", "repro_torch.tune.model",
+    "repro_torch.tune.microbench", "repro_torch.tune.cli",
+    "repro_torch.tune.__main__"])
 def test_new_modules_import_first_without_jax(module):
     """Each module of the stream and dispatch paths imports on its own
     (the package's import cycle between ops, the planner and the

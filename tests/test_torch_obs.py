@@ -56,7 +56,7 @@ def test_namespace_is_the_reference_subset_this_slice_emits():
             if n.startswith(("cpals.", "resilience."))} == {
         n for n in jcnt.NAMESPACES
         if n.startswith(("cpals.", "resilience."))} - {
-        "resilience.interpret_fallbacks", "resilience.table_fallbacks"}
+        "resilience.interpret_fallbacks"}
 
 
 def test_registry_add_get_total_reset_and_rejects_unknown():
@@ -72,7 +72,7 @@ def test_registry_add_get_total_reset_and_rejects_unknown():
     reg.reset()
     assert len(reg) == 0 and snap["cpals.sweeps"] == 1
     with pytest.raises(ValueError, match="NAMESPACES"):
-        reg.add("tune.points", 1)   # calibration tables: not ported
+        reg.add("serve.tokens", 1)   # the LM scaffolding: not ported
 
 
 def test_use_registry_scopes_and_restores():

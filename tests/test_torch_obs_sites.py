@@ -47,11 +47,8 @@ EXCLUDED = {
     "execution.fallback": "no interpreter: a CUDA tensor runs the kernel",
     "execution.resolve": "no interpreter to resolve",
     "resilience.interpret_fallbacks": "no interpreter to fall back to",
-    "dryrun.compile_s": "compile-validation tier, ROADMAP A13",
-    "dryrun.lower_s": "compile-validation tier, ROADMAP A13",
-    "tune.measure_s": "calibration tables, ROADMAP A12",
-    "tune.points": "calibration tables, ROADMAP A12",
-    "resilience.table_fallbacks": "calibration tables, ROADMAP A12",
+    "dryrun.compile_s": "LM scaffolding, ROADMAP A15",
+    "dryrun.lower_s": "LM scaffolding, ROADMAP A15",
     "serve.decode_s": "LM scaffolding, ROADMAP A15",
     "serve.prefill_s": "LM scaffolding, ROADMAP A15",
     "serve.tokens": "LM scaffolding, ROADMAP A15",
@@ -83,6 +80,77 @@ def test_namespace_sorted_and_the_reference_less_exclusions():
 def test_excluded_names_are_rejected(name):
     with pytest.raises(ValueError, match="NAMESPACES"):
         ocnt.CounterRegistry().add(name, 1)
+
+
+# What each reference module that emits an excluded name belongs to: the
+# words its exclusion reason must carry.
+REFERENCE_OWNER = {
+    "src/repro/runtime/execution.py": "interpreter",
+    "src/repro/resilience/policy.py": "interpreter",
+    "src/repro/launch/": "LM scaffolding, ROADMAP A15",
+}
+
+
+def _reference_emitters(name):
+    """The reference modules whose code emits counter ``name``
+    (``<registry>.add("name", ...)``), not the ones that only mention it."""
+    import glob
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pat = re.compile(r"\badd\(\s*" + re.escape(f'"{name}"'))
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "src", "repro", "**",
+                                              "*.py"), recursive=True)):
+        if pat.search(open(path, encoding="utf-8").read()):
+            out.append(os.path.relpath(path, root))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(EXCLUDED))
+def test_exclusion_reason_names_the_emitting_modules_item(name):
+    """Each excluded name is emitted by reference code that belongs to the
+    item its reason names (``dryrun.*`` is ``launch/dryrun.py``, the LM
+    multi-pod dry run: A15, not the compile-validation tier A13)."""
+    emitters = _reference_emitters(name)
+    assert emitters, f"no reference module emits {name}"
+    for module in emitters:
+        owners = [item for prefix, item in REFERENCE_OWNER.items()
+                  if module.startswith(prefix)]
+        assert owners, f"{module} (emits {name}) has no owner listed"
+        assert owners[0] in EXCLUDED[name], (name, module, EXCLUDED[name])
+
+
+@pytest.mark.parametrize("name", ["resilience.table_fallbacks",
+                                  "tune.measure_s", "tune.points"])
+def test_tune_names_are_emitted_as_the_reference_emits_them(name, tmp_path):
+    """The calibration tables' names joined the namespace with their
+    sites: ``tune.*`` in ``tune.calibrate``, ``resilience.table_fallbacks``
+    in ``tune.find_table``; labels as the reference's."""
+    from repro import tune as jtune
+    from repro.obs import counters as jcnt
+    from repro_torch import tune as ttune
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t" / "bad.json").write_text("{not json")
+    (tmp_path / "j" / "bad.json").write_text("{not json")
+    grid = jtune.default_grid(quick=True)[:3]
+    jreg = jcnt.CounterRegistry()
+    with ocnt.use_registry() as treg:
+        ttune.calibrate(grid=[ttune.GridPoint(p.nmodes, p.rank, p.blk,
+                                              p.tile_rows, p.density)
+                              for p in grid],
+                        measure=ttune.stub_measure, device="cpu")
+        assert ttune.find_table(str(tmp_path / "t")) is None
+    with jcnt.use_registry(jreg):
+        jtune.calibrate(grid=grid, measure=jtune.stub_measure)
+        assert jtune.find_table(str(tmp_path / "j")) is None
+    assert name in ocnt.NAMESPACES
+    got = {k: v for k, v in treg.snapshot().items()
+           if ocnt.split_key(k)[0] == name}
+    want = {k: v for k, v in jreg.snapshot().items()
+            if jcnt.split_key(k)[0] == name}
+    assert got and got == want
 
 
 # ---------------------------------------------------------------------------
