@@ -118,14 +118,31 @@ Phases (each prints its own lines; any failure exits non-zero):
       [main]'s, each tuned mode step against the plain ``index_add_``
       step and bitwise the static configuration's where the plan is it;
       the static and calibrated rungs at ``[auto-stream]``'s keys;
-  18. one JSON line with all six kernels and the five bf16 variants
+  18. ``[lowering]`` (ROADMAP A13), right after the build: the
+      compile-validation tier over the full grid
+      (``repro_torch.kernels.mttkrp.lowering.run(FULL_GEOMETRIES)``, 9
+      backends x 7 geometries): one line per point (its geometry verdict,
+      the sm_90a build with the backend's entry point, the launch plan
+      against the card's opt-in shared memory, registers and spill bytes)
+      and one per kernel of the ptxas report; a point the geometry rules
+      call launchable that fails the build or the plan fails the phase,
+      and every verdict must equal ``oocore.planner.backend_fits``;
+  19. ``[cli]``: ``python -m repro_torch.oocore`` and ``python -m
+      repro_torch.reorder`` (their ``main([])``) on the card, each
+      returning 0 and launching B6 and B1;
+  20. ``[examples]``: ``examples/torch_quickstart.py`` and
+      ``examples/torch_cp_decompose_distributed.py`` (their ``main()``)
+      on the card with their asserts; the fits and the Dynasor and
+      all-reduce baseline times (CUDA events, 8 workers on one card);
+  21. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
       ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
       ``obs_launches`` from ``[obs]``'s counted run,
       ``auto_stream_launches`` from ``[auto-stream]``, ``tune_launches``
       from ``[tune]``'s calibration, ``tune_main_launches`` from its
-      tuned CP-ALS run), the card's name and power limit, and the last
-      line ``{"ok": true, "device": {...}}``.
+      tuned CP-ALS run, ``cli_launches`` from ``[cli]``,
+      ``examples_launches`` from ``[examples]``), the card's name and
+      power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 B1, B2 and B6 lines carry, beside the HBM bound, their L2 bytes (the
 factor rows B1/B2 gather, the factor tiles B6 copies), the rate they
@@ -416,6 +433,50 @@ def phase_build():
         for ln in report.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"[build]   ptxas: {ln.strip()}")
+
+
+def phase_lowering():
+    """The compile-validation tier over the full grid (ROADMAP A13)."""
+    from repro_torch.kernels.mttkrp import kernel as K
+    from repro_torch.kernels.mttkrp import lowering
+    from repro_torch.oocore import planner
+    t0 = time.perf_counter()
+    results = lowering.run(lowering.FULL_GEOMETRIES)
+    secs = time.perf_counter() - t0
+    for r in results:
+        row = r.row()
+        status = "ok  " if r.ok else ("n/a " if not r.launchable else "FAIL")
+        log(f"[lowering] {status} {r.backend:27s} {r.geometry.label():30s} "
+            f"sm90a={r.sm90a} grid={row['grid']} block={row['block']} "
+            f"smem={row['smem']} regs={row['registers']} "
+            f"static_smem={row['static_smem']} spill={row['spill_bytes']}"
+            + (f"  {r.error}" if r.error else ""))
+        g = r.geometry
+        fits = planner.backend_fits(
+            r.backend, nmodes=g.nmodes, rank=g.rank, blk=g.blk,
+            tile_rows=g.tile_rows,
+            factor_rows=(g.factor_rows,) * (g.nmodes - 1),
+            smem_budget=K.SMEM_LIMIT_BYTES, l2_budget=2**62)
+        require(r.launchable == fits,
+                f"[lowering] {r.backend} {g.label()}: geometry verdict "
+                f"{r.launchable} but backend_fits {fits}")
+    for res in lowering.kernel_resources():
+        log(f"[lowering] kernel {res['library']}: "
+            f"{lowering.kernel_label(res['kernel'])} for {res['arch']}: "
+            f"{res['registers']} registers, {res['static_smem']} B static "
+            f"smem, spill stores {res['spill_stores']} B, spill loads "
+            f"{res['spill_loads']} B, stack {res['stack']} B")
+    bad = lowering.failed(results)
+    require(not bad, "[lowering] launchable points failed: "
+            + "; ".join(f"{r.backend} {r.geometry.label()}: {r.error}"
+                        for r in bad))
+    require(len(results) == 63 and all(
+        r.sm90a for r in results if r.ok and r.backend != "ref"),
+        "[lowering] a built point without its sm_90a entry point")
+    log(f"[lowering] {sum(r.ok for r in results)}/{len(results)} points "
+        f"build for sm_90a with their launch plans, "
+        f"{sum(not r.launchable for r in results)} refused by the geometry "
+        f"rules, in {secs:.1f} s")
 
 
 def phase_l2_rate(dev, gpu: str):
@@ -1857,9 +1918,10 @@ class _TimedCheckpoints:
             self.rows.append(("save", nbytes, secs))
             return path
 
-        def timed_restore(mgr, template, device=None):
+        def timed_restore(mgr, template, device=None, workers=None):
             t0 = time.perf_counter()
-            state, step = restore(mgr, template, device=device)
+            state, step = restore(mgr, template, device=device,
+                                  workers=workers)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             if state is not None:
@@ -2745,6 +2807,74 @@ def phase_recovery():
     require(res.fit > 0.999, f"exact recovery fit {res.fit}")
 
 
+def phase_cli() -> dict:
+    """``python -m repro_torch.oocore`` and ``python -m
+    repro_torch.reorder`` on the card. Returns their launches."""
+    from repro_torch.oocore import __main__ as oocore_cli
+    from repro_torch.reorder import __main__ as reorder_cli
+    total = dict.fromkeys(SOURCE, 0)
+    for name, cli in (("oocore", oocore_cli), ("reorder", reorder_cli)):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counts()
+        log(f"[cli] python -m repro_torch.{name}: rc {rc} in {secs:.2f} s; "
+            "launches " + ", ".join(f"{k} {v}" for k, v in launched.items()
+                                    if v))
+        require(rc == 0, f"[cli] python -m repro_torch.{name} returned {rc}")
+        require(launched["fused_mttkrp_nmode_gather_stream"] >= 3
+                and launched["fused_mttkrp_nmode_gather"] >= 1,
+                f"[cli] {name}: B6 and B1 must launch, got {launched}")
+        for k, v in launched.items():
+            total[k] += v
+    return total
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(gpu: str) -> dict:
+    """Both examples of the port on the card, with their asserts. Returns
+    their launches."""
+    import contextlib
+    import io
+    reset_counts()
+    out = {}
+    for name in ("torch_quickstart", "torch_cp_decompose_distributed"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = _example(name).main()
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for ln in lines:
+            log(f"[examples] {name}: {ln}")
+        require(lines and lines[-1] == "OK", f"[examples] {name}: no OK")
+        out[name] = (got, secs)
+    dist_res, secs = out["torch_cp_decompose_distributed"]
+    log(f"[examples] quickstart {out['torch_quickstart'][1]:.1f} s; "
+        f"distributed {secs:.1f} s: fits 3-mode {dist_res['fit3']:.6f}, "
+        f"4-mode auto {dist_res['fit4']:.6f}; all-modes spMTTKRP, 8 workers "
+        f"on one card (CUDA events): Dynasor {dist_res['ms']['dynasor']:.3f}"
+        f" ms ({dist_res['bytes']['dynasor']} B to the collectives), "
+        f"all-reduce baseline {dist_res['ms']['allreduce-baseline']:.3f} ms "
+        f"({dist_res['bytes']['allreduce-baseline']} B); {gpu}")
+    launched = counts()
+    log("[examples] launches " + ", ".join(
+        f"{k} {v}" for k, v in launched.items() if v))
+    require(launched["fused_mttkrp_nmode_gather"] > 0,
+            "[examples] the 4-mode auto run launched no B1")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2756,6 +2886,7 @@ def main() -> int:
     log(f"[gpu] {gpu}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
     phase_build()
+    phase_lowering()
     phase_l2_rate(dev, gpu)
     phase_kernels(dev)
     phase_stream_kernels(dev)
@@ -2781,6 +2912,8 @@ def main() -> int:
     tune_launches, tune_main_launches = phase_tune(
         ft, b1_fits, obs["auto_stream_keys"], dev, gpu)
     del ft
+    cli_launches = phase_cli()
+    examples_launches = phase_examples(gpu)
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
@@ -2792,6 +2925,8 @@ def main() -> int:
             "auto_stream_launches": obs["auto_stream_launches"][name],
             "tune_launches": tune_launches[name],
             "tune_main_launches": tune_main_launches[name],
+            "cli_launches": cli_launches[name],
+            "examples_launches": examples_launches[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -2813,7 +2948,8 @@ def main() -> int:
         "obs_launches the [obs] counted baseline run's, "
         "auto_stream_launches [auto-stream]'s auto run's, "
         "tune_launches the [tune] calibration's, tune_main_launches the "
-        "[tune] tuned CP-ALS run's; "
+        "[tune] tuned CP-ALS run's, cli_launches the [cli] smokes', "
+        "examples_launches the [examples] runs'; "
         "l2_bound_ms is the L2 bytes (rows gathered by "
         "B1/B2, tiles copied by B6, rows read by B3/B4/B5; at 2 bytes per "
         "factor element for the [bf16] variants) over the "

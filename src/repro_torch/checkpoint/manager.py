@@ -105,14 +105,22 @@ def save_pytree(tree, path: str) -> None:
         os.fsync(f.fileno())
 
 
-def restore_pytree(template, path: str, device=None):
+def restore_pytree(template, path: str, device=None, slices=None):
     """Restore into the structure of ``template``: numeric leaves as
-    tensors on ``device`` (``None``: the CPU), others as numpy arrays."""
+    tensors on ``device`` (``None``: the CPU), others as numpy arrays.
+    ``slices`` maps a leaf's path to the slice of its leading axis to
+    read (the rest of the file is not read)."""
     with open(os.path.join(path, "tree.json")) as f:
         manifest = json.load(f)
+    slices = slices or {}
     leaves = []
     for key, _ in _flatten_with_paths(template):
-        arr = np.load(os.path.join(path, manifest[key]["file"]))
+        fpath = os.path.join(path, manifest[key]["file"])
+        if key in slices:
+            arr = np.ascontiguousarray(np.load(fpath, mmap_mode="r")
+                                       [slices[key]])
+        else:
+            arr = np.load(fpath)
         if arr.dtype.kind not in "biufc":
             # Non-numeric leaves (config-fingerprint strings) have no
             # tensor dtype: they stay host numpy for the caller to check.
@@ -123,13 +131,17 @@ def restore_pytree(template, path: str, device=None):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    """Steps of one checkpoint directory. ``owner=False`` opens it to read
+    only: stale ``tmp.*`` directories are left to the owner (with workers
+    spread over processes, rank 0 saves, sweeps and deletes)."""
+
+    def __init__(self, directory: str, *, keep: int = 3, owner: bool = True):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         # A crash mid-save leaves a tmp.<step> behind; it can never be
         # restored from (no rename happened), so sweep it at startup.
-        for name in os.listdir(directory):
+        for name in (os.listdir(directory) if owner else ()):
             if name.startswith("tmp."):
                 shutil.rmtree(os.path.join(directory, name),
                               ignore_errors=True)
@@ -175,10 +187,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                slices=None):
         """``(tree, step)`` of ``step`` (``None``: the newest complete
-        one), or ``(None, None)`` when there is none."""
+        one), or ``(None, None)`` when there is none. ``slices``: as
+        :func:`restore_pytree`'s."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
-        return restore_pytree(template, self._step_dir(step), device), step
+        return restore_pytree(template, self._step_dir(step), device,
+                              slices), step

@@ -317,7 +317,10 @@ def _cp_als_distributed_stepped(ft, rt, stream, factors, lam, x_norm_sq, *,
     there ``M`` arrives sharded mid-run and whole on resume).
     Checkpoints (``mgr``) hold the factors, λ, fits, the sweep index and
     the remapped stream with its worker axis, so a resumed run continues
-    from the exact post-sweep state.
+    from the exact post-sweep state. With workers spread over processes
+    the streams are gathered to every rank, rank 0 saves, and every rank
+    waits at a barrier until the save has landed; a restore takes rank
+    0's newest step and each rank's own slice of the stream.
     """
     dev = workers.device
     idx, val, mask = stream
@@ -327,7 +330,7 @@ def _cp_als_distributed_stepped(ft, rt, stream, factors, lam, x_norm_sq, *,
     if mgr is not None:
         state, _ = _ckpt.restore_state(
             mgr, _ckpt_state(rt, backend, factors, lam, fits, 0,
-                             (idx, val, mask)), device=dev)
+                             (idx, val, mask)), device=dev, workers=workers)
         if state is not None:
             factors, lam = state["factors"], state["lam"]
             fits = [float(x) for x in state["fits"]]
@@ -389,8 +392,11 @@ def _cp_als_distributed_stepped(ft, rt, stream, factors, lam, x_norm_sq, *,
         _obs.add("cpals.sweeps", driver="distributed")
         fits.append(fit)
         if mgr is not None and (it + 1) % checkpoint_every == 0:
-            _ckpt.save_state(mgr, _ckpt_state(rt, backend, factors, lam,
-                                              fits, it, (idx, val, mask)))
+            full = _ckpt.gather_stream((idx, val, mask), workers)
+            if workers.ranks[0] == 0:
+                _ckpt.save_state(mgr, _ckpt_state(rt, backend, factors, lam,
+                                                  fits, it, full))
+            workers.barrier()
         if it > 0 and abs(fits[-1] - fits[-2]) < tol:
             break
     nat = [dist.unpermute_factor(ft, rt, n, f.cpu().numpy())
@@ -448,10 +454,11 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     walk down the degradation ladder. ``checkpoint_dir`` persists every
     ``checkpoint_every``-th sweep atomically (the newest
     ``checkpoint_keep`` kept), stream included, and a rerun resumes from
-    the newest one. A checkpoint needs every worker's stream in this
-    process: with workers spread over processes (a
-    :class:`~.workers.GroupWorkers` of more than one rank) it raises
-    ``NotImplementedError`` (ROADMAP A10b).
+    the newest one. With workers spread over processes (a
+    :class:`~.workers.GroupWorkers` of more than one rank) every rank
+    passes the same ``checkpoint_dir``: rank 0 writes what a
+    :class:`~.workers.LocalWorkers` run at the same D writes, and each
+    rank resumes its own slice of the stream.
     """
     kops.check_backend(backend, extra=("segsum",))
     if workers is None:
@@ -462,11 +469,6 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     if workers.num_workers != ft.params.num_workers:
         raise ValueError(f"{workers.num_workers} workers for a FLYCOO "
                          f"tensor built for {ft.params.num_workers}")
-    if checkpoint_dir is not None and \
-            len(workers.ranks) != workers.num_workers:
-        raise NotImplementedError(
-            "checkpoint_dir with workers spread over processes (gather the "
-            "streams to rank 0, restore each rank's slice) is ROADMAP A10b")
     tracer = _tracer.get_tracer() if tracer is None else tracer
     rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows,
                                       gather_dtype=gather_dtype,
@@ -474,7 +476,8 @@ def cp_als_distributed(ft: FlycooTensor, rank: int, *, device=None,
     stream, factors, lam, x_norm_sq = device_state(ft, rt, packed, seed=seed,
                                                    workers=workers)
     del packed
-    mgr = _ckpt.make_manager(checkpoint_dir, keep=checkpoint_keep)
+    mgr = _ckpt.make_manager(checkpoint_dir, keep=checkpoint_keep,
+                             owner=workers.ranks[0] == 0)
     if tracer.enabled or resilience is not None or mgr is not None:
         with (contextlib.nullcontext() if resilience is None
               else _rpolicy.use_policy(resilience)):

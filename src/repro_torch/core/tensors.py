@@ -2,8 +2,8 @@
 
 The port's own copy of ``repro/core/tensors.py`` (numpy only): the same
 seed gives the same tensor bit for bit, so the CPU parity tests can feed
-one generator's output to both packages. FROSTT ``.tns`` I/O is not
-part of this slice.
+one generator's output to both packages, and :func:`save_tns` writes the
+reference's bytes for the same tensor.
 
 The paper evaluates on FROSTT tensors (Nell-1/2, Flickr, Delicious, Vast).
 Those are multi-GB downloads, so the benchmark suite uses *FROSTT-scaled
@@ -25,6 +25,8 @@ __all__ = [
     "low_rank_sparse_tensor",
     "frostt_like",
     "FROSTT_PROFILES",
+    "load_tns",
+    "save_tns",
 ]
 
 
@@ -266,3 +268,23 @@ def frostt_like(name: str, *, seed: int = 0, scale: float = 1.0) -> SparseTensor
     if prof["distribution"] == "zipf":
         return zipf_4d(shape, min(nnz, math.prod(shape)), seed=seed)
     return random_sparse_tensor(shape, nnz, seed=seed, distribution=prof["distribution"])
+
+
+def load_tns(path: str, *, one_indexed: bool = True) -> SparseTensor:
+    """Load a FROSTT ``.tns`` text file (coords then value per line)."""
+    data = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    idx = data[:, :-1].astype(np.int64)
+    if one_indexed:
+        idx -= 1
+    vals = data[:, -1].astype(np.float32)
+    shape = tuple(int(m) + 1 for m in idx.max(axis=0))
+    return _dedup(idx, vals, shape)
+
+
+def save_tns(t: SparseTensor, path: str, *, one_indexed: bool = True) -> None:
+    """Write ``t`` as a FROSTT ``.tns`` text file, one nonzero per line."""
+    off = 1 if one_indexed else 0
+    with open(path, "w") as f:
+        for i in range(t.nnz):
+            coords = " ".join(str(int(c) + off) for c in t.indices[i])
+            f.write(f"{coords} {float(t.values[i]):.9g}\n")

@@ -53,6 +53,18 @@ class _Workers:
     def reset_bytes(self) -> None:
         self.sent_bytes = {}
 
+    @property
+    def spread(self) -> bool:
+        """Are the workers spread over processes (this one holds some)?"""
+        return len(self.ranks) != self.num_workers
+
+    def barrier(self) -> None:
+        """Wait for every process of the workers (one process: nothing)."""
+
+    def broadcast_int(self, value: int) -> int:
+        """Rank 0's ``value`` on every process (one process: ``value``)."""
+        return value
+
 
 class LocalWorkers(_Workers):
     """``num_workers`` workers in this process, on one ``device``.
@@ -176,6 +188,16 @@ class GroupWorkers(_Workers):
     def psum(self, x):
         """Sum over the workers (``all_reduce``, in the backend's order)."""
         return self._all_reduce(x, tdist.ReduceOp.SUM, "psum")
+
+    def barrier(self) -> None:
+        tdist.barrier(group=self.group)
+
+    def broadcast_int(self, value: int) -> int:
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        src = 0 if self.group is None else tdist.get_global_rank(self.group,
+                                                                0)
+        tdist.broadcast(t, src=src, group=self.group)
+        return int(t.item())
 
     def pmax(self, x):
         """Maximum over the workers."""

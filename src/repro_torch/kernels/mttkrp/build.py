@@ -107,20 +107,29 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def _report_path(library: Path) -> Path:
+    """Where the ``ptxas`` report of ``library`` is kept."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def build() -> dict[str, tuple[Path, str]]:
     """Compile every library not built yet for its current source, with
     one ``nvcc`` per source running at once.
 
     Returns ``{name: (path, compiler_output)}``; the output holds
-    ``ptxas``'s register and shared-memory report, and is empty for a
-    library that was already built. Concurrent builders each write a
-    private file and rename it into place.
+    ``ptxas``'s register, shared-memory and spill report, which is kept
+    beside the library (``<name>-<hash>.ptxas.txt``, written before the
+    library is renamed into place), so a library already built answers
+    with it too. Concurrent builds each write private files and rename
+    them into place.
     """
     result, procs = {}, {}
     for name in SOURCES:
         path = _library_path(name)
         if path.exists():
-            result[name] = (path, "")
+            report = _report_path(path)
+            result[name] = (path, report.read_text()
+                            if report.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -136,6 +145,9 @@ def build() -> dict[str, tuple[Path, str]]:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{report}")
             continue
+        report_tmp = tmp.with_suffix(".txt.tmp")
+        report_tmp.write_text(report)
+        os.replace(report_tmp, _report_path(path))
         os.replace(tmp, path)
         result[name] = (path, report)
     if failed:

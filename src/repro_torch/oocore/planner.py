@@ -196,10 +196,12 @@ def _normalize_factor_rows(factor_rows, num_in_modes: int):
 
 
 def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
-               per_mode, total, gi: int) -> tuple[int, int, tuple]:
+               per_mode, total, gi: int, window_tiles=None
+               ) -> tuple[int, int, tuple]:
     """``(smem_bytes, l2_bytes, windows)`` of one rung at ``gi`` bytes per
     factor element; the gather and stream rungs need ``total`` (not
-    ``None``). Factor elements sit in L2 for the gather rungs, in B6's
+    ``None``). ``window_tiles`` replaces the stream rung's data-blind
+    windows. Factor elements sit in L2 for the gather rungs, in B6's
     windows and in B3/B4's ring of pre-gathered rows (its smallest CTA,
     one stage, is what a rung asks about); B1, B2 and B5's shared memory
     holds none."""
@@ -213,7 +215,9 @@ def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
                 total * slab * gi, ())
     if backend == STREAM_BACKEND:
         rows = per_mode if per_mode is not None else (total,) * k
-        windows = tuple(stream_window_tiles(blk, r) for r in rows)
+        windows = (tuple(int(w) for w in window_tiles)
+                   if window_tiles is not None
+                   else tuple(stream_window_tiles(blk, r) for r in rows))
         return (_kernel.gather_stream_smem_bytes(k, rpad, blk, tile_rows,
                                                  windows, gather_itemsize=gi),
                 0, windows)
@@ -232,7 +236,7 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
                  tile_rows: int, factor_rows=None,
                  smem_budget: int = SMEM_BUDGET_BYTES,
                  l2_budget: int = L2_BUDGET_BYTES,
-                 gather_itemsize: int = 4) -> bool:
+                 gather_itemsize: int = 4, window_tiles=None) -> bool:
     """Does ``backend`` fit the budgets? The ladder's one predicate.
 
     The gather rungs (B1, B2) fit when their factors (the padded rank,
@@ -246,7 +250,9 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
     The gather and stream rungs need ``factor_rows`` and do not fit
     without it. ``pallas`` (B5), ``ref`` and ``segsum`` always fit. Every
     test is ``bytes <= budget``, so it is monotone in both budgets.
-    ``gather_itemsize`` is the bytes of a gathered factor element; the
+    ``window_tiles`` (measured widths, e.g.
+    :attr:`StreamTraffic.window_tiles`) replaces the stream rung's
+    data-blind windows. ``gather_itemsize`` is the bytes of a gathered factor element; the
     ``*_bf16`` names fold into ``gather_itemsize=2``, as in the
     reference.
     """
@@ -262,6 +268,7 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
         rows = per_mode if per_mode is not None else (total,) * k
         return stream_fits_smem(nmodes=nmodes, rank=rank, blk=blk,
                                 tile_rows=tile_rows, factor_rows=rows,
+                                window_tiles=window_tiles,
                                 smem_budget=smem_budget,
                                 gather_itemsize=gather_itemsize)
     smem, l2, _ = _rung_cost(backend, k=k, rpad=rpad, tile_rows=tile_rows,
@@ -272,12 +279,13 @@ def backend_fits(backend: str, *, nmodes: int, rank: int, blk: int,
 
 def rung_slabs(backend: str, rank: int) -> int:
     """Column slabs ``backend`` runs at ``rank``: the padded rank over
-    ``RANK_SLAB`` (B2, B4), ``STREAM_RANK_SLAB`` (B6) or B5's own slab;
-    1 for the kernels that take the whole padded rank at once and for
-    the plain paths."""
+    ``RANK_SLAB`` (B2, B4; the mode step pads the rank to whole slabs, so
+    R=200 runs two), ``STREAM_RANK_SLAB`` (B6) or B5's own slab; 1 for
+    the kernels that take the whole padded rank at once and for the
+    plain paths."""
     rpad = _kernel.padded_rank(rank)
     if backend in ("pallas_fused_gather_tiled", "pallas_fused_tiled"):
-        return rpad // min(rpad, _kernel.RANK_SLAB)
+        return -(-rpad // min(rpad, _kernel.RANK_SLAB))
     if backend == STREAM_BACKEND:
         return rpad // min(rpad, _kernel.STREAM_RANK_SLAB)
     if backend == "pallas":
@@ -313,7 +321,8 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
                    tile_rows: int = 8, factor_rows=None,
                    smem_budget: int = SMEM_BUDGET_BYTES,
                    l2_budget: int = L2_BUDGET_BYTES,
-                   gather_itemsize: int = 4) -> ResidencyPlan:
+                   gather_itemsize: int = 4,
+                   window_tiles=None) -> ResidencyPlan:
     """The residency ladder for one mode step: the first rung of
     :data:`LADDER` that fits (:func:`backend_fits`) wins.
 
@@ -331,7 +340,8 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
       6. ``pallas`` (B5): always — it splits the columns itself.
 
     Rungs 1–3 need ``factor_rows`` (per input mode, or the total) and are
-    skipped without it. ``gather_itemsize`` (2: bf16 gathers) sizes the
+    skipped without it. ``window_tiles`` (one width per input mode)
+    overrides rung 3's data-blind windows, as in the reference. ``gather_itemsize`` (2: bf16 gathers) sizes the
     factors in L2, B6's windows and B3/B4's ring, as the reference's
     sizes its VMEM. Since every
     test is ``bytes <= budget``, a larger budget never moves the choice
@@ -349,13 +359,15 @@ def plan_residency(*, nmodes: int, rank: int, blk: int = 512,
     per_mode, total = _normalize_factor_rows(factor_rows, k)
     fit_kw = dict(nmodes=nmodes, rank=rank, blk=blk, tile_rows=tile_rows,
                   factor_rows=factor_rows, smem_budget=smem_budget,
-                  l2_budget=l2_budget, gather_itemsize=gather_itemsize)
+                  l2_budget=l2_budget, gather_itemsize=gather_itemsize,
+                  window_tiles=window_tiles)
     for backend in LADDER:
         if not backend_fits(backend, **fit_kw):
             continue
         smem, l2, windows = _rung_cost(
             backend, k=k, rpad=rpad, tile_rows=tile_rows, blk=blk,
-            per_mode=per_mode, total=total, gi=gather_itemsize)
+            per_mode=per_mode, total=total, gi=gather_itemsize,
+            window_tiles=window_tiles)
         _obs.add("planner.plans")
         _obs.add("planner.smem.plan_bytes", int(smem), backend=backend)
         _obs.add("planner.l2.plan_bytes", int(l2), backend=backend)

@@ -17,6 +17,14 @@ validated restore. A sweep checkpoint (``cp_als`` /
   :func:`restore_state` validates: resuming under a different
   configuration is a hard ``ValueError``.
 
+With workers spread over processes (a ``GroupWorkers`` of more than one
+rank) a checkpoint is the same files as with all the workers in one
+process: every rank's stream is gathered to every rank in rank order
+(:func:`gather_stream`, through the workers' own ``all_gather``), rank 0
+alone writes it (and alone deletes old steps), and on restore rank 0's
+newest complete step is broadcast, so ranks cannot disagree after a kill
+during a save; each rank then reads only its own slice of the stream.
+
 The keys, file names and ``tree.json`` manifest are the reference's, so
 the two packages read each other's checkpoints; the fingerprints keep
 one from resuming a run of the other by mistake (the port's ``cp_als``
@@ -34,6 +42,7 @@ from ..obs import counters as _obs
 
 __all__ = [
     "STATE_VERSION",
+    "gather_stream",
     "make_manager",
     "make_state",
     "restore_state",
@@ -43,11 +52,26 @@ __all__ = [
 STATE_VERSION = 1
 
 
-def make_manager(directory: str | None, *, keep: int = 3
-                 ) -> CheckpointManager | None:
-    """A manager for ``directory`` (``None``: checkpointing disabled)."""
-    return None if directory is None else CheckpointManager(directory,
-                                                            keep=keep)
+_STREAM_KEYS = ("stream_idx", "stream_val", "stream_mask")
+
+
+def make_manager(directory: str | None, *, keep: int = 3,
+                 owner: bool = True) -> CheckpointManager | None:
+    """A manager for ``directory`` (``None``: checkpointing disabled);
+    ``owner=False`` for the ranks other than 0, which only read."""
+    return None if directory is None else CheckpointManager(
+        directory, keep=keep, owner=owner)
+
+
+def gather_stream(stream, workers):
+    """Every worker's ``(idx, val, mask)``, stacked ``(D, cap, ...)`` in
+    rank order: the stream as given when this process holds every worker,
+    else gathered through ``workers.all_gather``."""
+    if not workers.spread:
+        return tuple(stream)
+    d = workers.num_workers
+    return tuple(workers.all_gather(x).reshape((d,) + tuple(x.shape[1:]))
+                 for x in stream)
 
 
 def make_state(factors, lam, fits, *, sweep: int, rank: int,
@@ -83,10 +107,13 @@ def save_state(mgr: CheckpointManager, state: dict) -> str:
     return path
 
 
-def restore_state(mgr: CheckpointManager, template: dict, device=None
-                  ) -> tuple[dict | None, int | None]:
+def restore_state(mgr: CheckpointManager, template: dict, device=None,
+                  workers=None) -> tuple[dict | None, int | None]:
     """Restore the newest complete checkpoint, validated against
     ``template``, numeric leaves as tensors on ``device``.
+
+    With ``workers`` spread over processes, the step is rank 0's newest
+    (broadcast), and the stream leaves hold this process's workers only.
 
     Returns ``(state, sweep)`` or ``(None, None)`` when the directory
     holds no complete checkpoint (a fresh start). A checkpoint whose
@@ -95,7 +122,16 @@ def restore_state(mgr: CheckpointManager, template: dict, device=None
     mismatch spelled out: a resume continues the *same* decomposition or
     refuses.
     """
-    restored, step = mgr.restore(template, device=device)
+    step = slices = None
+    if workers is not None and workers.spread:
+        newest = mgr.latest_step()
+        step = workers.broadcast_int(-1 if newest is None else newest)
+        if step < 0:
+            return None, None
+        rows = slice(workers.ranks[0], workers.ranks[-1] + 1)
+        slices = {k: rows for k in _STREAM_KEYS if k in template}
+    restored, step = mgr.restore(template, step=step, device=device,
+                                 slices=slices)
     if restored is None:
         return None, None
     for key in ("version", "rank", "ordering", "backend"):

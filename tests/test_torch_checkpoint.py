@@ -19,7 +19,6 @@ import signal
 import subprocess
 import sys
 import textwrap
-import types
 
 import numpy as np
 import pytest
@@ -243,14 +242,56 @@ def test_stepped_resume_is_exact(tmp_path, D):
     assert state["stream_idx"].shape[0] == D   # the worker axis
 
 
-def test_checkpoint_across_processes_is_a10b():
-    ft = tfly.build_flycoo(ttens.random_sparse_tensor((30, 20, 10), 500,
-                                                      seed=3), 2)
-    spread = types.SimpleNamespace(num_workers=2, ranks=(0,),
-                                   device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tcpals.cp_als_distributed(ft, 8, workers=spread,
-                                  checkpoint_dir="unused")
+GROUP_CHILD = textwrap.dedent("""
+    import datetime, json, sys
+    import torch
+    torch.set_num_threads(1)
+    import torch.distributed as tdist
+    rank, rdv, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    tdist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
+                             world_size=2,
+                             timeout=datetime.timedelta(seconds=60))
+    from repro_torch.core import cpals, flycoo, tensors
+    from repro_torch.core.workers import GroupWorkers
+    ft = flycoo.build_flycoo(tensors.random_sparse_tensor((30, 20, 10),
+                                                          500, seed=3), 2)
+    res = cpals.cp_als_distributed(ft, 8, workers=GroupWorkers(device="cpu"),
+                                   iters=3, tol=0.0, checkpoint_dir=d,
+                                   checkpoint_keep=1)
+    tdist.destroy_process_group()
+    print("FITS", json.dumps(res.fits))
+""")
+
+
+def test_checkpoint_across_processes_is_a10b(tmp_path):
+    """ROADMAP A10b: ``checkpoint_dir`` with workers spread over processes
+    (``GroupWorkers`` over gloo, 2 ranks) checkpoints: rank 0 keeps only
+    the newest step (``checkpoint_keep=1``), whose stream holds both
+    workers, and the ranks end with the same fits."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    d = str(tmp_path / "ck")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GROUP_CHILD, str(r), str(tmp_path / "rdv"),
+         d], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    fits = []
+    for p, (so, se) in zip(procs, logs):
+        assert p.returncode == 0, so + se
+        fits.append(json.loads(so.split("FITS", 1)[1]))
+    assert fits[0] == fits[1] and len(fits[0]) == 3
+    mgr = CheckpointManager(d)
+    assert mgr.all_steps() == [2]
+    state, _ = mgr.restore({"stream_idx": 0, "fits": 0})
+    assert state["stream_idx"].shape[0] == 2   # both workers' streams
+    np.testing.assert_array_equal(state["fits"].numpy(), fits[0])
 
 
 def _run_child(code):

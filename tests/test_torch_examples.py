@@ -1,0 +1,53 @@
+"""The port's examples, ``examples/torch_quickstart.py`` and
+``examples/torch_cp_decompose_distributed.py``, run end to end on the CPU
+(the kernels' plain versions), with the reference examples' asserts:
+exact recovery of dense low-rank tensors at fit > 0.99 and ``OK`` last.
+On the card ``chip_smoke.py``'s ``[examples]`` runs both."""
+import importlib.util
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples")
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_on_cpu(capsys, tmp_path, monkeypatch):
+    # No table of this host: the example calibrates its micro-grid.
+    monkeypatch.chdir(tmp_path)
+    _load("torch_quickstart").main("cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "OK"
+    fit = float(next(ln for ln in out if ln.startswith(
+        "low-rank recovery fit:")).split(":")[1])
+    assert fit > 0.99
+    assert any(ln.startswith("tuned per-mode plans:") for ln in out)
+
+
+def test_cp_decompose_distributed_on_cpu(capsys):
+    got = _load("torch_cp_decompose_distributed").main("cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "OK"
+    assert got["fit3"] > 0.99 and got["fit4"] > 0.99
+    assert set(got["ms"]) == {"dynasor", "allreduce-baseline"}
+    assert all(b > 0 for b in got["bytes"].values())
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart",
+                                  "torch_cp_decompose_distributed"])
+def test_example_refuses_without_a_card_by_default(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _load(name).main()

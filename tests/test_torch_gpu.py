@@ -1240,3 +1240,33 @@ def test_tune_plans_equal_to_static_are_bitwise_the_static_run(cuda):
     assert a.fits == b.fits
     for x, y in zip(a.factors, b.factors):
         assert np.array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The compile-validation tier and the package smokes on the card
+# ---------------------------------------------------------------------------
+
+def test_lowering_smoke_grid_builds_for_sm90a(cuda):
+    """Every (backend, geometry) of the smoke grid builds for sm_90a, with
+    its kernel's ptxas report and a launch plan within the card's
+    limits."""
+    from repro_torch.kernels.mttkrp import lowering
+    results = lowering.run(lowering.SMOKE_GEOMETRIES)
+    assert len(results) == len(ops.BACKENDS) * 3
+    assert not lowering.failed(results), [r.row() for r in results
+                                          if not r.ok]
+    for r in results:
+        assert r.ok and r.sm90a == (r.backend != "ref")
+        assert r.backend == "ref" or r.registers > 0
+    assert lowering.main([]) == 0
+
+
+@pytest.mark.parametrize("smoke", ["oocore", "reorder"])
+def test_package_smoke_on_card_launches_b6_and_b1(cuda, smoke):
+    import importlib
+    cli = importlib.import_module(f"repro_torch.{smoke}.__main__")
+    K.fused_mttkrp_nmode_gather_stream.launches = 0
+    K.fused_mttkrp_nmode_gather.launches = 0
+    assert cli.main([]) == 0
+    assert K.fused_mttkrp_nmode_gather_stream.launches >= 3
+    assert K.fused_mttkrp_nmode_gather.launches >= 1

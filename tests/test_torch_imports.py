@@ -1,5 +1,7 @@
-"""The port stands alone: no module of it, nor chip_smoke.py, imports JAX
-or the JAX package ``repro`` (the machine with the card has no JAX)."""
+"""The port stands alone: no module of it, nor ``chip_smoke.py``, the
+scripts of ``bench_torch/`` or the port's examples
+(``examples/torch_*.py``), imports JAX or the JAX package ``repro`` (the
+machine with the card has no JAX)."""
 import ast
 import os
 import subprocess
@@ -16,9 +18,21 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PORT):
-        out += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "bench_torch")):
+        for root, _, names in os.walk(top):
+            out += [os.path.join(root, n) for n in names
+                    if n.endswith(".py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, n) for n in os.listdir(examples)
+            if n.startswith("torch_") and n.endswith(".py")]
     return sorted(out)
+
+
+def test_the_checked_files_include_the_scripts_and_examples():
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"chip_smoke.py", "examples/torch_quickstart.py",
+            "examples/torch_cp_decompose_distributed.py",
+            "bench_torch/sweep_ab.py"} <= rel
 
 
 def _imported_roots(path):
@@ -65,7 +79,8 @@ def test_import_leaves_jax_unloaded():
     "repro_torch.obs.prof.__main__", "repro_torch.tune",
     "repro_torch.tune.table", "repro_torch.tune.model",
     "repro_torch.tune.microbench", "repro_torch.tune.cli",
-    "repro_torch.tune.__main__"])
+    "repro_torch.tune.__main__", "repro_torch.kernels.mttkrp.lowering",
+    "repro_torch.oocore.__main__", "repro_torch.reorder.__main__"])
 def test_new_modules_import_first_without_jax(module):
     """Each module of the stream and dispatch paths imports on its own
     (the package's import cycle between ops, the planner and the
