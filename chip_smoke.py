@@ -130,11 +130,27 @@ Phases (each prints its own lines; any failure exits non-zero):
   19. ``[cli]``: ``python -m repro_torch.oocore`` and ``python -m
       repro_torch.reorder`` (their ``main([])``) on the card, each
       returning 0 and launching B6 and B1;
-  20. ``[examples]``: ``examples/torch_quickstart.py`` and
-      ``examples/torch_cp_decompose_distributed.py`` (their ``main()``)
-      on the card with their asserts; the fits and the Dynasor and
-      all-reduce baseline times (CUDA events, 8 workers on one card);
-  21. one JSON line with all six kernels and the five bf16 variants
+  20. ``[examples]``: ``examples/torch_quickstart.py``,
+      ``examples/torch_cp_decompose_distributed.py`` and
+      ``examples/torch_lm_serve.py`` (their ``main()``) on the card with
+      their asserts; the fits and the Dynasor and all-reduce baseline
+      times (CUDA events, 8 workers on one card);
+  21. ``[serve]`` (ROADMAP A15, slice 1): the LM serving path at full
+      width: phi3-mini-3.8b with every published field (32 layers,
+      d_model 3072, 32 heads of 96, d_ff 8192, vocab 32064; fp32
+      parameters from the port's ``init_params``, seed 0, on the card,
+      15.3 GB), ``ServeSession.generate`` on 8 seeded 1024-token prompts
+      for 32 new tokens, greedy twice and once at temperature 0.8;
+      prefill ms, decode ms per token, tokens/s and peak memory; checks:
+      prefill's last-position logits against ``forward``'s (2e-2 of
+      max|logits|), a decode step against teacher-forced ``forward`` at
+      the next position (3e-2), tokens in ``[0, vocab)``, finite logits,
+      the two greedy runs equal, ``serve.tokens == 8 x 32``; a profiled
+      prefill and decode step, and the per-call fp32 -> bf16 weight cast
+      of one decode step timed alone beside its bytes bound. Its numbers
+      are one JSON line ``{"serve": {...}}``: the path has no kernel of
+      its own (the reference computes it outside any Pallas kernel);
+  22. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
       ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
       ``obs_launches`` from ``[obs]``'s counted run,
@@ -188,6 +204,16 @@ BLK, TILE_ROWS = 512, 8
 # (measured against 128-slot blocks in PERF.md).
 STREAM_BLK, STREAM_TILE_ROWS = 128, 8
 MAIN_STREAM_BLK = 64
+
+# [serve]: the LM serving path at phi3-mini-3.8b's published widths.
+SERVE_ARCH = "phi3-mini-3.8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 32
+# The reference's own tolerances at bf16 activations
+# (tests/test_archs_smoke.py): prefill vs forward 2e-2, decode vs teacher
+# forcing 3e-2; here relative to max|logits|.
+SERVE_TOL_PREFILL, SERVE_TOL_DECODE = 2e-2, 3e-2
+# Published H100 SXM dense bf16 tensor-core peak (FLOP/s), at 700 W.
+BF16_FLOPS_PER_S = 989e12
 
 CSRC = "src/repro_torch/kernels/mttkrp/csrc/"
 SOURCE = {
@@ -2842,13 +2868,14 @@ def _example(name):
 
 
 def phase_examples(gpu: str) -> dict:
-    """Both examples of the port on the card, with their asserts. Returns
-    their launches."""
+    """The port's examples on the card, with their asserts. Returns their
+    launches (the LM example launches none of the six kernels)."""
     import contextlib
     import io
     reset_counts()
     out = {}
-    for name in ("torch_quickstart", "torch_cp_decompose_distributed"):
+    for name in ("torch_quickstart", "torch_cp_decompose_distributed",
+                 "torch_lm_serve"):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2861,6 +2888,7 @@ def phase_examples(gpu: str) -> dict:
         out[name] = (got, secs)
     dist_res, secs = out["torch_cp_decompose_distributed"]
     log(f"[examples] quickstart {out['torch_quickstart'][1]:.1f} s; "
+        f"lm_serve {out['torch_lm_serve'][1]:.1f} s; "
         f"distributed {secs:.1f} s: fits 3-mode {dist_res['fit3']:.6f}, "
         f"4-mode auto {dist_res['fit4']:.6f}; all-modes spMTTKRP, 8 workers "
         f"on one card (CUDA events): Dynasor {dist_res['ms']['dynasor']:.3f}"
@@ -2873,6 +2901,195 @@ def phase_examples(gpu: str) -> dict:
     require(launched["fused_mttkrp_nmode_gather"] > 0,
             "[examples] the 4-mode auto run launched no B1")
     return launched
+
+
+def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int,
+                   param_bytes: int) -> dict:
+    """Least times of the serving path's two steps on this card's
+    published peaks. Prefill: its products, the weights' at the bf16
+    tensor-core peak and attention's (widened to fp32, every score of
+    the causal square computed, as the recurrence does) at the fp32 peak,
+    against the fp32 weights read once. Decode step: the fp32 weights and
+    the bf16 K/V cache of ``cache_len`` slots read once (its products are
+    negligible)."""
+    d, L = cfg.d_model, cfg.n_layers
+    weights = L * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                   + 3 * d * cfg.d_ff)
+    tok = batch * prompt
+    mm_flops = 2 * tok * weights + 2 * batch * cfg.vocab_padded * d
+    attn_flops = L * 4 * batch * cfg.n_heads * prompt * prompt * cfg.head_dim
+    t_ops = (mm_flops / BF16_FLOPS_PER_S
+             + attn_flops / FP32_FLOPS_PER_S) * 1e3
+    t_bytes = param_bytes / HBM_BYTES_PER_S * 1e3
+    cache_bytes = 2 * L * batch * cache_len * cfg.kv_dim * 2
+    decode = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"prefill_bound_ms": max(t_ops, t_bytes),
+            "prefill_bound_by": "operations" if t_ops >= t_bytes
+            else "bytes",
+            "decode_step_bound_ms": decode}
+
+
+def profile_ops(fn, what: str, top: int = 8) -> dict:
+    """One profiled call of ``fn``: wall ms, device-busy ms, idle share,
+    and the aten ops with the most self device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    ops = {ev.key: ev.self_device_time_total / 1e3
+           for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CPU
+           and ev.key.startswith("aten::") and ev.self_device_time_total > 0}
+    cast_ms = ops.get("aten::copy_", 0.0)
+    log(f"[serve] profile {what}: wall {wall_ms:.3f} ms, kernels "
+        f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}; "
+        f"aten::copy_ (dtype casts and cache writes) {cast_ms:.3f} ms")
+    for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[serve]   op {ms:9.3f} ms  {name}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "copy_ms": cast_ms,
+            "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:top])}
+
+
+def phase_serve(gpu: str) -> dict:
+    """The LM serving path at phi3-mini-3.8b's published widths and full
+    depth: ``ServeSession.generate`` with its checks and times."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeSession, _pad_caches
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, iter_leaves, \
+        spec_bytes
+    from repro_torch.obs import counters as ocnt
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    b, lp, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(M.model_specs(cfg), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for _, t in iter_leaves(params)]
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    require(param_bytes == spec_bytes(M.model_specs(cfg))
+            and all(t.dtype == torch.float32 for t in leaves),
+            "[serve] parameters are not the specs' fp32 leaves")
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
+        f"act {cfg.act_dtype}; {param_bytes} B of fp32 parameters drawn on "
+        f"the card in {init_s:.2f} s")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, lp)).astype(np.int32)
+    sess = ServeSession(cfg, params, max_len=lp + n + 1)
+    runs = {}
+    for label, temp in (("greedy", 0.0), ("greedy-rerun", 0.0),
+                        ("t0.8", 0.8)):
+        with ocnt.use_registry() as reg:
+            t0 = time.perf_counter()
+            out = sess.generate(prompts, n, temperature=temp, seed=0)
+            wall = time.perf_counter() - t0
+        pre, dec = reg.get("serve.prefill_s"), reg.get("serve.decode_s")
+        runs[label] = dict(out=out, prefill_ms=pre * 1e3,
+                           decode_ms_per_token=dec * 1e3 / (n - 1),
+                           tokens_per_s=b * n / (pre + dec), wall_s=wall)
+        log(f"[serve] generate {label}: {b} x {lp}-token prompts, {n} new "
+            f"tokens: prefill {pre * 1e3:.3f} ms, decode "
+            f"{dec * 1e3 / (n - 1):.3f} ms/token ({n - 1} steps), "
+            f"{b * n / (pre + dec):.1f} tokens/s; wall {wall:.2f} s; "
+            f"serve.tokens {reg.get('serve.tokens')}  [{gpu}]")
+        require(reg.get("serve.tokens") == b * n,
+                f"[serve] serve.tokens {reg.get('serve.tokens')} != {b * n}")
+        require(out.shape == (b, n) and out.dtype == np.int32
+                and (out >= 0).all() and (out < cfg.vocab).all(),
+                f"[serve] {label}: tokens out of [0, {cfg.vocab})")
+    greedy = runs["greedy"]["out"]
+    require(np.array_equal(greedy, runs["greedy-rerun"]["out"]),
+            "[serve] two greedy runs differ")
+    log(f"[serve] greedy tokens of request 0: {greedy[0, :12].tolist()}; "
+        f"at t=0.8: {runs['t0.8']['out'][0, :12].tolist()}")
+
+    # prefill and one decode step against teacher-forced forward.
+    toks = torch.from_numpy(np.concatenate([prompts, greedy[:, :1]], 1)
+                            ).to(dev)
+    full, _ = M.forward(cfg, params, toks, remat=False)
+    last, cache = M.prefill(cfg, params, toks[:, :lp])
+    cache = _pad_caches(cache, lp, lp + 1)
+    step, _ = M.decode_step(cfg, params, cache, toks[:, lp:], lp)
+    errs = {}
+    for what, got, want, tol in (
+            ("prefill", last[:, 0], full[:, lp - 1], SERVE_TOL_PREFILL),
+            ("decode", step[:, 0], full[:, lp], SERVE_TOL_DECODE)):
+        got, want = got.float(), want.float()
+        require(torch.isfinite(got).all() and torch.isfinite(want).all(),
+                f"[serve] {what}: non-finite logits")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, rtol=tol, atol=tol * scale)
+        errs[what] = err / scale
+        log(f"[serve] {what} vs teacher-forced forward: max abs err "
+            f"{err:.4e}, max|logits| {scale:.4f}, relative {err / scale:.4e}"
+            f" (tolerance {tol}): {'ok' if ok else 'FAIL'}")
+        require(ok, f"[serve] {what} disagrees with forward")
+    require(torch.equal(last[:, 0, :cfg.vocab].float().argmax(-1).cpu(),
+                        torch.from_numpy(greedy[:, 0]).long()),
+            "[serve] first greedy token is not prefill's argmax")
+    del full, last, step, cache, toks
+    peak = torch.cuda.max_memory_allocated()
+
+    # Where a step's time goes, and the eager per-call weight cast.
+    _, cache = M.prefill(cfg, params, torch.from_numpy(prompts).to(dev))
+    cache = _pad_caches(cache, lp, lp + n + 1)
+    tok = torch.from_numpy(greedy[:, :1]).to(dev)
+    prof_prefill = profile_ops(
+        lambda: M.prefill(cfg, params, torch.from_numpy(prompts).to(dev)),
+        f"one prefill ({b} x {lp} tokens)")
+    prof_decode = profile_ops(
+        lambda: M.decode_step(cfg, params, cache, tok, lp),
+        f"one decode step (pos {lp}, cache {lp + n + 1} slots)")
+    step_ms = cuda_ms(lambda: M.decode_step(cfg, params, cache, tok, lp), 5)
+    cast = [t for path, t in iter_leaves(params)      # the matrices
+            if path[-1] in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                            "w_down", "lm_head")]
+    cast_bytes = sum(t.numel() * 6 for t in cast)     # fp32 read, bf16 write
+    cast_ms = cuda_ms(lambda: [t.to(torch.bfloat16) for t in cast], 5)
+    del cache
+    bounds = serve_bound_ms(cfg, b, lp, lp + n + 1, param_bytes)
+    cast_bound = cast_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[serve] decode step {step_ms:.3f} ms (CUDA events, 5 steps); "
+        f"bound {bounds['decode_step_bound_ms']:.3f} ms (fp32 weights + "
+        f"bf16 cache read once); the fp32 -> bf16 cast of every weight one "
+        f"step casts, alone: {cast_ms:.3f} ms for {cast_bytes} B (bound "
+        f"{cast_bound:.3f} ms), {cast_ms / step_ms:.1%} of the step  [{gpu}]")
+    warm = runs["greedy-rerun"]
+    log(f"[serve] prefill {warm['prefill_ms']:.3f} ms against a bound of "
+        f"{bounds['prefill_bound_ms']:.3f} ms "
+        f"({bounds['prefill_bound_by']}); peak device memory "
+        f"{peak / 1e9:.3f} GB ({peak} B)  [{gpu}]")
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_bytes": param_bytes, "batch": b, "prompt_len": lp,
+        "new_tokens": n, "gpu": gpu,
+        "prefill_ms": warm["prefill_ms"],
+        "decode_ms_per_token": warm["decode_ms_per_token"],
+        "tokens_per_s": warm["tokens_per_s"],
+        "cold_prefill_ms": runs["greedy"]["prefill_ms"],
+        "cold_decode_ms_per_token": runs["greedy"]["decode_ms_per_token"],
+        "t0.8_decode_ms_per_token": runs["t0.8"]["decode_ms_per_token"],
+        "peak_bytes": peak, "prefill_rel_err": errs["prefill"],
+        "decode_rel_err": errs["decode"], "decode_step_ms": step_ms,
+        "weight_cast_ms": cast_ms, "weight_cast_bytes": cast_bytes,
+        "weight_cast_bound_ms": cast_bound, **bounds,
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+    }
 
 
 def main() -> int:
@@ -2914,6 +3131,9 @@ def main() -> int:
     del ft
     cli_launches = phase_cli()
     examples_launches = phase_examples(gpu)
+    t_serve = time.perf_counter()
+    serve = phase_serve(gpu)
+    log(f"[serve] phase took {time.perf_counter() - t_serve:.1f} s")
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
@@ -2956,6 +3176,7 @@ def main() -> int:
         f"measured L2 read rate {L2_BYTES_PER_S / 1e12:.3f} TB/s; "
         "library_ms is index_add_ for segment_accumulate and null for the "
         "others: no single PyTorch call computes spMTTKRP")
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,17 @@
+"""phi3-mini-3.8b [dense]: 32L d_model=3072 32H (GQA kv=32 → MHA)
+d_ff=8192 vocab=32064 — RoPE SwiGLU. [arXiv:2404.14219]"""
+from .common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=32,
+    n_kv_heads=32,
+    head_dim=96,
+    d_ff=8192,
+    vocab=32064,
+    pattern=("attn+mlp",),
+    rope_theta=1e4,
+)

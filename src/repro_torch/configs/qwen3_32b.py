@@ -1,0 +1,18 @@
+"""qwen3-32b [dense]: 64L d_model=5120 64H (GQA kv=8) d_ff=25600
+vocab=151936 — qk_norm, GQA. [hf:Qwen/Qwen3-8B family; hf]"""
+from .common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab=151936,
+    pattern=("attn+mlp",),
+    qk_norm=True,
+    rope_theta=1e6,
+)

@@ -6,6 +6,12 @@ of a ``repro.resilience.checkpoint.make_state`` state, λ, and optionally
 the remapped nonzero stream with its ``(D, cap, ...)`` worker axis — and
 returns the port's tensors on the device, so one port sweep and one
 reference sweep can start from the same state.
+
+:func:`lm_params_from_reference` carries an LM parameter tree (or a
+cache tree) of ``repro.models`` across: the same keys, shapes and dtypes,
+as the port's ``models`` hold them. The reference's init draws from
+streams the port cannot reproduce, so this is how the tests give both
+packages the same weights.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 
 from .runtime.device import resolve_device
 
-__all__ = ["state_from_reference"]
+__all__ = ["state_from_reference", "lm_params_from_reference"]
 
 
 def state_from_reference(factors, lam, stream=None, *, device=None,
@@ -64,3 +70,29 @@ def state_from_reference(factors, lam, stream=None, *, device=None,
         torch.from_numpy(np.array(idx, dtype=np.int32)).to(dev),
         torch.from_numpy(np.array(val, dtype=np.float32)).to(dev),
         torch.from_numpy(np.array(mask, dtype=bool)).to(dev))
+
+
+def _leaf_to_torch(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":         # ml_dtypes: no numpy buffer type
+        t = torch.from_numpy(np.array(a).view(np.uint16))
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_reference(params, *, device=None):
+    """Reference LM parameter tree → the port's, on ``device`` (``None``:
+    CUDA).
+
+    ``params`` is a nested dict of arrays, as ``repro.models.params.
+    init_params`` gives it (after ``np.asarray`` on each leaf, or as JAX
+    arrays). Returns a nested dict with the same keys, each leaf a tensor
+    of the same shape and dtype (bfloat16 included)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_to_torch(node, dev)
+
+    return conv(params)

@@ -16,9 +16,10 @@ Design rules, as in the reference:
   names, less those of layers it does not have yet. Left out, each with
   what brings it: ``execution.*`` and ``resilience.interpret_fallbacks``
   (the port has no interpreter to resolve or fall back to; a CUDA tensor
-  runs the kernel, a CPU tensor its plain version), ``dryrun.*`` (the
+  runs the kernel, a CPU tensor its plain version) and ``dryrun.*`` (the
   LM multi-pod dry run ``repro/launch/dryrun.py``: LM scaffolding,
-  ROADMAP A15) and ``serve.*`` (the LM scaffolding, A15).
+  ROADMAP A15, slice 3). ``serve.*`` is emitted by
+  ``launch.serve.ServeSession.generate``, as in the reference.
 * **A TPU fact translated.** The reference's ``planner.vmem.plan_bytes``
   is the one VMEM budget of its ladder. The Hopper ladder has two
   (``oocore.planner.plan_residency``): shared memory per CTA and the L2
@@ -94,6 +95,9 @@ NAMESPACES = (
     "resilience.site_calls",
     "resilience.solve.guards",
     "resilience.table_fallbacks",
+    "serve.decode_s",
+    "serve.prefill_s",
+    "serve.tokens",
     "tune.measure_s",
     "tune.points",
 )

@@ -16,6 +16,13 @@ Importing this module sets ``torch.backends.cuda.matmul.allow_tf32 =
 False`` and ``torch.backends.cudnn.allow_tf32 = False``: the grams, the
 solve and the fit are float32 math, and TF32 keeps only about three
 decimal digits, which would break agreement with the float32 reference.
+It also sets ``torch.backends.cuda.matmul.
+allow_bf16_reduced_precision_reduction = False``: by default cuBLAS may
+add split-K partial sums of a bf16 product in bf16, where the
+reference's bf16 products (the LM's weights and activations) sum in
+float32 and round once. The Dynasor path has no bf16 ``matmul`` (its bf16
+gathers are hand-written kernels with float32 sums), so only the LM
+path feels it.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ __all__ = ["resolve_device", "require_sm90"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

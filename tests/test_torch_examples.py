@@ -1,8 +1,10 @@
-"""The port's examples, ``examples/torch_quickstart.py`` and
-``examples/torch_cp_decompose_distributed.py``, run end to end on the CPU
-(the kernels' plain versions), with the reference examples' asserts:
-exact recovery of dense low-rank tensors at fit > 0.99 and ``OK`` last.
-On the card ``chip_smoke.py``'s ``[examples]`` runs both."""
+"""The port's examples, ``examples/torch_quickstart.py``,
+``examples/torch_cp_decompose_distributed.py`` and
+``examples/torch_lm_serve.py``, run end to end on the CPU (the kernels'
+plain versions), with the reference examples' asserts: exact recovery of
+dense low-rank tensors at fit > 0.99, tokens in the vocabulary, and
+``OK`` last. On the card ``chip_smoke.py``'s ``[examples]`` runs all
+three."""
 import importlib.util
 import os
 
@@ -44,8 +46,16 @@ def test_cp_decompose_distributed_on_cpu(capsys):
     assert all(b > 0 for b in got["bytes"].values())
 
 
+def test_lm_serve_on_cpu(capsys):
+    _load("torch_lm_serve").main("cpu", tokens=8)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "OK"
+    assert out[0].startswith("qwen3-32b") and "generated 4x8 tokens" in out[0]
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart",
-                                  "torch_cp_decompose_distributed"])
+                                  "torch_cp_decompose_distributed",
+                                  "torch_lm_serve"])
 def test_example_refuses_without_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1270,3 +1270,110 @@ def test_package_smoke_on_card_launches_b6_and_b1(cuda, smoke):
     assert cli.main([]) == 0
     assert K.fused_mttkrp_nmode_gather_stream.launches >= 3
     assert K.fused_mttkrp_nmode_gather.launches >= 1
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path on the card (no kernel of its own: plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def _lm(name, act, dev, seed=0):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(smoke_config(name), act_dtype=act)
+    cpu = init_params(M.model_specs(cfg), seed=seed, device="cpu")
+    return cfg, cpu, _tree_to(cpu, dev)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("name", ["internlm2-20b", "minitron-8b",
+                                  "phi3-mini-3.8b", "qwen3-32b"])
+def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name):
+    """Smoke config at fp32 activations (TF32 off). Prefill logits within
+    1e-4 of max|logits| of the CPU's and its bf16 K/V within one bf16
+    ulp; each decode step, given the CPU's cache, within 1e-4. Greedy
+    tokens equal, each step's top-2 margin above the largest difference
+    of the two devices' free-running logits (where a cache element that
+    rounds to the other bf16 neighbour on the card carries on)."""
+    from repro_torch.launch.serve import ServeSession, _pad_caches
+    from repro_torch.models import model as M
+    cfg, cpu, card = _lm(name, "float32", cuda)
+    b, lp, n = 3, 12, 8
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, lp)).astype(np.int32)
+    got = ServeSession(cfg, card, max_len=lp + n + 1,
+                       device=cuda).generate(prompts, n)
+    want = ServeSession(cfg, cpu, max_len=lp + n + 1,
+                        device="cpu").generate(prompts, n)
+    np.testing.assert_array_equal(got, want)
+    run = {}
+    for key, dev, params in (("cpu", "cpu", cpu), ("card", cuda, card)):
+        lg, cache = M.prefill(cfg, params,
+                              torch.from_numpy(prompts).to(dev))
+        run[key] = dict(params=params, dev=dev, prefill=lg.float().cpu(),
+                        cache=_pad_caches(cache, lp, lp + n + 1), free=[])
+    scale = float(run["cpu"]["prefill"].abs().max())
+    torch.testing.assert_close(run["card"]["prefill"], run["cpu"]["prefill"],
+                               rtol=1e-4, atol=1e-4 * scale)
+    for grp, leaves in run["cpu"]["cache"].items():
+        for leaf, c in leaves.items():
+            torch.testing.assert_close(
+                run["card"]["cache"][grp][leaf].float().cpu(), c.float(),
+                rtol=2 ** -8, atol=2 ** -8 * float(c.float().abs().max()))
+    for i in range(n - 1):
+        tok = torch.from_numpy(want[:, i:i + 1])
+        shared = _tree_to(run["cpu"]["cache"], cuda)   # before the CPU step
+        for r in run.values():
+            lg, r["cache"] = M.decode_step(cfg, r["params"], r["cache"],
+                                           tok.to(r["dev"]), lp + i)
+            r["free"].append(lg[:, -1, :cfg.vocab].float().cpu())
+        lg, _ = M.decode_step(cfg, card, shared, tok.to(cuda), lp + i)
+        torch.testing.assert_close(lg[:, -1, :cfg.vocab].float().cpu(),
+                                   run["cpu"]["free"][-1], rtol=1e-4,
+                                   atol=1e-4 * scale)
+    free = {k: torch.stack([r["prefill"][:, -1, :cfg.vocab]] + r["free"], 1)
+            for k, r in run.items()}
+    diff = float((free["card"] - free["cpu"]).abs().max())
+    top2 = torch.topk(free["cpu"], 2, dim=-1).values
+    assert float((top2[..., 0] - top2[..., 1]).min()) > diff
+
+
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-32b"])
+def test_lm_forward_on_card_at_bf16(cuda, name):
+    """Default bf16 activations: forward on the card within the
+    reference's 2e-2 of the CPU's, and prefill == forward's last position
+    on the card."""
+    from repro_torch.models import model as M
+    cfg, cpu, card = _lm(name, "bfloat16", cuda, seed=1)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    want, _ = M.forward(cfg, cpu, toks)
+    got, _ = M.forward(cfg, card, toks.to(cuda))
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    last, _ = M.prefill(cfg, card, toks.to(cuda))
+    torch.testing.assert_close(last[:, 0].float(), got[:, -1].float(),
+                               rtol=2e-2, atol=2e-2 * scale)
+
+
+def test_lm_serve_main_and_example_run_on_the_card_by_default(cuda, capsys):
+    import importlib.util
+    import os
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "phi3-mini-3.8b", "--smoke", "--tokens",
+                       "4"]) is None
+    assert "on cuda" in capsys.readouterr().out
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "torch_lm_serve.py")
+    spec = importlib.util.spec_from_file_location("torch_lm_serve", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(tokens=6)
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "OK"

@@ -32,7 +32,9 @@ def test_the_checked_files_include_the_scripts_and_examples():
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"chip_smoke.py", "examples/torch_quickstart.py",
             "examples/torch_cp_decompose_distributed.py",
-            "bench_torch/sweep_ab.py"} <= rel
+            "examples/torch_lm_serve.py", "bench_torch/sweep_ab.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/configs/phi3_mini_3_8b.py"} <= rel
 
 
 def _imported_roots(path):
@@ -80,7 +82,12 @@ def test_import_leaves_jax_unloaded():
     "repro_torch.tune.table", "repro_torch.tune.model",
     "repro_torch.tune.microbench", "repro_torch.tune.cli",
     "repro_torch.tune.__main__", "repro_torch.kernels.mttkrp.lowering",
-    "repro_torch.oocore.__main__", "repro_torch.reorder.__main__"])
+    "repro_torch.oocore.__main__", "repro_torch.reorder.__main__",
+    "repro_torch.configs", "repro_torch.configs.registry",
+    "repro_torch.models.params", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.blocks",
+    "repro_torch.models.model", "repro_torch.models.steps",
+    "repro_torch.launch.serve"])
 def test_new_modules_import_first_without_jax(module):
     """Each module of the stream and dispatch paths imports on its own
     (the package's import cycle between ops, the planner and the

@@ -49,9 +49,6 @@ EXCLUDED = {
     "resilience.interpret_fallbacks": "no interpreter to fall back to",
     "dryrun.compile_s": "LM scaffolding, ROADMAP A15",
     "dryrun.lower_s": "LM scaffolding, ROADMAP A15",
-    "serve.decode_s": "LM scaffolding, ROADMAP A15",
-    "serve.prefill_s": "LM scaffolding, ROADMAP A15",
-    "serve.tokens": "LM scaffolding, ROADMAP A15",
 }
 # The reference's one VMEM plan budget -> the Hopper ladder's two.
 TRANSLATED = {"planner.vmem.plan_bytes": ("planner.smem.plan_bytes",
