@@ -131,8 +131,9 @@ Phases (each prints its own lines; any failure exits non-zero):
       repro_torch.reorder`` (their ``main([])``) on the card, each
       returning 0 and launching B6 and B1;
   20. ``[examples]``: ``examples/torch_quickstart.py``,
-      ``examples/torch_cp_decompose_distributed.py`` and
-      ``examples/torch_lm_serve.py`` (their ``main()``) on the card with
+      ``examples/torch_cp_decompose_distributed.py``,
+      ``examples/torch_lm_serve.py`` and ``examples/torch_lm_train.py``
+      (its resume demo, 200 steps) (their ``main()``) on the card with
       their asserts; the fits and the Dynasor and all-reduce baseline
       times (CUDA events, 8 workers on one card);
   21. ``[serve]`` (ROADMAP A15, slice 1): the LM serving path at full
@@ -150,7 +151,26 @@ Phases (each prints its own lines; any failure exits non-zero):
       of one decode step timed alone beside its bytes bound. Its numbers
       are one JSON line ``{"serve": {...}}``: the path has no kernel of
       its own (the reference computes it outside any Pallas kernel);
-  22. one JSON line with all six kernels and the five bf16 variants
+  22. ``[train]`` (ROADMAP A15, slice 2), after ``[serve]``'s tensors are
+      freed: phi3-mini-3.8b with every published field trained on the
+      card through ``models.steps.make_train_step`` (fp32 parameters from
+      ``init_params``, seed 0; AdamW with fp32 moments; remat ``nothing``;
+      ``cosine_schedule(1e-3, 2, 10)``), 3 steps of ``SyntheticLMData(
+      vocab=32064, seq_len=1024, global_batch=8, seed=0)`` in two
+      microbatches of 4 x 1024 (the ``train_4k`` shape's 4096-token
+      sequences cut to 1024); per step the loss, grad_norm and ms (host
+      clock, device fenced), the forward+backward and optimizer ms (CUDA
+      events), tokens/s, peak memory, model FLOP/s against the bf16 peak
+      and the step's bound; checks: finite loss, grad_norm, parameters
+      and moments, ``step == count == 3``, every leaf changed; at full
+      width and 2 layers with fp32 activations ``grad_accum=2`` == 1 and
+      remat ``nothing`` == ``dots`` == off within 1e-5 of each leaf's
+      max|g|; ``train("qwen3-32b", smoke=True, steps=20, ckpt_dir=...,
+      ckpt_every=5)`` preempted at step 10 and resumed, its losses within
+      1e-4 of the uninterrupted run's. Its numbers are one JSON line
+      ``{"train": {...}}``: training adds no kernel (no Pallas kernel of
+      the reference, nor a backward of one, lies on it);
+  23. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
       ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
       ``obs_launches`` from ``[obs]``'s counted run,
@@ -171,10 +191,12 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -214,6 +236,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 32
 SERVE_TOL_PREFILL, SERVE_TOL_DECODE = 2e-2, 3e-2
 # Published H100 SXM dense bf16 tensor-core peak (FLOP/s), at 700 W.
 BF16_FLOPS_PER_S = 989e12
+
+# [train]: the LM training path at phi3-mini-3.8b's published widths.
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 1024, 2, 3
+# grad_accum 2 vs 1 and the remat policies at full width and 2 layers:
+# the CPU tests' tolerance, relative to each leaf's max|g|; the resumed
+# smoke run's losses against the uninterrupted run's (the embedding's
+# backward adds with atomics, so the two are not bitwise).
+TRAIN_GRAD_TOL, TRAIN_RESUME_TOL = 1e-5, 1e-4
 
 CSRC = "src/repro_torch/kernels/mttkrp/csrc/"
 SOURCE = {
@@ -2874,12 +2905,14 @@ def phase_examples(gpu: str) -> dict:
     import io
     reset_counts()
     out = {}
-    for name in ("torch_quickstart", "torch_cp_decompose_distributed",
-                 "torch_lm_serve"):
+    for name, kw in (("torch_quickstart", {}),
+                     ("torch_cp_decompose_distributed", {}),
+                     ("torch_lm_serve", {}),
+                     ("torch_lm_train", {"resume_demo": True})):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            got = _example(name).main()
+            got = _example(name).main(**kw)
         secs = time.perf_counter() - t0
         lines = buf.getvalue().strip().splitlines()
         for ln in lines:
@@ -2887,6 +2920,10 @@ def phase_examples(gpu: str) -> dict:
         require(lines and lines[-1] == "OK", f"[examples] {name}: no OK")
         out[name] = (got, secs)
     dist_res, secs = out["torch_cp_decompose_distributed"]
+    lm_train, lm_train_s = out["torch_lm_train"]
+    log(f"[examples] lm_train {lm_train_s:.1f} s: held-out loss "
+        f"{lm_train['start']:.4f} -> {lm_train['end']:.4f} over "
+        f"{len(lm_train['history'])} resumed steps")
     log(f"[examples] quickstart {out['torch_quickstart'][1]:.1f} s; "
         f"lm_serve {out['torch_lm_serve'][1]:.1f} s; "
         f"distributed {secs:.1f} s: fits 3-mode {dist_res['fit3']:.6f}, "
@@ -2929,7 +2966,7 @@ def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int,
             "decode_step_bound_ms": decode}
 
 
-def profile_ops(fn, what: str, top: int = 8) -> dict:
+def profile_ops(fn, what: str, top: int = 8, tag: str = "serve") -> dict:
     """One profiled call of ``fn``: wall ms, device-busy ms, idle share,
     and the aten ops with the most self device time."""
     from torch.autograd import DeviceType
@@ -2948,11 +2985,11 @@ def profile_ops(fn, what: str, top: int = 8) -> dict:
            if ev.device_type == DeviceType.CPU
            and ev.key.startswith("aten::") and ev.self_device_time_total > 0}
     cast_ms = ops.get("aten::copy_", 0.0)
-    log(f"[serve] profile {what}: wall {wall_ms:.3f} ms, kernels "
+    log(f"[{tag}] profile {what}: wall {wall_ms:.3f} ms, kernels "
         f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}; "
         f"aten::copy_ (dtype casts and cache writes) {cast_ms:.3f} ms")
     for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"[serve]   op {ms:9.3f} ms  {name}")
+        log(f"[{tag}]   op {ms:9.3f} ms  {name}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms, "copy_ms": cast_ms,
             "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:top])}
@@ -3092,6 +3129,329 @@ def phase_serve(gpu: str) -> dict:
     }
 
 
+def train_bound_ms(cfg, tokens: int, seq: int, param_bytes: int,
+                   remat: bool = True) -> dict:
+    """Least times of one train step on this card's published peaks, by
+    ``serve_bound_ms``'s method. Forward + backward: the weight products
+    (2 FLOP per weight and token forward, 4 backward, 2 more for the
+    forward recomputed under remat) at the bf16 tensor-core peak, and
+    attention (the causal square computed whole, as the recurrence does:
+    forward, recompute, and a backward of twice the forward) at the fp32
+    peak. Clip: the gradients read for their norm, then read and written
+    once scaled, at the HBM rate. Optimizer: its bytes at the HBM rate
+    (parameters, gradients and both moments read once, parameters and
+    moments written once, all of ``param_bytes`` each). ``model_flops``
+    counts the step without the recompute: 6 FLOP per weight and token,
+    and attention's forward and backward."""
+    d, L = cfg.d_model, cfg.n_layers
+    weights = L * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                   + 3 * d * cfg.d_ff) + cfg.vocab_padded * d
+    per_weight = 8 if remat else 6
+    mm_flops = per_weight * tokens * weights
+    attn_fwd = L * 4 * (tokens // seq) * cfg.n_heads * seq * seq \
+        * cfg.head_dim
+    attn_flops = attn_fwd * (4 if remat else 3)
+    fwd_bwd = (mm_flops / BF16_FLOPS_PER_S
+               + attn_flops / FP32_FLOPS_PER_S) * 1e3
+    clip_bytes = 3 * param_bytes              # g read twice, written once
+    clip = clip_bytes / HBM_BYTES_PER_S * 1e3
+    opt_bytes = 7 * param_bytes               # p, g, m, v read; p, m, v
+    opt = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"mm_flops": mm_flops, "attn_flops": attn_flops,
+            "fwd_bwd_bound_ms": fwd_bwd, "clip_bytes": clip_bytes,
+            "clip_bound_ms": clip, "opt_bytes": opt_bytes,
+            "opt_bound_ms": opt, "step_bound_ms": fwd_bwd + clip + opt,
+            "model_flops": 6 * tokens * weights + 3 * attn_fwd}
+
+
+def timed_optimizer(opt):
+    """``(opt', events)``: ``opt`` with its ``update`` bracketed by CUDA
+    events, appended to ``events``, so a train step's forward+backward and
+    optimizer times read apart."""
+    from repro_torch import optim
+    events = []
+
+    def update(grads, state, params):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = opt.update(grads, state, params)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    return optim.Optimizer(opt.init, update, opt.state_specs), events
+
+
+@contextlib.contextmanager
+def timed_clip():
+    """``optim.clip_by_global_norm`` (the norm and the in-place scaling)
+    bracketed by CUDA events for the duration of a ``with`` block; yields
+    the list the ``(start, stop)`` pairs are appended to. The train step
+    calls it through the module, so it meets the wrapper."""
+    from repro_torch import optim
+    orig, events = optim.clip_by_global_norm, []
+
+    def clip(tree, max_norm):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(tree, max_norm)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    optim.clip_by_global_norm = clip
+    try:
+        yield events
+    finally:
+        optim.clip_by_global_norm = orig
+
+
+def _layer_sums(tree) -> dict:
+    """The fp64 sum of every leaf, on the host: one per layer for a leaf
+    stacked under ``blocks``, so that a layer left without gradients or
+    updates shows. The ``count`` leaf is left out."""
+    from repro_torch.models.params import iter_leaves
+    out = {}
+    for path, t in iter_leaves(tree):
+        if path[-1] == "count":
+            continue
+        parts = t.unbind(0) if "blocks" in path else (t,)
+        out[path] = torch.stack([x.sum(dtype=torch.float64)
+                                 for x in parts]).cpu()
+    return out
+
+
+def _unchanged_layers(before: dict, after: dict) -> list:
+    """``(path, layer)`` of every sum in ``before`` equal to ``after``'s
+    (layer None for an unstacked leaf)."""
+    same = []
+    for path, b in before.items():
+        eq = (b == after[path]).tolist()
+        if "blocks" not in path:
+            same += [(path, None)] if eq[0] else []
+        else:
+            same += [(path, r) for r, e in enumerate(eq) if e]
+    return same
+
+
+def _grad_errors(got, want) -> float:
+    """max over leaves of max|got - want| / max|want|."""
+    from repro_torch.models.params import iter_leaves
+    worst = 0.0
+    for (_, a), (_, b) in zip(iter_leaves(got), iter_leaves(want)):
+        scale = max(float(b.abs().max()), 1e-30)
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def _train_checks_2_layers(cfg, batch, dev) -> dict:
+    """At full width and 2 layers with fp32 activations: grad_accum 2 vs
+    1, and remat ``nothing`` / ``dots`` vs off, per leaf."""
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import init_params
+    c2 = dataclasses.replace(cfg, n_layers=2, act_dtype="float32")
+    params = init_params(M.model_specs(c2), seed=0, device=dev)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    errs = {}
+    (l1, _), g1 = S.accumulate_grads(c2, params, tb, 1)
+    (l2, _), g2 = S.accumulate_grads(c2, params, tb, 2)
+    errs["grad_accum 2 vs 1"] = _grad_errors(g2, g1)
+    errs["loss_rel_err"] = abs(float(l2 - l1)) / abs(float(l1))
+    del g2
+    (_, _), g_off = S.loss_and_grads(c2, params, tb, remat=False)
+    for policy in ("nothing", "dots"):
+        cp = dataclasses.replace(c2, remat_policy=policy)
+        (_, _), g = S.loss_and_grads(cp, params, tb, remat=True)
+        errs[f"remat {policy} vs off"] = _grad_errors(g, g_off)
+        del g
+    return errs
+
+
+def _train_resume_check(dev) -> dict:
+    """``train`` on qwen3-32b's smoke config, 20 steps checkpointed every
+    5: uninterrupted, and preempted (SIGTERM) at step 10 then resumed."""
+    import signal
+    import tempfile
+    from repro_torch.launch.train import train
+    quiet = lambda *_: None
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_resume_", dir=os.path.join(
+        ROOT, "build"))
+    kw = dict(smoke=True, steps=20, ckpt_every=5, device=dev)
+    _, whole = train("qwen3-32b", ckpt_dir=os.path.join(root, "a"),
+                     log_fn=quiet, **kw)
+
+    def preempt_at_10(msg):
+        if msg.startswith("[runner] step 10 "):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        _, first = train("qwen3-32b", ckpt_dir=os.path.join(root, "b"),
+                         log_fn=preempt_at_10, **kw)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    _, second = train("qwen3-32b", ckpt_dir=os.path.join(root, "b"),
+                      log_fn=quiet, **kw)
+    shutil.rmtree(root, ignore_errors=True)
+    require([h["step"] for h in first] == list(range(11))
+            and [h["step"] for h in second] == list(range(11, 20)),
+            "[train] the preempted run did not stop at 10 and resume at 11")
+    want = {h["step"]: h["loss"] for h in whole}
+    rel = max(abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]])
+              for h in first + second)
+    bitwise = all(h["loss"] == want[h["step"]] for h in first + second)
+    return {"resume_loss_rel_err": rel, "resume_bitwise": bitwise}
+
+
+def phase_train(gpu: str) -> dict:
+    """The LM training path at phi3-mini-3.8b's published widths and full
+    depth: ``make_train_step`` for three steps, with its checks and
+    times."""
+    import gc
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import init_params, iter_leaves, \
+        spec_bytes
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    b, l, k, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(M.model_specs(cfg), seed=0, device=dev)
+    opt, opt_events = timed_optimizer(optim.make_optimizer(
+        cfg.optimizer, optim.cosine_schedule(1e-3, 2, 10)))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = spec_bytes(M.model_specs(cfg))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (x for _, x in iter_leaves(state)))
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} (padded {cfg.vocab_padded}), act {cfg.act_dtype}, "
+        f"params {cfg.param_dtype}, {cfg.optimizer} (fp32 moments), remat "
+        f"{cfg.remat_policy}; {param_bytes} B of parameters, {state_bytes} "
+        f"B of train state, drawn on the card in {init_s:.2f} s")
+    before = {"parameter": _layer_sums(params),
+              "moment": _layer_sums(state["opt"])}
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=l, global_batch=b,
+                           seed=0)
+    step_fn = S.make_train_step(cfg, opt, grad_accum=k)
+    steps = []
+    for i in range(n):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with timed_clip() as clip_events:
+            start.record()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        (clip_start, clip_stop), = clip_events
+        opt_start, opt_stop = opt_events[-1]
+        row = {"step": i, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "ce": float(metrics["ce"]), "z_loss": float(metrics["z_loss"]),
+               "step_ms": ms,
+               "fwd_bwd_ms": start.elapsed_time(clip_start),
+               "clip_ms": clip_start.elapsed_time(clip_stop),
+               "opt_ms": opt_start.elapsed_time(opt_stop),
+               "tokens_per_s": b * l / (ms / 1e3)}
+        steps.append(row)
+        log(f"[train] step {i}: loss {row['loss']:.6f} (ce {row['ce']:.6f})"
+            f", grad_norm {row['grad_norm']:.6f}; {ms:.3f} ms (host clock, "
+            f"device fenced): forward+backward {row['fwd_bwd_ms']:.3f} ms, "
+            f"clip (global norm and scaling) {row['clip_ms']:.3f} ms, "
+            f"optimizer {row['opt_ms']:.3f} ms (CUDA events); "
+            f"{row['tokens_per_s']:.1f} tokens/s  [{gpu}]")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                for r in steps), "[train] a non-finite loss or grad_norm")
+    require(int(state["step"]) == int(state["opt"]["count"]) == n,
+            f"[train] step {int(state['step'])}, count "
+            f"{int(state['opt']['count'])}, not {n}")
+    for what, tree in (("parameter", params), ("moment", state["opt"])):
+        bad = [p for p, t in iter_leaves(tree)
+               if not bool(torch.isfinite(t).all())]
+        require(not bad, f"[train] non-finite {what}s in {bad[:3]}")
+    after = {"parameter": _layer_sums(params),
+             "moment": _layer_sums(state["opt"])}
+    for what in before:
+        same = _unchanged_layers(before[what], after[what])
+        log(f"[train] {what}s: {sum(len(v) for v in after[what].values())} "
+            f"sums (one per layer of each stacked leaf) over "
+            f"{len(after[what])} leaves, {len(same)} unchanged by {n} steps")
+        require(not same, f"[train] {what} (leaf, layer) unchanged by {n} "
+                f"steps: {same[:3]}")
+    # Where a step's time goes: one more step, profiled (after the checks
+    # of the three above).
+    prof = profile_ops(lambda: step_fn(state, data.batch(n)),
+                       f"one train step ({b} x {l} tokens, grad_accum {k})",
+                       top=12, tag="train")
+    steady = steps[1:]
+    step_ms = float(np.mean([r["step_ms"] for r in steady]))
+    bound = train_bound_ms(cfg, b * l, l, param_bytes)
+    mfu = bound["model_flops"] / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    log(f"[train] steady step {step_ms:.3f} ms (mean of steps 1..{n - 1}),"
+        f" {b * l / (step_ms / 1e3):.1f} tokens/s; bound "
+        f"{bound['step_bound_ms']:.3f} ms (forward+backward "
+        f"{bound['fwd_bwd_bound_ms']:.3f}: {bound['mm_flops']:.4e} FLOP of "
+        f"weight products at the bf16 peak + {bound['attn_flops']:.4e} of "
+        f"fp32 attention; clip {bound['clip_bound_ms']:.3f}: "
+        f"{bound['clip_bytes']} B at the HBM rate; optimizer "
+        f"{bound['opt_bound_ms']:.3f}: {bound['opt_bytes']} B at the HBM "
+        f"rate); model FLOPs "
+        f"{bound['model_flops']:.4e} a step, {mfu:.4f} of the bf16 peak "
+        f"(finding); peak device memory {peak / 1e9:.3f} GB ({peak} B) of "
+        f"{total / 1e9:.3f} GB  [{gpu}]")
+    del state, params, metrics, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    errs = _train_checks_2_layers(cfg, data.batch(0), dev)
+    log(f"[train] 2 layers, full width, fp32 activations: loss of "
+        f"grad_accum 2 vs 1: relative error {errs['loss_rel_err']:.4e}")
+    for what, err in errs.items():
+        if what == "loss_rel_err":
+            continue
+        ok = err <= TRAIN_GRAD_TOL
+        log(f"[train] 2 layers, full width, fp32 activations: {what}: max "
+            f"error / max|g| over leaves {err:.4e} (tolerance "
+            f"{TRAIN_GRAD_TOL}): {'ok' if ok else 'FAIL'}")
+        require(ok, f"[train] {what} differs: {err:.4e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = _train_resume_check(dev)
+    ok = resume["resume_loss_rel_err"] <= TRAIN_RESUME_TOL
+    log(f"[train] qwen3-32b smoke, 20 steps, preempted at 10 and resumed: "
+        f"losses within {resume['resume_loss_rel_err']:.4e} relative of the "
+        f"uninterrupted run's (tolerance {TRAIN_RESUME_TOL}; bitwise "
+        f"{resume['resume_bitwise']}): {'ok' if ok else 'FAIL'}")
+    require(ok, "[train] the resumed run disagrees")
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_bytes": param_bytes, "state_bytes": state_bytes,
+        "batch": b, "seq_len": l, "grad_accum": k, "steps": steps,
+        "step_ms": step_ms, "tokens_per_s": b * l / (step_ms / 1e3),
+        "peak_bytes": peak, "total_memory": total, "mfu_bf16": mfu,
+        "gpu": gpu, **bound, "checks_2_layers": errs, **resume,
+        "profile_step": prof,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3134,6 +3494,9 @@ def main() -> int:
     t_serve = time.perf_counter()
     serve = phase_serve(gpu)
     log(f"[serve] phase took {time.perf_counter() - t_serve:.1f} s")
+    t_train = time.perf_counter()
+    train = phase_train(gpu)
+    log(f"[train] phase took {time.perf_counter() - t_train:.1f} s")
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
@@ -3177,6 +3540,7 @@ def main() -> int:
         "library_ms is index_add_ for segment_accumulate and null for the "
         "others: no single PyTorch call computes spMTTKRP")
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -9,21 +9,27 @@ CUDA, ``nvcc`` or ``triton``: the kernels are built at first launch.
 checkpoint   atomic checkpoints in the reference's on-disk format
 configs      the LM architecture configs (a copy of the reference's)
 core         FLYCOO preprocessing, remap, Dynasor CP-ALS on D workers
+data         the synthetic LM data pipeline (a copy of the reference's)
 kernels      the six MTTKRP kernels (CUDA) + block layout + dispatch +
              oracles
-launch       the LM serving driver (``python -m repro_torch.launch.serve``)
+launch       the LM serving and training drivers (``python -m
+             repro_torch.launch.serve`` / ``.train``)
 models       the LM substrate: params, layers, attention, blocks, model,
-             the serving steps (dense family)
+             the loss, train and serving steps (dense family)
 obs          span tracer and counter registry
+optim        AdamW, Adafactor, the cosine schedule, global-norm clipping
 oocore       chunked out-of-core MTTKRP, stream windows and traffic
 reorder      locality-aware nonzero orderings
 resilience   fault sites, degradation policy, resumable sweeps, guarded
              normal-equations solve
 runtime      device policy, fault-tolerant loop runner
-convert      JAX-package state and LM parameters → port tensors
+convert      JAX-package state, LM parameters and LM train states → port
+             tensors
 """
-from . import (checkpoint, configs, convert, core, kernels,  # noqa: F401
-               launch, models, obs, oocore, reorder, resilience, runtime)
+from . import (checkpoint, configs, convert, core, data,  # noqa: F401
+               kernels, launch, models, obs, oocore, optim, reorder,
+               resilience, runtime)
 
-__all__ = ["checkpoint", "configs", "convert", "core", "kernels", "launch",
-           "models", "obs", "oocore", "reorder", "resilience", "runtime"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "kernels",
+           "launch", "models", "obs", "oocore", "optim", "reorder",
+           "resilience", "runtime"]

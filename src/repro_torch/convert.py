@@ -11,7 +11,8 @@ reference sweep can start from the same state.
 cache tree) of ``repro.models`` across: the same keys, shapes and dtypes,
 as the port's ``models`` hold them. The reference's init draws from
 streams the port cannot reproduce, so this is how the tests give both
-packages the same weights.
+packages the same weights. :func:`lm_train_state_from_reference` does
+the same for a whole train state: parameters, optimizer state and step.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 
 from .runtime.device import resolve_device
 
-__all__ = ["state_from_reference", "lm_params_from_reference"]
+__all__ = ["state_from_reference", "lm_params_from_reference",
+           "lm_train_state_from_reference"]
 
 
 def state_from_reference(factors, lam, stream=None, *, device=None,
@@ -96,3 +98,20 @@ def lm_params_from_reference(params, *, device=None):
         return _leaf_to_torch(node, dev)
 
     return conv(params)
+
+
+def lm_train_state_from_reference(state, *, device=None):
+    """Reference train state ``{"params", "opt", "step"}`` → the port's,
+    on ``device`` (``None``: CUDA).
+
+    ``opt`` is AdamW's ``{"m", "v", "count"}`` or Adafactor's ``{"v",
+    "count"}`` (``v`` a tree of ``vr`` / ``vc`` / ``v`` leaves), as
+    ``repro.optim`` builds them; every leaf keeps its shape and dtype
+    (``count`` and ``step`` int32 0-d tensors)."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"a train state has keys params, opt and step, "
+                         f"not {sorted(state)}")
+    dev = resolve_device(device)
+    return {"params": lm_params_from_reference(state["params"], device=dev),
+            "opt": lm_params_from_reference(state["opt"], device=dev),
+            "step": _leaf_to_torch(state["step"], dev)}

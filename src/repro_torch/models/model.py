@@ -12,14 +12,26 @@ Entry points:
   * ``decode_step``  — one token in, one token out, caches updated in
     place.
 
+``forward(remat=True)`` checkpoints each repeat group as the reference's
+scan body is checkpointed (``torch.utils.checkpoint``, non-reentrant), and
+each layer inside it only where a group holds more than two layers. The
+config's ``remat_policy`` chooses what a checkpoint keeps: ``"nothing"``
+recomputes the whole group in the backward; ``"dots"`` (the counterpart
+of ``dots_with_no_batch_dims_saveable``) keeps the outputs of ``aten.mm``,
+the weight products, which ``torch.matmul`` of ``(b, l, d) @ (d, f)``
+lowers to, and recomputes attention's batched products with the rest.
+
 The ``encdec`` and ``vlm`` branches (the encoder scan, the image
-projection) come with ROADMAP A15, slice 3; so does activation
-checkpointing with training (slice 2): ``forward`` accepts ``remat`` and
-runs without it.
+projection) come with ROADMAP A15, slice 3.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from . import blocks as blk
 from .layers import norm_spec, rms_norm
@@ -77,7 +89,9 @@ def model_specs(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 def _layer(tree, r: int):
-    """Layer ``r`` of a stacked tree: views, no copies."""
+    """Layer ``r`` of a stacked tree: views, no copies. A stacked leaf may
+    also be a sequence of per-layer tensors (the train step's gradient
+    leaves, ``steps.loss_and_grads``)."""
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
     return tree[r]
@@ -100,24 +114,71 @@ def _unembed(cfg, params, h):
 
 
 # ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``"dots"``: keep what ``aten.mm`` computes, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(cfg, fn):
+    """``fn`` under a non-reentrant checkpoint with the config's policy
+    (the reference: ``nothing_saveable`` for ``"nothing"``, else
+    ``dots_with_no_batch_dims_saveable``)."""
+    if cfg.remat_policy == "nothing":
+        context_fn = noop_context_fn
+    else:
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_weight_products)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    context_fn=context_fn)
+
+
+def _run_blocks(cfg, blocks, h, pos, remat: bool):
+    """The layer loop of ``forward``; returns ``(h, moe aux)``.
+
+    Remat is per repeat group, as the reference checkpoints its scan
+    body; a group of more than two layers also checkpoints each layer, so
+    the backward recomputes one layer's residuals at a time."""
+    def one_layer(kind, p, h):
+        return blk.block_apply(cfg, kind, p, h, pos=pos, mode="causal")
+
+    if remat and len(cfg.pattern) > 2:
+        one_layer = _checkpointed(cfg, one_layer)
+
+    def body(h, group):
+        aux = 0.0
+        for j, kind in enumerate(cfg.pattern):
+            h, metrics = one_layer(kind, group[f"p{j}"], h)
+            aux = aux + metrics.get("moe_aux", 0.0)
+        return h, aux
+
+    if remat:
+        body = _checkpointed(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for r in range(cfg.n_repeats):
+        h, a = body(h, _layer(blocks, r))
+        aux = aux + a
+    return h, aux
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
 def forward(cfg, params, tokens, *, frames=None, img=None, remat=True):
     """Training forward: logits ``(b, l, vocab_padded)`` + aux losses.
 
-    ``remat`` is accepted for the reference's signature; the port keeps
-    no checkpoints until training lands (ROADMAP A15, slice 2)."""
+    ``remat`` checkpoints as the module docstring says; it changes what
+    the backward keeps and recomputes, never the values."""
     _require_dense(cfg)
     h = _embed_tokens(cfg, params, tokens)
     pos = _positions(tokens)
-    for r in range(cfg.n_repeats):
-        group = _layer(params["blocks"], r)
-        for j, kind in enumerate(cfg.pattern):
-            h, _ = blk.block_apply(cfg, kind, group[f"p{j}"], h, pos=pos,
-                                   mode="causal")
+    h, aux = _run_blocks(cfg, params["blocks"], h, pos, remat)
     h = rms_norm(h, params["out_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _unembed(cfg, params, h), {"moe_aux": aux}
 
 

@@ -1,8 +1,8 @@
 """Fault-tolerant training-loop runner + straggler monitoring.
 
 Port of ``repro/runtime/fault_tolerance.py``, on the port's checkpoint
-manager. The runner wraps a pure ``train_step`` with the operational loop
-a long job needs:
+manager. The runner wraps a ``train_step`` with the operational loop a
+long job needs:
 
 * periodic atomic checkpoints + auto-resume (``CheckpointManager``);
 * bounded retry on failed steps (an exception or a NaN loss: roll the
@@ -13,6 +13,22 @@ a long job needs:
 
 Step times are host wall time: a ``train_step`` that launches CUDA work
 must wait for it (``float(loss)`` does) before it returns.
+
+Rollback. The reference's step is functional, so its runner rolls back by
+keeping a reference to the last checkpointed state. The port's train step
+(``models.steps.make_train_step``) updates its state in place, and a step
+that fails after its update began leaves that state changed. So a retry
+re-materializes the state, as the reference's docstring puts it: from the
+checkpoint this run saved last (``CheckpointManager.restore``); before its
+first save, from the checkpoint ``resume_or`` restored it from, or else
+from a host copy of the state the run started from. The values are copied
+back into the state's own tensors; a leaf that is not a tensor is replaced
+by the restored value.
+
+The loop then goes back to the step after that state and replays the
+batches it took since, which it keeps until its next checkpoint, so every
+step is taken once in the result and ``batches`` may be a plain iterator. (The reference replays only the failed step, on the last good
+state, and so drops the steps between that state and the failure.)
 """
 from __future__ import annotations
 
@@ -20,10 +36,38 @@ import signal
 import time
 from typing import Any, Callable, Iterator
 
+import torch
+
 from ..checkpoint import CheckpointManager
 from ..obs import counters as _obs
 
 __all__ = ["StragglerMonitor", "TrainLoopRunner"]
+
+
+def _host_copy(tree):
+    """A copy of ``tree`` whose tensors live on the host, apart from the
+    originals."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _copy_into(dst, src):
+    """``src``'s values written into ``dst``'s tensors in place; returns
+    ``dst`` with each non-tensor leaf replaced by ``src``'s."""
+    if isinstance(dst, dict):
+        return {k: _copy_into(dst[k], src[k]) for k in dst}
+    if isinstance(dst, (list, tuple)):
+        return type(dst)(_copy_into(d, s) for d, s in zip(dst, src))
+    if isinstance(dst, torch.Tensor):
+        with torch.no_grad():
+            dst.copy_(torch.as_tensor(src))
+        return dst
+    return src
 
 
 class StragglerMonitor:
@@ -55,6 +99,7 @@ class TrainLoopRunner:
         self.log = log_fn
         self.monitor = StragglerMonitor()
         self._preempted = False
+        self._resumed = None             # (step, state) of resume_or
 
     def _install_sigterm(self):
         def handler(signum, frame):
@@ -71,18 +116,31 @@ class TrainLoopRunner:
         if restored is None:
             return state_template, 0
         self.log(f"[runner] resumed from step {step}")
+        self._resumed = (int(step), restored)
         return restored, int(step)
 
     def run(self, state, batches: Iterator, num_steps: int,
             start_step: int = 0) -> tuple[Any, list[dict]]:
         self._install_sigterm()
         history: list[dict] = []
-        last_good = state
+        # The last good state: the checkpoint of ``saved_step`` or, when
+        # that is None, ``start_copy``; the loop resumes at ``good_step``.
+        resumed, self._resumed = self._resumed, None
+        if resumed is not None and resumed[1] is state:
+            saved_step, start_copy = resumed[0], None
+        else:
+            saved_step, start_copy = None, _host_copy(state)
+        good_step = start_step
+        taken: list = []                 # (step, batch) since good_step
         retries = 0
         step = start_step
         it = iter(batches)
         while step < num_steps and not self._preempted:
-            data_step, batch = next(it)
+            if step - good_step < len(taken):
+                data_step, batch = taken[step - good_step]
+            else:
+                data_step, batch = next(it)
+                taken.append((data_step, batch))
             assert data_step == step, (data_step, step)
             t0 = time.perf_counter()
             try:
@@ -97,8 +155,9 @@ class TrainLoopRunner:
                          f"retry {retries}/{self.max_retries}")
                 if retries > self.max_retries:
                     raise
-                state = last_good            # roll back and replay
-                it = iter(batches)           # caller passes resumable iter
+                state = self._rollback(state, saved_step, start_copy)
+                step = good_step             # replay what it took since
+                history = [h for h in history if h["step"] < step]
                 continue
             dt = time.perf_counter() - t0
             if self.monitor.observe(step, dt):
@@ -111,7 +170,8 @@ class TrainLoopRunner:
             if self.ckpt_every and step and step % self.ckpt_every == 0:
                 self.ckpt.save(step, state)
                 _obs.add("resilience.checkpoint.saves")
-                last_good = state
+                saved_step, start_copy = step, None
+                good_step, taken = step + 1, []
                 retries = 0
             step += 1
         if self._preempted:
@@ -119,3 +179,10 @@ class TrainLoopRunner:
             self.ckpt.save(step, state)
             _obs.add("resilience.checkpoint.saves")
         return state, history
+
+    def _rollback(self, state, saved_step, start_copy):
+        """The state of the last good step, in ``state``'s tensors."""
+        if saved_step is None:
+            return _copy_into(state, start_copy)
+        restored, _ = self.ckpt.restore(state, step=saved_step)
+        return _copy_into(state, restored)

@@ -1,10 +1,10 @@
 """The port's examples, ``examples/torch_quickstart.py``,
-``examples/torch_cp_decompose_distributed.py`` and
-``examples/torch_lm_serve.py``, run end to end on the CPU (the kernels'
-plain versions), with the reference examples' asserts: exact recovery of
-dense low-rank tensors at fit > 0.99, tokens in the vocabulary, and
-``OK`` last. On the card ``chip_smoke.py``'s ``[examples]`` runs all
-three."""
+``examples/torch_cp_decompose_distributed.py``,
+``examples/torch_lm_serve.py`` and ``examples/torch_lm_train.py``, run end
+to end on the CPU (the kernels' plain versions), with the reference
+examples' asserts: exact recovery of dense low-rank tensors at fit > 0.99,
+tokens in the vocabulary, a held-out loss that falls, and ``OK`` last. On
+the card ``chip_smoke.py``'s ``[examples]`` runs all four."""
 import importlib.util
 import os
 
@@ -53,9 +53,22 @@ def test_lm_serve_on_cpu(capsys):
     assert out[0].startswith("qwen3-32b") and "generated 4x8 tokens" in out[0]
 
 
+def test_lm_train_resume_demo_on_cpu(capsys):
+    """The example at its defaults (200 steps of 4 x 64 tokens) with the
+    resume demo: phase 2 resumes after phase 1's last checkpoint (step
+    90) and runs to step 199."""
+    got = _load("torch_lm_train").main("cpu", resume_demo=True)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "OK"
+    assert "[runner] resumed from step 90" in out
+    steps = [h["step"] for h in got["history"]]
+    assert steps == list(range(91, 200))
+    assert got["end"] < got["start"]
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart",
                                   "torch_cp_decompose_distributed",
-                                  "torch_lm_serve"])
+                                  "torch_lm_serve", "torch_lm_train"])
 def test_example_refuses_without_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

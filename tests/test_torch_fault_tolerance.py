@@ -191,3 +191,105 @@ def test_straggler_events_equal_reference(seed):
     flags = [mon.observe(i, float(t)) for i, t in enumerate(times)]
     jflags = [jmon.observe(i, float(t)) for i, t in enumerate(times)]
     assert flags == jflags and mon.events == jmon.events
+
+
+# ---------------------------------------------------------------------------
+# Rollback under a train step that updates its state in place
+# ---------------------------------------------------------------------------
+
+def _inplace_step(fail):
+    """A step that adds 1 to its state's tensors in place, then raises at
+    the steps in ``fail`` (each once): the update has begun when it fails,
+    as the port's train step's would."""
+    seen = []
+
+    def step_fn(state, batch):
+        step = int(batch["x"])
+        seen.append((step, float(state["w"][0])))
+        state["w"] += 1
+        state["n"]["c"] += 1
+        if fail.pop(step, False):
+            raise RuntimeError("device lost mid-update")
+        return state, {"loss": 1.0}
+    return step_fn, seen
+
+
+@pytest.mark.parametrize("fail_at,ckpt_every,want_seen", [
+    # before any checkpoint: the starting values, from step 0
+    (1, 100, [0, 1, 0, 1, 2, 3, 4, 5, 6, 7]),
+    # the newest checkpoint (step 4, after 5 updates), from step 5
+    (6, 2, [0, 1, 2, 3, 4, 5, 6, 5, 6, 7]),
+])
+def test_runner_in_place_step_rolls_back_to_last_good(tmp_path, fail_at,
+                                                      ckpt_every,
+                                                      want_seen):
+    step_fn, seen = _inplace_step({fail_at: True})
+    runner = _runner(tmp_path, step_fn, ckpt_every=ckpt_every)
+    state = {"w": torch.ones(3), "n": {"c": torch.zeros((), dtype=torch.int32)}}
+    w, c = state["w"], state["n"]["c"]
+    with ocnt.use_registry() as reg:
+        out, history = runner.run(state, ReplayBatches(8), 8)
+        assert reg.get("resilience.retries", site="train_step") == 1
+    # The loop went back to the step after the last good state and
+    # replayed from there; each step saw the values of an unbroken run.
+    assert [step for step, _ in seen] == want_seen
+    assert all(w0 == step + 1.0 for step, w0 in seen)
+    assert [h["step"] for h in history] == list(range(8))
+    assert out["w"] is w and out["n"]["c"] is c   # restored in place
+    # Every step added one, once: the uninterrupted run's values.
+    assert float(out["w"][0]) == 9.0 and int(out["n"]["c"]) == 8
+
+
+def test_runner_in_place_rollback_replays_a_plain_iterator(tmp_path):
+    """The runner keeps the batches it took since the last good state, so
+    a generator that cannot restart is enough for a retry."""
+    step_fn, seen = _inplace_step({3: True})
+    runner = _runner(tmp_path, step_fn, ckpt_every=100)
+    gen = ((s, {"x": float(s)}) for s in range(6))
+    with ocnt.use_registry():
+        out, history = runner.run({"w": torch.ones(1),
+                                   "n": {"c": torch.zeros(())}}, gen, 6)
+    assert [step for step, _ in seen] == [0, 1, 2, 3, 0, 1, 2, 3, 4, 5]
+    assert [h["step"] for h in history] == list(range(6))
+    assert float(out["w"][0]) == 7.0
+
+
+def test_runner_rollback_after_resume_uses_the_restored_checkpoint(
+        tmp_path, monkeypatch):
+    """A run that ``resume_or`` restored rolls back to that checkpoint
+    before its own first save, and takes no host copy of its state."""
+    from repro_torch.runtime import fault_tolerance as ft
+    step_fn, seen = _inplace_step({5: True})
+    runner = _runner(tmp_path, step_fn, ckpt_every=100)
+    runner.ckpt.save(3, {"w": torch.full((2,), 5.0),
+                         "n": {"c": torch.tensor(4.0)}})
+    template = {"w": torch.zeros(2), "n": {"c": torch.zeros(())}}
+    state, step = runner.resume_or(template, device="cpu")
+    assert step == 3
+    monkeypatch.setattr(ft, "_host_copy", lambda tree: pytest.fail(
+        "a resumed run copied its state to the host"))
+    with ocnt.use_registry():
+        out, history = runner.run(state, ((s, {"x": float(s)})
+                                          for s in range(4, 8)), 8,
+                                  start_step=4)
+    assert [step for step, _ in seen] == [4, 5, 4, 5, 6, 7]
+    assert all(w0 == step + 1.0 for step, w0 in seen)
+    assert [h["step"] for h in history] == [4, 5, 6, 7]
+    assert float(out["w"][0]) == 9.0 and float(out["n"]["c"]) == 8.0
+
+
+def test_runner_nan_after_in_place_update_restores_start(tmp_path):
+    bad = {0: True}
+
+    def step_fn(state, batch):
+        state["w"].mul_(2)
+        nan = bad.pop(int(batch["x"]), False)
+        return state, {"loss": float("nan") if nan else 1.0}
+
+    runner = _runner(tmp_path, step_fn, ckpt_every=100)
+    with ocnt.use_registry():
+        out, history = runner.run({"w": torch.ones(2)}, ReplayBatches(2), 2)
+    # Step 0's NaN attempt doubled w; the rollback restored 1, then both
+    # steps doubled it again.
+    assert torch.equal(out["w"], torch.full((2,), 4.0))
+    assert len(history) == 2

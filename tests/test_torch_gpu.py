@@ -1377,3 +1377,109 @@ def test_lm_serve_main_and_example_run_on_the_card_by_default(cuda, capsys):
     spec.loader.exec_module(mod)
     mod.main(tokens=6)
     assert capsys.readouterr().out.strip().splitlines()[-1] == "OK"
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (plain PyTorch with autograd, no kernel)
+# ---------------------------------------------------------------------------
+
+def _lm_batch(cfg, b, l, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, (b, l)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (b, l)).astype(np.int32),
+            "loss_mask": (rng.random((b, l)) < 0.8).astype(np.float32)}
+
+
+def _on(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _rel(got, want):
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
+@pytest.mark.parametrize("name", ["internlm2-20b", "minitron-8b",
+                                  "phi3-mini-3.8b", "qwen3-32b"])
+def test_lm_grads_on_card_equal_cpu_at_fp32(cuda, name):
+    """Smoke config, fp32 activations, one starting state: the loss within
+    1e-5 relative and every leaf's gradient within 1e-4 of its max|g|
+    (the CPU tests' tolerances against the reference)."""
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import iter_leaves
+    cfg, cpu, card = _lm(name, "float32", cuda)
+    batch = _lm_batch(cfg, 2, 32, seed=1)
+    (lw, mw), gw = S.loss_and_grads(cfg, cpu, _on(batch, "cpu"))
+    (lg, mg), gg = S.loss_and_grads(cfg, card, _on(batch, cuda))
+    assert _rel(lg, lw) < 1e-5 and _rel(mg["ce"], mw["ce"]) < 1e-5
+    for (path, a), (_, b) in zip(iter_leaves(gg), iter_leaves(gw)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   msg=str(path))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_lm_train_step_on_card_equals_cpu(cuda, opt_name, k):
+    """One train step of qwen3-32b's smoke config at fp32 activations from
+    one starting state: metrics within 1e-5 relative, step and count
+    equal, parameters within 2.5 lr_t and all but 0.1% of their elements
+    within 1e-5 of max|p|."""
+    from repro_torch import optim as O
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import iter_leaves
+    cfg, cpu, card = _lm("qwen3-32b", "float32", cuda)
+    runs = {}
+    for dev, params in (("cpu", cpu), (cuda, card)):
+        opt = O.make_optimizer(opt_name, O.cosine_schedule(1e-2, 2, 10))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = _lm_batch(cfg, 4, 16, seed=2)
+        batch.pop("loss_mask")
+        runs[str(dev)] = S.make_train_step(cfg, opt, grad_accum=k)(state,
+                                                                   batch)
+    (want, wm), (got, gm) = runs["cpu"], runs[str(cuda)]
+    for key in ("loss", "ce", "z_loss", "grad_norm"):
+        assert _rel(gm[key], wm[key]) < 1e-5, key
+    assert int(got["step"]) == int(want["step"]) == 1
+    assert int(got["opt"]["count"]) == int(want["opt"]["count"]) == 1
+    lr_t = float(O.cosine_schedule(1e-2, 2, 10)(1))
+    outliers = total = 0
+    for (path, a), (_, b) in zip(iter_leaves(got["params"]),
+                                 iter_leaves(want["params"])):
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 2.5 * lr_t, path
+        outliers += int((err > 1e-5 * float(b.abs().max())).sum())
+        total += err.numel()
+    assert outliers <= 1e-3 * total
+
+
+def test_lm_remat_and_grad_accum_on_card(cuda):
+    """On the card, remat ``nothing`` / ``dots`` and ``grad_accum=2``
+    give the gradients of remat off within 1e-5 of each leaf's max|g|
+    (the embedding's backward adds with atomics: not bitwise)."""
+    import dataclasses
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import iter_leaves
+    cfg, _, card = _lm("phi3-mini-3.8b", "float32", cuda)
+    batch = _on(_lm_batch(cfg, 4, 32, seed=3), cuda)
+    batch.pop("loss_mask")
+    _, want = S.loss_and_grads(cfg, card, batch, remat=False)
+    got = {p: S.loss_and_grads(dataclasses.replace(cfg, remat_policy=p),
+                               card, batch)[1] for p in ("nothing", "dots")}
+    got["accum"] = S.accumulate_grads(cfg, card, batch, 2)[1]
+    for key, g in got.items():
+        for (path, a), (_, b) in zip(iter_leaves(g), iter_leaves(want)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-5 * float(b.abs().max()),
+                                       msg=f"{key} {path}")
+
+
+def test_lm_train_main_runs_on_the_card_by_default(cuda, capsys):
+    from repro_torch.launch import train
+    assert train.main(["--arch", "qwen3-32b", "--smoke", "--steps",
+                       "3"]) is None
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+        "final loss ")
+    state, history = train.train("phi3-mini-3.8b", smoke=True, steps=2,
+                                 log_fn=lambda *_: None)
+    assert state["step"].device.type == "cuda" and len(history) == 2

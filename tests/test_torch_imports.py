@@ -34,7 +34,11 @@ def test_the_checked_files_include_the_scripts_and_examples():
             "examples/torch_cp_decompose_distributed.py",
             "examples/torch_lm_serve.py", "bench_torch/sweep_ab.py",
             "src/repro_torch/launch/serve.py",
-            "src/repro_torch/configs/phi3_mini_3_8b.py"} <= rel
+            "src/repro_torch/configs/phi3_mini_3_8b.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/launch/train.py",
+            "examples/torch_lm_train.py"} <= rel
 
 
 def _imported_roots(path):
@@ -87,7 +91,8 @@ def test_import_leaves_jax_unloaded():
     "repro_torch.models.params", "repro_torch.models.layers",
     "repro_torch.models.attention", "repro_torch.models.blocks",
     "repro_torch.models.model", "repro_torch.models.steps",
-    "repro_torch.launch.serve"])
+    "repro_torch.launch.serve", "repro_torch.optim", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.launch.train"])
 def test_new_modules_import_first_without_jax(module):
     """Each module of the stream and dispatch paths imports on its own
     (the package's import cycle between ops, the planner and the
