@@ -151,6 +151,24 @@ Phases (each prints its own lines; any failure exits non-zero):
       of one decode step timed alone beside its bytes bound. Its numbers
       are one JSON line ``{"serve": {...}}``: the path has no kernel of
       its own (the reference computes it outside any Pallas kernel);
+  21b. ``[serve-moe]`` and ``[serve-ssm]`` (ROADMAP A15 (3), first
+      part): the same phase for qwen2-moe-a2.7b (24 layers, 60 routed
+      experts padded to 64, top-4 and 4 shared, 60.6 GB of fp32
+      parameters) and mamba2-370m (48 SSD layers, tied embeddings), every
+      published field, with ``[serve]``'s traffic and checks. For the
+      MoE the pairs dropped (prefill, forward, decode step; summed over
+      layers) and the distinct experts routed per layer; where prefill or
+      forward drops a pair, their check is a finding and reruns at the
+      smoke configs' drop-free capacity factor (16); the decode step is
+      held to teacher forcing with the forward's routes of the new
+      position replayed into its routers, and also run on its own routes
+      (a finding: a bf16 ulp can move a top-k choice), counting the
+      (layer, request) routes that differ; the bounds count the MoE's
+      router, shared experts and the distinct experts routed, mamba's
+      projections and the SSD's fp32 products, and the SSM state. Each
+      frees its tensors before the next phase (``memory_allocated`` is
+      logged); its numbers are one JSON line ``{"serve_moe": {...}}`` /
+      ``{"serve_ssm": {...}}``;
   22. ``[train]`` (ROADMAP A15, slice 2), after ``[serve]``'s tensors are
       freed: phi3-mini-3.8b with every published field trained on the
       card through ``models.steps.make_train_step`` (fp32 parameters from
@@ -232,10 +250,24 @@ SERVE_ARCH = "phi3-mini-3.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 8, 1024, 32
 # The reference's own tolerances at bf16 activations
 # (tests/test_archs_smoke.py): prefill vs forward 2e-2, decode vs teacher
-# forcing 3e-2; here relative to max|logits|.
+# forcing 3e-2, in its form allclose(rtol=tol, atol=tol); here atol is
+# tol · max|logits|, so an element may differ by tol · (max|logits| +
+# |its logit|), up to twice tol · max|logits| at the largest logit.
 SERVE_TOL_PREFILL, SERVE_TOL_DECODE = 2e-2, 3e-2
+# [serve-ssm] at fp32 activations, where decode and forward run every
+# operation in one dtype: max abs err / max|logits| at most this.
+SERVE_TOL_FP32 = 1e-4
 # Published H100 SXM dense bf16 tensor-core peak (FLOP/s), at 700 W.
 BF16_FLOPS_PER_S = 989e12
+# [serve-moe] / [serve-ssm]: the MoE and SSM families' serving paths at
+# their published widths and full depth, with [serve]'s traffic and checks.
+SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
+SERVE_SSM_ARCH = "mamba2-370m"
+# The smoke configs' drop-free capacity factor: [serve-moe]'s consistency
+# check reruns at it when the published 1.25 drops a pair (the 1024-token
+# prefill and the 1025-token forward have 640 and 641 slots an expert, so
+# they would drop different pairs).
+DROP_FREE_CAPACITY = 16.0
 
 # [train]: the LM training path at phi3-mini-3.8b's published widths.
 TRAIN_ARCH = "phi3-mini-3.8b"
@@ -2940,30 +2972,210 @@ def phase_examples(gpu: str) -> dict:
     return launched
 
 
-def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int,
-                   param_bytes: int) -> dict:
+def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int, *,
+                   routed_prefill=(), routed_decode=()) -> dict:
     """Least times of the serving path's two steps on this card's
-    published peaks. Prefill: its products, the weights' at the bf16
-    tensor-core peak and attention's (widened to fp32, every score of
-    the causal square computed, as the recurrence does) at the fp32 peak,
-    against the fp32 weights read once. Decode step: the fp32 weights and
-    the bf16 K/V cache of ``cache_len`` slots read once (its products are
-    negligible)."""
-    d, L = cfg.d_model, cfg.n_layers
-    weights = L * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-                   + 3 * d * cfg.d_ff)
-    tok = batch * prompt
-    mm_flops = 2 * tok * weights + 2 * batch * cfg.vocab_padded * d
-    attn_flops = L * 4 * batch * cfg.n_heads * prompt * prompt * cfg.head_dim
-    t_ops = (mm_flops / BF16_FLOPS_PER_S
-             + attn_flops / FP32_FLOPS_PER_S) * 1e3
-    t_bytes = param_bytes / HBM_BYTES_PER_S * 1e3
-    cache_bytes = 2 * L * batch * cache_len * cfg.kv_dim * 2
-    decode = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    published peaks, counting what the run's data needs.
+
+    Prefill operations, at the bf16 tensor-core peak: every weight
+    product (attention's projections, the MLP, mamba's ``in_proj`` and
+    ``out_proj``, an MoE layer's shared experts and the three products of
+    each routed (token, expert) pair, the unembedding of the last
+    position); at the fp32 peak the products the path runs in fp32:
+    attention's scores and PV (every score of the causal square, as the
+    recurrence computes), the MoE router, and the SSD's intra-chunk
+    (``C·B`` and ``M·x``), chunk-state and state-to-output products.
+    Prefill bytes: the weight matrices read once, of an MoE layer's
+    experts only the distinct ones its router picked
+    (``routed_prefill``: one count per MoE layer, in order). Decode step:
+    the same weights (experts: ``routed_decode``), the bf16 K/V cache of
+    ``cache_len`` slots, and the fp32 SSM state read and written once;
+    its products are negligible."""
+    from repro_torch.models.params import torch_dtype
+    pb = torch_dtype(cfg.param_dtype).itemsize
+    d, tok = cfg.d_model, batch * prompt
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.d_state
+    h, p = cfg.ssm_heads, cfg.ssm_headdim
+    f = cfg.d_ff_expert or cfg.d_ff
+    mm = fp32 = 0                 # bf16 weight FLOPs; fp32 FLOPs
+    weights = cfg.vocab_padded * d  # the unembedding's matrix
+    mm += 2 * batch * cfg.vocab_padded * d
+    kv_bytes = ssm_bytes = 0
+    for kind in list(cfg.pattern) * cfg.n_repeats:
+        mixer, _, ffn = kind.partition("+")
+        if mixer == "mamba":
+            w = d * (2 * di + 2 * g * n + h) + di * d
+            c = min(cfg.ssm_chunk, prompt)
+            nc = -(-prompt // c)
+            fp32 += 2 * batch * h * nc * c * c * (n + p) \
+                + 2 * 2 * batch * nc * c * h * p * n
+            conv = (cfg.d_conv - 1) * (di + 2 * g * n) + h * p * n
+            ssm_bytes += 2 * 4 * batch * conv
+            weights += w + cfg.d_conv * (di + 2 * g * n)
+        else:
+            w = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+            fp32 += 4 * batch * cfg.n_heads * prompt * prompt * cfg.head_dim
+            kv_bytes += 2 * batch * cache_len * cfg.kv_dim * 2
+            weights += w
+        mm += 2 * tok * w
+        if ffn == "mlp":
+            mm += 2 * tok * 3 * d * cfg.d_ff
+            weights += 3 * d * cfg.d_ff
+        elif ffn == "moe":
+            shared = 3 * d * cfg.n_shared_experts * f
+            mm += 2 * tok * (cfg.top_k * 3 * d * f + shared)
+            fp32 += 2 * tok * d * cfg.n_experts_padded
+            weights += shared
+    expert = 3 * d * f * pb
+    router = 4 * d * cfg.n_experts_padded
+    n_moe = sum("+moe" in k for k in cfg.pattern) * cfg.n_repeats
+    fixed = weights * pb + n_moe * router
+    t_ops = (mm / BF16_FLOPS_PER_S + fp32 / FP32_FLOPS_PER_S) * 1e3
+    pre_bytes = fixed + expert * sum(routed_prefill)
+    t_bytes = pre_bytes / HBM_BYTES_PER_S * 1e3
+    dec_bytes = fixed + expert * sum(routed_decode) + kv_bytes + ssm_bytes
     return {"prefill_bound_ms": max(t_ops, t_bytes),
             "prefill_bound_by": "operations" if t_ops >= t_bytes
             else "bytes",
-            "decode_step_bound_ms": decode}
+            "prefill_bf16_flops": mm, "prefill_fp32_flops": fp32,
+            "prefill_bytes": pre_bytes, "decode_step_bytes": dec_bytes,
+            "decode_step_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+class MoeProbe:
+    """While active, wraps ``repro_torch.models.moe``'s ``router_assign``
+    and ``moe_apply`` (both reached through the module, so the model's
+    calls go through the wrappers): per MoE call, in layer order, the
+    distinct experts routed, the pairs dropped and the router's
+    ``(probs, ids)``. With ``replay`` (a list of ``(probs, ids)``, one
+    per call) the router's own choice is recorded and ``replay``'s is
+    used in its place. It reads the device: use it on runs that are not
+    timed."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.distinct, self.dropped, self.routes = [], [], []
+        self._moe, self._orig = moe, (moe.router_assign, moe.moe_apply)
+        route, apply = self._orig
+
+        def router_assign(*args, **kw):
+            probs, ids, aux = route(*args, **kw)
+            self.distinct.append(int(torch.unique(ids).numel()))
+            self.routes.append((probs, ids))
+            if self.replay is not None:
+                probs, ids = self.replay[len(self.routes) - 1]
+            return probs, ids, aux
+
+        def moe_apply(*args, **kw):
+            y, metrics = apply(*args, **kw)
+            self.dropped.append(metrics["moe_dropped"])
+            return y, metrics
+
+        moe.router_assign, moe.moe_apply = router_assign, moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.router_assign, self._moe.moe_apply = self._orig
+
+    def total_dropped(self) -> int:
+        return int(sum(int(x) for x in self.dropped))
+
+    def ids(self, batch: int):
+        """``(layers, batch, tokens, k)``: every layer's sorted ids."""
+        return torch.stack([torch.sort(i, dim=1).values.reshape(
+            batch, -1, i.shape[-1]) for _, i in self.routes])
+
+
+def _logits_check(got, want, tol: float, what: str, tag: str,
+                  note: str = "", strict: bool = False) -> tuple[bool, float]:
+    """``torch.allclose(got, want, rtol=tol, atol=tol · max|want|)``, or
+    with ``strict`` max abs err / max|want| <= tol; logged with the max
+    abs and relative error and which limit held; ``(ok, relative)``."""
+    got, want = got.float(), want.float()
+    require(torch.isfinite(got).all() and torch.isfinite(want).all(),
+            f"{tag} {what}: non-finite logits")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if strict:
+        ok, limit = err <= tol * scale, f"max abs err / max|logits| <= {tol}"
+    else:
+        ok = torch.allclose(got, want, rtol=tol, atol=tol * scale)
+        limit = f"allclose rtol {tol}, atol {tol} x max|logits|"
+    log(f"{tag} {what} vs teacher-forced forward: max abs err {err:.4e}, "
+        f"max|logits| {scale:.4f}, relative {err / scale:.4e} ({limit})"
+        f"{note}: {'ok' if ok else 'FAIL'}")
+    return ok, err / scale
+
+
+def _serve_check(cfg, params, prompts, first, tag: str,
+                 tols=(SERVE_TOL_PREFILL, SERVE_TOL_DECODE),
+                 strict: bool = False) -> dict:
+    """Prefill and one decode step against teacher-forced ``forward``
+    (``first``: the first greedy token, appended to the prompts), and the
+    first greedy token against prefill's argmax (meaningful at the
+    session's own config).
+
+    For an MoE arch the decode step runs twice. Once as it is: a bf16
+    ulp between decode and the forward (the decode step reads the bf16
+    K/V cache, the forward its own K/V) can move a token's top-k choice,
+    after which that request's logits differ by far more than rounding;
+    this run is a finding, with the number of (request, layer) routes
+    that differ from the forward's. And once with the forward's routing
+    of the new position replayed into each layer's router: that run
+    differs from the forward by rounding only, and is the check. Also
+    the pairs prefill, forward and the decode step dropped and the
+    distinct experts routed per MoE layer. ``tols`` and ``strict`` are
+    :func:`_logits_check`'s, for prefill and decode."""
+    from repro_torch.launch.serve import _pad_caches
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    b, lp = prompts.shape
+    toks = torch.from_numpy(np.concatenate([prompts, first[:, None]], 1)
+                            ).to(dev)
+    with MoeProbe() as fwd:
+        full, _ = M.forward(cfg, params, toks, remat=False)
+    with MoeProbe() as pre:
+        last, cache = M.prefill(cfg, params, toks[:, :lp])
+    cache = _pad_caches(cache, lp, lp + 1)
+    routed = bool(cfg.n_experts)
+    fresh = (lambda: {g: {k: c.clone() for k, c in leaves.items()}
+                      for g, leaves in cache.items()}) if routed \
+        else (lambda: cache)
+    with MoeProbe() as dec:
+        step, _ = M.decode_step(cfg, params, fresh(), toks[:, lp:], lp)
+    out = {"forward_dropped": fwd.total_dropped(),
+           "prefill_dropped": pre.total_dropped(),
+           "decode_dropped": dec.total_dropped(),
+           "routed_prefill": pre.distinct, "routed_decode": dec.distinct}
+    ok_pre, out["prefill_rel_err"] = _logits_check(
+        last[:, 0], full[:, lp - 1], tols[0], "prefill", tag, strict=strict)
+    if not routed:
+        ok_dec, out["decode_rel_err"] = _logits_check(
+            step[:, 0], full[:, lp], tols[1], "decode", tag, strict=strict)
+    else:
+        differ = (dec.ids(b)[:, :, 0] != fwd.ids(b)[:, :, lp]).any(-1)
+        out["decode_routes_differing"] = int(differ.sum())
+        _, out["decode_own_routes_rel_err"] = _logits_check(
+            step[:, 0], full[:, lp], tols[1], "decode (own routes)",
+            tag, f"; {int(differ.sum())} of {differ.numel()} (layer, "
+            f"request) routes differ from the forward's, in "
+            f"{int(differ.any(0).sum())} of {b} requests (a finding)",
+            strict=strict)
+        replay = [(p.reshape(b, lp + 1, -1)[:, lp],
+                   i.reshape(b, lp + 1, -1)[:, lp]) for p, i in fwd.routes]
+        with MoeProbe(replay=replay):
+            step, _ = M.decode_step(cfg, params, fresh(), toks[:, lp:], lp)
+        ok_dec, out["decode_rel_err"] = _logits_check(
+            step[:, 0], full[:, lp], tols[1],
+            "decode (the forward's routes)", tag, strict=strict)
+    out["ok"] = ok_pre and ok_dec
+    out["first_is_argmax"] = torch.equal(
+        last[:, 0, :cfg.vocab].float().argmax(-1).cpu(),
+        torch.from_numpy(first).long())
+    return out
 
 
 def profile_ops(fn, what: str, top: int = 8, tag: str = "serve") -> dict:
@@ -2995,9 +3207,15 @@ def profile_ops(fn, what: str, top: int = 8, tag: str = "serve") -> dict:
             "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:top])}
 
 
-def phase_serve(gpu: str) -> dict:
-    """The LM serving path at phi3-mini-3.8b's published widths and full
-    depth: ``ServeSession.generate`` with its checks and times."""
+def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
+                ) -> dict:
+    """The LM serving path of ``arch`` at its published widths and full
+    depth: ``ServeSession.generate`` with its checks and times. For an
+    MoE arch also the pairs dropped (prefill and forward, summed over
+    layers); where either drops one, the consistency check reruns at the
+    smoke configs' drop-free capacity factor and only that rerun must
+    pass (prefill and forward then route the same pairs)."""
+    import gc
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeSession, _pad_caches
     from repro_torch.models import model as M
@@ -3005,8 +3223,9 @@ def phase_serve(gpu: str) -> dict:
         spec_bytes
     from repro_torch.obs import counters as ocnt
     dev = torch.device("cuda")
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     b, lp, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3018,12 +3237,25 @@ def phase_serve(gpu: str) -> dict:
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     require(param_bytes == spec_bytes(M.model_specs(cfg))
             and all(t.dtype == torch.float32 for t in leaves),
-            "[serve] parameters are not the specs' fp32 leaves")
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-        f" {cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
-        f"act {cfg.act_dtype}; {param_bytes} B of fp32 parameters drawn on "
-        f"the card in {init_s:.2f} s")
+            f"{tag} parameters are not the specs' fp32 leaves")
+    layers = ", ".join(f"{k} x {cfg.n_repeats}" for k in cfg.pattern)
+    extra = ""
+    if cfg.n_experts:
+        extra = (f", {cfg.n_experts} routed experts (padded "
+                 f"{cfg.n_experts_padded}) of d_ff {cfg.d_ff_expert}, top-"
+                 f"{cfg.top_k}, {cfg.n_shared_experts} shared, capacity "
+                 f"factor {cfg.capacity_factor}")
+    if "mamba" in "".join(cfg.pattern):
+        extra += (f", SSD d_inner {cfg.d_inner}, {cfg.ssm_heads} heads x "
+                  f"{cfg.ssm_headdim}, d_state {cfg.d_state}, groups "
+                  f"{cfg.ssm_groups}, chunk {cfg.ssm_chunk}, d_conv "
+                  f"{cfg.d_conv}")
+    log(f"{tag} {cfg.name} ({cfg.family}): {cfg.n_layers} layers ({layers}),"
+        f" d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim} (kv "
+        f"{cfg.n_kv_heads}), d_ff {cfg.d_ff}{extra}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}), tied embeddings "
+        f"{cfg.tie_embeddings}, act {cfg.act_dtype}; {param_bytes} B of "
+        f"fp32 parameters drawn on the card in {init_s:.2f} s")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (b, lp)).astype(np.int32)
     sess = ServeSession(cfg, params, max_len=lp + n + 1)
@@ -3038,49 +3270,82 @@ def phase_serve(gpu: str) -> dict:
         runs[label] = dict(out=out, prefill_ms=pre * 1e3,
                            decode_ms_per_token=dec * 1e3 / (n - 1),
                            tokens_per_s=b * n / (pre + dec), wall_s=wall)
-        log(f"[serve] generate {label}: {b} x {lp}-token prompts, {n} new "
+        log(f"{tag} generate {label}: {b} x {lp}-token prompts, {n} new "
             f"tokens: prefill {pre * 1e3:.3f} ms, decode "
             f"{dec * 1e3 / (n - 1):.3f} ms/token ({n - 1} steps), "
             f"{b * n / (pre + dec):.1f} tokens/s; wall {wall:.2f} s; "
             f"serve.tokens {reg.get('serve.tokens')}  [{gpu}]")
         require(reg.get("serve.tokens") == b * n,
-                f"[serve] serve.tokens {reg.get('serve.tokens')} != {b * n}")
+                f"{tag} serve.tokens {reg.get('serve.tokens')} != {b * n}")
         require(out.shape == (b, n) and out.dtype == np.int32
                 and (out >= 0).all() and (out < cfg.vocab).all(),
-                f"[serve] {label}: tokens out of [0, {cfg.vocab})")
+                f"{tag} {label}: tokens out of [0, {cfg.vocab})")
     greedy = runs["greedy"]["out"]
     require(np.array_equal(greedy, runs["greedy-rerun"]["out"]),
-            "[serve] two greedy runs differ")
-    log(f"[serve] greedy tokens of request 0: {greedy[0, :12].tolist()}; "
-        f"at t=0.8: {runs['t0.8']['out'][0, :12].tolist()}")
+            f"{tag} two greedy runs differ")
+    log(f"{tag} greedy runs bitwise equal; greedy tokens of request 0: "
+        f"{greedy[0, :12].tolist()}; at t=0.8: "
+        f"{runs['t0.8']['out'][0, :12].tolist()}")
 
     # prefill and one decode step against teacher-forced forward.
-    toks = torch.from_numpy(np.concatenate([prompts, greedy[:, :1]], 1)
-                            ).to(dev)
-    full, _ = M.forward(cfg, params, toks, remat=False)
-    last, cache = M.prefill(cfg, params, toks[:, :lp])
-    cache = _pad_caches(cache, lp, lp + 1)
-    step, _ = M.decode_step(cfg, params, cache, toks[:, lp:], lp)
-    errs = {}
-    for what, got, want, tol in (
-            ("prefill", last[:, 0], full[:, lp - 1], SERVE_TOL_PREFILL),
-            ("decode", step[:, 0], full[:, lp], SERVE_TOL_DECODE)):
-        got, want = got.float(), want.float()
-        require(torch.isfinite(got).all() and torch.isfinite(want).all(),
-                f"[serve] {what}: non-finite logits")
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        ok = torch.allclose(got, want, rtol=tol, atol=tol * scale)
-        errs[what] = err / scale
-        log(f"[serve] {what} vs teacher-forced forward: max abs err "
-            f"{err:.4e}, max|logits| {scale:.4f}, relative {err / scale:.4e}"
-            f" (tolerance {tol}): {'ok' if ok else 'FAIL'}")
-        require(ok, f"[serve] {what} disagrees with forward")
-    require(torch.equal(last[:, 0, :cfg.vocab].float().argmax(-1).cpu(),
-                        torch.from_numpy(greedy[:, 0]).long()),
-            "[serve] first greedy token is not prefill's argmax")
-    del full, last, step, cache, toks
+    check = _serve_check(cfg, params, prompts, greedy[:, 0], tag)
+    require(check["first_is_argmax"],
+            f"{tag} first greedy token is not prefill's argmax")
+    moe = {}
+    if cfg.n_experts:
+        from repro_torch.models.moe import capacity
+        n_moe = len(check["routed_prefill"])
+        caps = [capacity(b * l, cfg.top_k, cfg.capacity_factor,
+                         cfg.n_experts_padded) for l in (lp, lp + 1)]
+        moe = {k: check[k] for k in (
+            "prefill_dropped", "forward_dropped", "decode_dropped",
+            "routed_prefill", "routed_decode")}
+        log(f"{tag} moe_dropped summed over {n_moe} MoE layers: prefill "
+            f"{check['prefill_dropped']} of {b * lp * cfg.top_k * n_moe} "
+            f"pairs (capacity {caps[0]} a padded expert), teacher-forced "
+            f"forward {check['forward_dropped']} of "
+            f"{b * (lp + 1) * cfg.top_k * n_moe} (capacity {caps[1]}), "
+            f"decode step {check['decode_dropped']}; distinct experts "
+            f"routed per layer: prefill {min(check['routed_prefill'])}-"
+            f"{max(check['routed_prefill'])}, decode step "
+            f"{min(check['routed_decode'])}-{max(check['routed_decode'])} "
+            f"of {cfg.n_experts}")
+        if check["prefill_dropped"] or check["forward_dropped"]:
+            log(f"{tag} pairs were dropped, so prefill and forward route "
+                f"different pairs: the check above is a finding, and reruns "
+                f"at capacity factor {DROP_FREE_CAPACITY} (the smoke "
+                f"configs' drop-free setting)")
+            moe["capacity_1.25_check"] = {
+                k: v for k, v in check.items() if k.endswith(
+                    ("rel_err", "differing"))}
+            free = _serve_check(
+                dataclasses.replace(cfg, capacity_factor=DROP_FREE_CAPACITY),
+                params, prompts, greedy[:, 0], tag)
+            require(free["prefill_dropped"] == free["forward_dropped"] == 0,
+                    f"{tag} the drop-free rerun dropped pairs")
+            check.update({k: v for k, v in free.items() if k.endswith(
+                ("rel_err", "differing")) or k == "ok"})
+            moe["drop_free_capacity_factor"] = DROP_FREE_CAPACITY
+        moe.update({k: check[k] for k in ("decode_own_routes_rel_err",
+                                          "decode_routes_differing")})
+    require(check["ok"], f"{tag} prefill or decode disagrees with forward")
+    gc.collect()
     peak = torch.cuda.max_memory_allocated()
+    fp32 = {}
+    if "mamba" in "".join(cfg.pattern) and not cfg.n_experts:
+        # At bf16 decode runs the causal conv in fp32 (the reference's
+        # promotion) where prefill and forward run it in bf16; at fp32
+        # activations every operation of the two runs in one dtype.
+        log(f"{tag} the same check at fp32 activations (TF32 off)")
+        c32 = _serve_check(dataclasses.replace(cfg, act_dtype="float32"),
+                           params, prompts, greedy[:, 0], tag,
+                           tols=(SERVE_TOL_FP32, SERVE_TOL_FP32), strict=True)
+        require(c32["ok"], f"{tag} at fp32 activations prefill or decode "
+                           f"disagrees with forward")
+        fp32 = {"fp32_prefill_rel_err": c32["prefill_rel_err"],
+                "fp32_decode_rel_err": c32["decode_rel_err"]}
+        del c32
+        gc.collect()
 
     # Where a step's time goes, and the eager per-call weight cast.
     _, cache = M.prefill(cfg, params, torch.from_numpy(prompts).to(dev))
@@ -3088,30 +3353,44 @@ def phase_serve(gpu: str) -> dict:
     tok = torch.from_numpy(greedy[:, :1]).to(dev)
     prof_prefill = profile_ops(
         lambda: M.prefill(cfg, params, torch.from_numpy(prompts).to(dev)),
-        f"one prefill ({b} x {lp} tokens)")
+        f"one prefill ({b} x {lp} tokens)", tag=tag[1:-1])
     prof_decode = profile_ops(
         lambda: M.decode_step(cfg, params, cache, tok, lp),
-        f"one decode step (pos {lp}, cache {lp + n + 1} slots)")
+        f"one decode step (pos {lp}, cache {lp + n + 1} slots)",
+        tag=tag[1:-1])
     step_ms = cuda_ms(lambda: M.decode_step(cfg, params, cache, tok, lp), 5)
-    cast = [t for path, t in iter_leaves(params)      # the matrices
-            if path[-1] in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                            "w_down", "lm_head")]
+    matrices = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                "lm_head", "in_proj", "out_proj", "conv_w"}
+    if cfg.tie_embeddings:
+        matrices.add("embed")
+    cast = [t for path, t in iter_leaves(params) if path[-1] in matrices]
     cast_bytes = sum(t.numel() * 6 for t in cast)     # fp32 read, bf16 write
-    cast_ms = cuda_ms(lambda: [t.to(torch.bfloat16) for t in cast], 5)
+
+    def cast_all():
+        for t in cast:                                # one copy alive
+            t.to(torch.bfloat16)
+
+    cast_ms = cuda_ms(cast_all, 5)
     del cache
-    bounds = serve_bound_ms(cfg, b, lp, lp + n + 1, param_bytes)
+    bounds = serve_bound_ms(cfg, b, lp, lp + n + 1,
+                            routed_prefill=check["routed_prefill"],
+                            routed_decode=check["routed_decode"])
     cast_bound = cast_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[serve] decode step {step_ms:.3f} ms (CUDA events, 5 steps); "
-        f"bound {bounds['decode_step_bound_ms']:.3f} ms (fp32 weights + "
-        f"bf16 cache read once); the fp32 -> bf16 cast of every weight one "
-        f"step casts, alone: {cast_ms:.3f} ms for {cast_bytes} B (bound "
+    log(f"{tag} decode step {step_ms:.3f} ms (CUDA events, 5 steps); bound "
+        f"{bounds['decode_step_bound_ms']:.3f} ms "
+        f"({bounds['decode_step_bytes']} B: the weight matrices a step "
+        f"needs, routed experts only, and the K/V cache and SSM state read "
+        f"once); the fp32 -> bf16 cast of every weight one step casts, "
+        f"alone: {cast_ms:.3f} ms for {cast_bytes} B (bound "
         f"{cast_bound:.3f} ms), {cast_ms / step_ms:.1%} of the step  [{gpu}]")
     warm = runs["greedy-rerun"]
-    log(f"[serve] prefill {warm['prefill_ms']:.3f} ms against a bound of "
+    log(f"{tag} prefill {warm['prefill_ms']:.3f} ms against a bound of "
         f"{bounds['prefill_bound_ms']:.3f} ms "
-        f"({bounds['prefill_bound_by']}); peak device memory "
+        f"({bounds['prefill_bound_by']}: {bounds['prefill_bf16_flops']:.4e} "
+        f"bf16 + {bounds['prefill_fp32_flops']:.4e} fp32 FLOP, "
+        f"{bounds['prefill_bytes']} B); peak device memory "
         f"{peak / 1e9:.3f} GB ({peak} B)  [{gpu}]")
-    return {
+    result = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "param_bytes": param_bytes, "batch": b, "prompt_len": lp,
         "new_tokens": n, "gpu": gpu,
@@ -3121,12 +3400,18 @@ def phase_serve(gpu: str) -> dict:
         "cold_prefill_ms": runs["greedy"]["prefill_ms"],
         "cold_decode_ms_per_token": runs["greedy"]["decode_ms_per_token"],
         "t0.8_decode_ms_per_token": runs["t0.8"]["decode_ms_per_token"],
-        "peak_bytes": peak, "prefill_rel_err": errs["prefill"],
-        "decode_rel_err": errs["decode"], "decode_step_ms": step_ms,
+        "peak_bytes": peak, "prefill_rel_err": check["prefill_rel_err"],
+        "decode_rel_err": check["decode_rel_err"], "decode_step_ms": step_ms,
         "weight_cast_ms": cast_ms, "weight_cast_bytes": cast_bytes,
-        "weight_cast_bound_ms": cast_bound, **bounds,
+        "weight_cast_bound_ms": cast_bound, **bounds, **moe, **fp32,
         "profile_prefill": prof_prefill, "profile_decode": prof_decode,
     }
+    del sess, params, leaves, cast
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} freed: {torch.cuda.memory_allocated()} B still allocated "
+        f"on the card")
+    return result
 
 
 def train_bound_ms(cfg, tokens: int, seq: int, param_bytes: int,
@@ -3494,6 +3779,12 @@ def main() -> int:
     t_serve = time.perf_counter()
     serve = phase_serve(gpu)
     log(f"[serve] phase took {time.perf_counter() - t_serve:.1f} s")
+    t_serve = time.perf_counter()
+    serve_moe = phase_serve(gpu, SERVE_MOE_ARCH, "[serve-moe]")
+    log(f"[serve-moe] phase took {time.perf_counter() - t_serve:.1f} s")
+    t_serve = time.perf_counter()
+    serve_ssm = phase_serve(gpu, SERVE_SSM_ARCH, "[serve-ssm]")
+    log(f"[serve-ssm] phase took {time.perf_counter() - t_serve:.1f} s")
     t_train = time.perf_counter()
     train = phase_train(gpu)
     log(f"[train] phase took {time.perf_counter() - t_train:.1f} s")
@@ -3540,6 +3831,8 @@ def main() -> int:
         "library_ms is index_add_ for segment_accumulate and null for the "
         "others: no single PyTorch call computes spMTTKRP")
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve_moe": serve_moe}))
+    print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -1,10 +1,11 @@
 """Batched serving example of the PyTorch port: prefill + decode over the
-cache tree, for a dense architecture.
+cache tree, for a dense, an MoE, and an attention-free (Mamba2)
+architecture.
 
 The counterpart of ``examples/lm_serve.py`` on ``repro_torch``, with its
-asserts, for the dense arch of that example (qwen3-32b's smoke config:
-qk_norm, GQA). Its MoE and Mamba2 archs join when the port runs those
-families (ROADMAP A15, slice 3).
+asserts, for the same three archs' smoke configs: qwen3-32b (qk_norm,
+GQA), qwen2-moe-a2.7b (top-2 routing with a shared expert) and
+mamba2-370m (the SSD mixer, tied embeddings).
 
   PYTHONPATH=src python examples/torch_lm_serve.py --tokens 24               # CUDA
   PYTHONPATH=src python examples/torch_lm_serve.py --tokens 24 --device cpu
@@ -25,7 +26,7 @@ def main(device=None, tokens: int = 24, batch: int = 4):
     """Serve on ``device`` (``None``: CUDA; ``"cpu"``)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
-    for arch in ("qwen3-32b",):
+    for arch in ("qwen3-32b", "qwen2-moe-a2.7b", "mamba2-370m"):
         cfg = smoke_config(arch)
         params = init_params(M.model_specs(cfg), seed=0, device=dev)
         sess = ServeSession(cfg, params, max_len=16 + tokens + 1, device=dev)

@@ -6,10 +6,13 @@ per-layer cache tree, written in place. Greedy or temperature sampling.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b --smoke --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --smoke
 
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
-Only the dense family runs so far: another arch raises
-``NotImplementedError`` (ROADMAP A15, slice 3).
+Every arch of the dense, MoE, SSM and hybrid families runs; the
+``encdec`` and ``vlm`` families (and the int8 KV cache) raise
+``NotImplementedError`` (ROADMAP A15 (3)).
 
 Timing: ``serve.prefill_s`` and ``serve.decode_s`` fence the device before
 each clock read, so they time the card's work and not the launches. (The
@@ -111,7 +114,8 @@ class ServeSession:
 
 def _pad_caches(cache, prompt_len: int, max_len: int):
     """Grow the seq dim (axis 2 after layer stacking) of the K/V (and
-    ``k_scale``) entries to ``max_len``; other entries stay as they are."""
+    ``k_scale``) entries to ``max_len``; other entries (mamba's ``conv``
+    and ``ssd`` state) stay as they are."""
     out = {}
     for key, c in cache.items():
         if isinstance(c, dict):

@@ -13,10 +13,11 @@ On hardware the same driver runs the full config at a production shape
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
 With a checkpoint directory the loop runs under ``runtime.
 TrainLoopRunner`` (atomic checkpoints, auto-resume, bounded retry,
-straggler telemetry). Only the dense family trains so far: another arch
-(and with it the ``encdec`` / ``vlm`` batches) raises
-``NotImplementedError`` from ``model_specs`` (ROADMAP A15, slice 3), and
-there is no mesh (``use_mesh`` is accepted and does nothing).
+straggler telemetry). Only the dense family trains so far: an arch with
+a ``moe`` or ``mamba`` layer raises ``NotImplementedError`` before any
+parameter is drawn (``steps.require_trainable``), the ``encdec`` / ``vlm``
+families from ``model_specs`` (ROADMAP A15 (3)), and there is no mesh
+(``use_mesh`` is accepted and does nothing).
 
 Resuming. A checkpoint of step ``s`` holds the state after step ``s``,
 and its ``state["step"]`` counts the steps taken. The driver resumes the
@@ -53,6 +54,7 @@ def train(arch: str, *, smoke: bool = False, steps: int = 20,
     per step run (and ``"time_s"`` under the runner)."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
+    steps_lib.require_trainable(cfg)
     opt = optim_lib.make_optimizer(
         cfg.optimizer, optim_lib.cosine_schedule(lr, max(2, steps // 10),
                                                  max(steps, 10)))

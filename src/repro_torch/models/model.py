@@ -1,10 +1,13 @@
 """Unified LM: embedding → stacked block pattern → logits.
 
-Port of ``repro/models/model.py`` for the dense family. Parameters for
+Port of ``repro/models/model.py`` for the dense, MoE, SSM and hybrid
+families. Parameters for
 each pattern position are stacked along a leading ``layers`` axis, as in
 the reference; where the reference scans over that axis, the port runs a
 Python loop over views of it (no copies). Caches are stacked the same way,
-``(n_repeats, b, S, kh, dh)``, with the reference's keys and dtypes.
+``(n_repeats, b, S, kh, dh)`` for attention's K/V and ``(n_repeats, b,
+…)`` for mamba's ``conv`` and ``ssd`` state, with the reference's keys and
+dtypes.
 
 Entry points:
   * ``forward``      — full-sequence logits (training / teacher forcing);
@@ -22,7 +25,7 @@ the weight products, which ``torch.matmul`` of ``(b, l, d) @ (d, f)``
 lowers to, and recomputes attention's batched products with the rest.
 
 The ``encdec`` and ``vlm`` branches (the encoder scan, the image
-projection) come with ROADMAP A15, slice 3.
+projection) come with a later part of ROADMAP A15 (3).
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ def _stack_specs(specs, n: int):
     return {k: _stack_specs(v, n) for k, v in specs.items()}
 
 
-def _require_dense(cfg):
+def _require_ported(cfg):
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}: encoder / image "
@@ -64,7 +67,7 @@ def _require_dense(cfg):
 
 
 def model_specs(cfg) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
     specs: dict = {
@@ -149,19 +152,18 @@ def _run_blocks(cfg, blocks, h, pos, remat: bool):
     if remat and len(cfg.pattern) > 2:
         one_layer = _checkpointed(cfg, one_layer)
 
-    def body(h, group):
-        aux = 0.0
+    def body(h, aux, group):
         for j, kind in enumerate(cfg.pattern):
             h, metrics = one_layer(kind, group[f"p{j}"], h)
-            aux = aux + metrics.get("moe_aux", 0.0)
+            if "moe_aux" in metrics:       # summed in the reference's order
+                aux = aux + metrics["moe_aux"]
         return h, aux
 
     if remat:
         body = _checkpointed(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for r in range(cfg.n_repeats):
-        h, a = body(h, _layer(blocks, r))
-        aux = aux + a
+        h, aux = body(h, aux, _layer(blocks, r))
     return h, aux
 
 
@@ -174,7 +176,7 @@ def forward(cfg, params, tokens, *, frames=None, img=None, remat=True):
 
     ``remat`` checkpoints as the module docstring says; it changes what
     the backward keeps and recomputes, never the values."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = _embed_tokens(cfg, params, tokens)
     pos = _positions(tokens)
     h, aux = _run_blocks(cfg, params["blocks"], h, pos, remat)
@@ -184,7 +186,7 @@ def forward(cfg, params, tokens, *, frames=None, img=None, remat=True):
 
 def prefill(cfg, params, tokens, *, frames=None, img=None):
     """Prompt processing: returns (last-token logits, cache tree)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = _embed_tokens(cfg, params, tokens)
     pos = _positions(tokens)
     cache: dict = {}

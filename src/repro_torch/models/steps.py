@@ -7,7 +7,13 @@ over a mesh and its sharding rules and returns pure functions for
 over the config (and the optimizer) alone, and the train step updates its
 state in place. ``rules_for``, ``input_specs``, ``abstract_cache``,
 ``train_state_specs`` and ``MEM_LEN_DIV`` come with the mesh (ROADMAP
-A15, slice 3).
+A15 (3)).
+
+The serving steps run every family the model runs (dense, MoE, SSM,
+hybrid). Training runs the dense family only: for a config with a ``moe``
+or ``mamba`` layer, :func:`loss_and_grads` and :func:`make_train_step`
+raise ``NotImplementedError`` (:func:`require_trainable`) until that part
+of ROADMAP A15 (3) lands.
 
 Gradients of the stacked layer parameters: ``forward`` runs layer ``r``
 on ``params["blocks"][...][r]``. Taken through autograd on the stacked
@@ -27,11 +33,22 @@ from .params import iter_leaves, torch_dtype
 from .. import optim as optim_lib
 
 __all__ = [
-    "loss_fn", "loss_and_grads", "accumulate_grads", "make_train_step", "make_prefill_step",
-    "make_decode_step",
+    "loss_fn", "loss_and_grads", "accumulate_grads", "make_train_step",
+    "make_prefill_step", "make_decode_step", "require_trainable",
 ]
 
 _LATER = "ROADMAP A15 (3)"
+
+
+def require_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config the port does not train
+    yet: one with a ``moe`` FFN or a ``mamba`` mixer."""
+    kinds = {k for kind in cfg.pattern for k in kind.split("+")}
+    if kinds & {"moe", "mamba"}:
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}: "
+            f"{', '.join(sorted(kinds & {'moe', 'mamba'}))} layers) is not "
+            f"ported yet: {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +122,7 @@ def loss_and_grads(cfg, params, batch, *, grads=None, remat: bool = True):
     the loss and its backward, **adding** the gradient of every leaf into
     ``grads`` (a zero buffer of the parameters' dtypes when ``None``).
     Returns ``((total, metrics), grads)``, detached."""
+    require_trainable(cfg)
     if grads is None:
         grads = _zeros_like(params)
     total, metrics = loss_fn(cfg, _grad_leaves(params, grads), batch,
@@ -179,6 +197,7 @@ def make_train_step(cfg, optimizer: optim_lib.Optimizer, mesh=None,
         raise NotImplementedError(
             "make_train_step(mesh=, rules=, param_shardings=): the mesh "
             f"and sharding rules are not ported yet: {_LATER}")
+    require_trainable(cfg)
     k = int(grad_accum)
 
     def train_step(state, batch):

@@ -1292,15 +1292,26 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-@pytest.mark.parametrize("name", ["internlm2-20b", "minitron-8b",
-                                  "phi3-mini-3.8b", "qwen3-32b"])
-def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name):
+@pytest.mark.parametrize("name, near_ties", [
+    pytest.param(n, t, id=n) for n, t in (
+        ("internlm2-20b", 0), ("minitron-8b", 0), ("phi3-mini-3.8b", 0),
+        ("qwen3-32b", 0), ("qwen2-moe-a2.7b", 0), ("mamba2-370m", 0),
+        # One step of this config's 24 (3 requests x 8 tokens) is a near
+        # tie: top-2 margin 1.547e-4 against the devices' difference of
+        # 1.920e-4 (on an H100 80GB HBM3).
+        ("llama4-scout-17b-a16e", 1),
+        ("jamba-1.5-large-398b", 0))])
+def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name, near_ties):
     """Smoke config at fp32 activations (TF32 off). Prefill logits within
     1e-4 of max|logits| of the CPU's and its bf16 K/V within one bf16
     ulp; each decode step, given the CPU's cache, within 1e-4. Greedy
     tokens equal, each step's top-2 margin above the largest difference
     of the two devices' free-running logits (where a cache element that
-    rounds to the other bf16 neighbour on the card carries on)."""
+    rounds to the other bf16 neighbour on the card carries on). A config
+    with a measured near tie (a step whose margin is within that
+    difference) admits that many, where the two devices must rank the
+    same two tokens on top. The MoE, SSM and hybrid smoke configs too
+    (their float32 mamba state within the same bound as the K/V)."""
     from repro_torch.launch.serve import ServeSession, _pad_caches
     from repro_torch.models import model as M
     cfg, cpu, card = _lm(name, "float32", cuda)
@@ -1340,8 +1351,18 @@ def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name):
     free = {k: torch.stack([r["prefill"][:, -1, :cfg.vocab]] + r["free"], 1)
             for k, r in run.items()}
     diff = float((free["card"] - free["cpu"]).abs().max())
-    top2 = torch.topk(free["cpu"], 2, dim=-1).values
-    assert float((top2[..., 0] - top2[..., 1]).min()) > diff
+    top2 = torch.topk(free["cpu"], 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    print(f"{name}: least top-2 margin {float(margin.min()):.3e}, devices' "
+          f"difference {diff:.3e}, near ties {int((margin <= diff).sum())}")
+    if not near_ties:
+        assert float(margin.min()) > diff
+        return
+    near = margin <= diff
+    assert int(near.sum()) <= near_ties, (margin[near].tolist(), diff)
+    card2 = torch.topk(free["card"], 2, dim=-1).indices
+    assert torch.equal(top2.indices.sort(-1).values[near],
+                       card2.sort(-1).values[near])
 
 
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-32b"])
@@ -1367,9 +1388,10 @@ def test_lm_serve_main_and_example_run_on_the_card_by_default(cuda, capsys):
     import importlib.util
     import os
     from repro_torch.launch import serve
-    assert serve.main(["--arch", "phi3-mini-3.8b", "--smoke", "--tokens",
-                       "4"]) is None
-    assert "on cuda" in capsys.readouterr().out
+    for arch in ("phi3-mini-3.8b", "qwen2-moe-a2.7b", "mamba2-370m"):
+        assert serve.main(["--arch", arch, "--smoke", "--tokens",
+                           "4"]) is None
+        assert "on cuda" in capsys.readouterr().out
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "examples", "torch_lm_serve.py")
     spec = importlib.util.spec_from_file_location("torch_lm_serve", path)

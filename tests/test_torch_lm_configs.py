@@ -26,6 +26,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = sorted(jreg.ARCHS)
 DENSE = sorted(n for n, c in jreg.ARCHS.items() if c.family == "dense")
 NOT_DENSE = sorted(set(ARCHS) - set(DENSE))
+# The families the port serves beyond the dense one.
+SERVED = sorted(n for n, c in jreg.ARCHS.items()
+                if c.family in ("moe", "ssm", "hybrid"))
 DERIVED = ("q_dim", "kv_dim", "vocab_padded", "n_experts_padded",
            "n_repeats", "d_inner", "ssm_heads")
 
@@ -97,7 +100,7 @@ def _specs_equal(tspecs, jspecs):
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "published"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SERVED)
 def test_model_specs_leaf_for_leaf(name, smoke):
     get = "smoke_config" if smoke else "get_config"
     tcfg, jcfg = getattr(treg, get)(name), getattr(jreg, get)(name)
@@ -106,7 +109,7 @@ def test_model_specs_leaf_for_leaf(name, smoke):
     assert TP.spec_bytes(tspecs) == JP.spec_bytes(jspecs)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SERVED)
 @pytest.mark.parametrize("batch, seq", [(2, 32), (8, 1057)])
 def test_cache_specs_equal(name, batch, seq):
     t = TM.cache_specs(treg.smoke_config(name), batch, seq, 0)
@@ -128,10 +131,28 @@ def test_phi3_is_the_size_the_card_holds():
     assert 15.2e9 < nbytes < 15.4e9
 
 
-@pytest.mark.parametrize("name", NOT_DENSE)
+def test_the_served_moe_and_ssm_models_are_the_size_the_card_holds():
+    """qwen2-moe-a2.7b (experts padded 60 → 64) and mamba2-370m at fp32:
+    each fits one 80 GB card with room for its caches."""
+    moe = TP.spec_bytes(TM.model_specs(treg.get_config("qwen2-moe-a2.7b")))
+    assert moe == 60_585_025_536
+    ssm = TP.spec_bytes(TM.model_specs(treg.get_config("mamba2-370m")))
+    assert 1.4e9 < ssm < 1.5e9
+
+
+@pytest.mark.parametrize("name", sorted(set(NOT_DENSE) - set(SERVED)))
 def test_other_families_raise_naming_a15(name):
+    """``encdec`` and ``vlm`` still raise naming A15."""
     with pytest.raises(NotImplementedError, match="A15"):
         TM.model_specs(treg.smoke_config(name))
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_moe_ssm_and_hybrid_specs_equal_the_reference(name):
+    """The MoE, SSM and hybrid families give the reference's specs leaf
+    for leaf."""
+    _specs_equal(TM.model_specs(treg.smoke_config(name)),
+                 JM.model_specs(jreg.smoke_config(name)))
 
 
 def test_int8_kv_cache_raises_naming_a15():

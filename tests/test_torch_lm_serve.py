@@ -1,10 +1,12 @@
 """The port's serving driver against the JAX package's: greedy tokens of
 ``ServeSession.generate`` equal the reference session's on the same
 weights at float32 activations (each step's top-2 logit margin above the
-two packages' agreement tolerance, so the equality means something), the
-cache re-padding, the ``serve.*`` counters and spans, temperature draws
-from a seeded generator, ``python -m repro_torch.launch.serve``, and what
-the port does not run yet (non-dense archs, the int8 KV cache)."""
+two packages' agreement tolerance, so the equality means something) for
+the dense archs and the MoE, SSM and hybrid ones the port serves, the
+cache re-padding (mamba's ``conv`` / ``ssd`` state left as it is), the
+``serve.*`` counters and spans, temperature draws from a seeded
+generator, ``python -m repro_torch.launch.serve``, and what the port does
+not run yet (the ``encdec`` / ``vlm`` families, the int8 KV cache)."""
 import dataclasses
 
 import jax
@@ -55,7 +57,10 @@ def _step_logits(cfg, params, prompts, tokens):
     return torch.stack(out, 1).float()            # (b, n, vocab)
 
 
-@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-32b"])
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-32b",
+                                  "qwen2-moe-a2.7b", "mamba2-370m",
+                                  "llama4-scout-17b-a16e",
+                                  "jamba-1.5-large-398b"])
 def test_greedy_tokens_equal_the_reference_session(name):
     jcfg, tcfg = _cfgs(name)
     # The port's draw, handed to both: it is the same in every process,
@@ -79,8 +84,10 @@ def test_greedy_tokens_equal_the_reference_session(name):
                        torch.from_numpy(got))
 
 
-def test_pad_caches_shapes_equal_the_reference():
-    jcfg, tcfg = _cfgs("qwen3-32b")
+def _pad_caches_check(name):
+    """K/V grow to ``max_len`` slots; mamba's ``conv`` / ``ssd`` state
+    passes through as the same tensor."""
+    jcfg, tcfg = _cfgs(name)
     jparams = jax.tree.map(np.asarray, j_init(JM.model_specs(jcfg), seed=0))
     prompts = _prompts(jcfg)
     _, jcache = JM.prefill(jcfg, jparams, prompts)
@@ -89,20 +96,36 @@ def test_pad_caches_shapes_equal_the_reference():
                                                           device="cpu"),
                            torch.from_numpy(prompts))
     got = tserve._pad_caches(tcache, LP, MAX_LEN)
+    assert set(got) == set(want)
     for grp in want:
+        assert set(got[grp]) == set(want[grp])
         for leaf, w in want[grp].items():
             g = got[grp][leaf]
-            assert tuple(g.shape) == w.shape == (
-                tcfg.n_repeats, B, MAX_LEN, tcfg.n_kv_heads, tcfg.head_dim)
+            assert tuple(g.shape) == w.shape
+            if leaf in ("conv", "ssd"):
+                assert g is tcache[grp][leaf]
+                assert g.dtype == torch.float32
+                continue
+            assert w.shape == (tcfg.n_repeats, B, MAX_LEN, tcfg.n_kv_heads,
+                               tcfg.head_dim)
             assert g.dtype == torch.bfloat16
             assert torch.equal(g[:, :, :LP], tcache[grp][leaf])
             assert not g[:, :, LP:].any()
+
+
+def test_pad_caches_shapes_equal_the_reference():
+    _pad_caches_check("qwen3-32b")
     # Non-K/V entries and K/V of another length pass through untouched.
     other = {"p0": {"k": torch.ones(1, 2, 5, 1, 1),
                     "conv": torch.ones(1, 2, LP, 3)}}
     out = tserve._pad_caches(other, LP, MAX_LEN)
     assert out["p0"]["k"] is other["p0"]["k"]
     assert out["p0"]["conv"] is other["p0"]["conv"]
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "jamba-1.5-large-398b"])
+def test_pad_caches_leave_the_mamba_state_as_the_reference(name):
+    _pad_caches_check(name)
 
 
 def _session(name="qwen3-32b", tracer=None):
@@ -187,11 +210,20 @@ def test_main_serves_a_smoke_config_on_the_cpu(capsys):
     assert out[0].startswith("generated (2, 4) in")
 
 
-@pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-moe-a2.7b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
 def test_main_refuses_a_non_dense_arch_naming_a15(name):
+    """The ``encdec`` family still raises naming A15."""
     with pytest.raises(NotImplementedError, match="A15"):
-        tserve.main(["--arch", name, "--smoke", "--device", "cpu"])
+        tserve.main(["--arch", name, "--smoke", "--tokens", "4", "--device",
+                     "cpu"])
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-moe-a2.7b"])
+def test_main_serves_a_moe_or_ssm_smoke_config_on_the_cpu(name, capsys):
+    assert tserve.main(["--arch", name, "--smoke", "--tokens", "4",
+                        "--device", "cpu"]) is None
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("generated (2, 4) in")
 
 
 def test_int8_kv_cache_raises_naming_a15():
