@@ -146,9 +146,11 @@ Phases (each prints its own lines; any failure exits non-zero):
       prefill's last-position logits against ``forward``'s (2e-2 of
       max|logits|), a decode step against teacher-forced ``forward`` at
       the next position (3e-2), tokens in ``[0, vocab)``, finite logits,
-      the two greedy runs equal, ``serve.tokens == 8 x 32``; a profiled
-      prefill and decode step, and the per-call fp32 -> bf16 weight cast
-      of one decode step timed alone beside its bytes bound. Its numbers
+      the two greedy runs equal, ``serve.tokens == 8 x 32``; a decode
+      step on CUDA events, and the per-call fp32 -> bf16 weight cast of
+      one decode step timed alone beside its bytes bound (the prefill's
+      and the decode step's op-by-op profiles, and a train step's, are
+      ``bench_torch/lm_profile.py``'s). Its numbers
       are one JSON line ``{"serve": {...}}``: the path has no kernel of
       its own (the reference computes it outside any Pallas kernel);
   21b. ``[serve-moe]`` and ``[serve-ssm]`` (ROADMAP A15 (3), first
@@ -188,6 +190,35 @@ Phases (each prints its own lines; any failure exits non-zero):
       1e-4 of the uninterrupted run's. Its numbers are one JSON line
       ``{"train": {...}}``: training adds no kernel (no Pallas kernel of
       the reference, nor a backward of one, lies on it);
+  22b. the families beyond the dense one (ROADMAP A15 (3) (a) + (b),
+      ``phase_other_families``), each phase with the card's name and power
+      limit beside its numbers, its own seconds, its parameter bytes
+      (``spec_bytes``) before it allocates, and its bound:
+      ``[train-ssm]`` mamba2-370m at full width and depth (48 SSD layers,
+      chunk 256) trained as ``[train]`` is, with the 2-layer
+      ``grad_accum`` / remat checks; ``[train-moe]`` qwen2-moe-a2.7b at
+      full width cut to 4 of its 24 layers (the bytes of all 24 with
+      AdamW are logged), capacity factor 1.25, ``moe_aux`` per step and
+      the pairs each layer drops, and jamba-1.5-large-398b's smoke config
+      (bf16 parameters, Adafactor, bf16 gradient accumulator) one step on
+      the card against the CPU, with the CPU tests' bounds;
+      ``[serve-encdec]`` seamless-m4t-large-v2 at full width and depth
+      (24 + 24 layers) with ``[serve]``'s traffic and checks and the
+      ``frames`` of ``repro.launch.serve.main`` (8 x 1024 x 1024,
+      ``default_rng(0)``),
+      then ``[train-encdec]`` on its weights; ``[serve-vlm]``
+      llama-3.2-vision-11b at full width and depth (40 layers, 1601 image
+      tokens of width 7680 a request) and ``[train-vlm]`` cut to 10 of
+      its 40 layers, every ``xattn`` gate set to ``XATTN_GATE`` (0.5; at
+      its published 0 a cross-attention layer adds nothing). Every phase
+      also runs its step at 2 layers, full width and fp32 activations on
+      the card against the CPU (``_serve_card_vs_cpu``: logits within
+      1e-4 of max|logits|; ``_train_card_vs_cpu``: the loss within 1e-5
+      relative and each leaf's gradient within 1e-4 of its max|g|; the
+      gradients only, not clip and the optimizer's update, which the
+      jamba smoke step and ``tests/test_torch_gpu.py``'s whole steps of
+      the smoke configs hold). Their numbers are one JSON line each
+      (``{"train_ssm": ...}`` ... ``{"train_vlm": ...}``);
   23. one JSON line with all six kernels and the five bf16 variants
       (``launches`` from the D=1 main paths, ``dist_main_launches`` from
       ``[dist-main]``, ``resilience_launches`` from ``[resilience]``,
@@ -272,6 +303,33 @@ DROP_FREE_CAPACITY = 16.0
 # [train]: the LM training path at phi3-mini-3.8b's published widths.
 TRAIN_ARCH = "phi3-mini-3.8b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 1024, 2, 3
+# The families beyond the dense one (ROADMAP A15 (3) (a) + (b)): trained
+# as [train] is, the MoE one cut to TRAIN_MOE_LAYERS of its 24 layers
+# (all 24 with AdamW: ~242 GB), the vision one to TRAIN_VLM_LAYERS of its
+# 40; served at full depth as [serve] is.
+TRAIN_SSM_ARCH = "mamba2-370m"
+TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS = "qwen2-moe-a2.7b", 4
+HYBRID_ARCH = "jamba-1.5-large-398b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH, TRAIN_VLM_LAYERS = "llama-3.2-vision-11b", 10
+# The xattn layers' tanh gate: published init 0, which makes a
+# cross-attention layer add nothing and get no gradient; every vlm check
+# opens it to this.
+XATTN_GATE = 0.5
+# Card vs CPU at 2 layers and fp32 activations, the GPU and CPU tests'
+# tolerances: max abs err / max|logits| for serving and max error / max|g|
+# per leaf for training (1e-4); the loss and its terms, relative (1e-5).
+# The hybrid smoke step: also parameters within 2.5 lr_t and all but 0.1%
+# of their elements within 1e-5 of max|p|.
+CARD_CPU_TOL, CARD_CPU_STEP_TOL = 1e-4, 1e-5
+# Except mamba's per-head A_log and dt_bias, whose gradients each sum a
+# million products with heavy cancellation: at mamba2-370m's widths (2
+# layers, 2 x 256 tokens) the CPU's own 1- against 8-thread order moves
+# them by 4.8e-5 / 2.4e-5 of max|g|, grad_accum 1 against 2 on the card
+# by 6.6e-5 / 3.0e-5, and the card against the CPU by 9.6e-5 / 4.6e-5
+# (bench_torch/ssm_grad_order.py, NVIDIA H100 80GB HBM3, 700 W): 1e-4 is
+# within that noise, 1e-3 is not.
+CARD_CPU_LEAF_TOL = {"A_log": 1e-3, "dt_bias": 1e-3}
 # grad_accum 2 vs 1 and the remat policies at full width and 2 layers:
 # the CPU tests' tolerance, relative to each leaf's max|g|; the resumed
 # smoke run's losses against the uninterrupted run's (the embedding's
@@ -813,11 +871,34 @@ def phase_stream_kernels(dev):
         del stream, b1_ops, s_ops, b6, b6_again, b1, plain, single, chunked
 
 
+_RUNTIMES: dict = {}
+
+
+def runtime(ft, rank: int, *, gather_dtype: str = "float32",
+            ordering: str | None = None, **layout):
+    """``prepare_runtime(ft, rank, ...)`` for the script's own checks and
+    profiles, built on the host once per FLYCOO tensor and ``layout``
+    (``blk``, ``tile_rows``): the packed mode-0 layout does not depend on
+    the rank, the gather dtype or the ordering, which only set the
+    runtime's fields. The entry points (``cp_als_distributed``) build
+    their own."""
+    from repro_torch.core import distributed as dist
+    key = (id(ft), tuple(sorted(layout.items())))
+    hit = _RUNTIMES.get(key)
+    if hit is None or hit[0] is not ft:
+        hit = _RUNTIMES[key] = (ft, *dist.prepare_runtime(ft, rank,
+                                                          **layout))
+    _, rt, packed = hit
+    return dataclasses.replace(
+        rt, rank=rank, gather_dtype=gather_dtype,
+        ordering=ft.ordering if ordering is None else ordering), packed
+
+
 def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
     """Sweep 0 through ``backend``; per mode, rebuild the kernel's exact
     inputs, require the kernel to reproduce the sweep's output bitwise and
     to match its plain version, and time both. Returns per-mode rows."""
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.kernels.mttkrp import kernel as K, ops
     tiled = backend == "pallas_fused_gather_tiled"
     kern = (K.fused_mttkrp_nmode_gather_tiled if tiled
@@ -826,7 +907,7 @@ def check_modes(ft, rank: int, backend: str, dev, *, reps: int = 5):
              else K.fused_mttkrp_nmode_gather_plain)
     slab = ops.tiled_rank_slab(rank) if tiled else ops.padded_rank(rank)
     extra = {"rank_slab": slab} if tiled else {}
-    rt, packed = dist.prepare_runtime(ft, rank)
+    rt, packed = runtime(ft, rank)
     wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   workers=wk)
@@ -867,9 +948,9 @@ def profile_sweep(ft, rank: int, backend: str, dev, **runtime_kw):
     ``runtime_kw`` (``blk``, ``ordering``) go to ``prepare_runtime``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.core.workers import LocalWorkers
-    rt, packed = dist.prepare_runtime(ft, rank, **runtime_kw)
+    rt, packed = runtime(ft, rank, **runtime_kw)
     wk = LocalWorkers(rt.num_workers, dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   workers=wk)
@@ -980,7 +1061,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
     nell-2 stand-in that phase_main built: each CP-ALS run's fits equal
     the B1 run's; per mode, each kernel at its own inputs against its
     plain version and B1 bitwise, with times, bounds and peak memory."""
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.core.mttkrp import hadamard_rows
     from repro_torch.kernels.mttkrp import kernel as K, ops
     rank = 16
@@ -1006,7 +1087,7 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
         del res
 
     # --- per mode at the main path's inputs (launches not counted) ------
-    rt, packed = dist.prepare_runtime(ft, rank)
+    rt, packed = runtime(ft, rank)
     stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
                                                workers=one_device(dev))
     del packed
@@ -1141,12 +1222,12 @@ def phase_fused_main(ft, b1_fits, dev, gpu: str):
 
 def phase_stream_main(ft, dev, gpu: str):
     """The out-of-core path on the nell-2 stand-in that phase_main built."""
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.kernels.mttkrp import kernel as K, ops
     from repro_torch.oocore import executor, planner
     from repro_torch.reorder import reorder_stream
     rank, blk, tile_rows = 16, MAIN_STREAM_BLK, STREAM_TILE_ROWS
-    rt, packed = dist.prepare_runtime(ft, rank, blk=blk, tile_rows=tile_rows)
+    rt, packed = runtime(ft, rank, blk=blk, tile_rows=tile_rows)
     stream, factors, _, _ = cpals.device_state(ft, rt, packed, seed=0,
                                                workers=one_device(dev))
     del packed
@@ -1457,7 +1538,7 @@ def phase_bf16_main(ft, dev, gpu: str):
     before and read just after; then every bf16 kernel at its path's
     inputs against its plain version and the bf16 B1 bitwise, timed beside
     the fp32 kernel on the same inputs; a profiled bf16 sweep."""
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.kernels.mttkrp import kernel as K, ops
     from repro_torch.oocore import executor, planner
     from repro_torch.reorder import reorder_stream
@@ -1485,7 +1566,7 @@ def phase_bf16_main(ft, dev, gpu: str):
                 launched["fused_mttkrp_nmode_gather" + BF16]}
     del res
 
-    rt, packed = dist.prepare_runtime(ft, rank, gather_dtype="bfloat16")
+    rt, packed = runtime(ft, rank, gather_dtype="bfloat16")
     wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   workers=wk)
@@ -1774,7 +1855,7 @@ def phase_dist_main(ft1, dev, gpu: str):
     ft = flycoo.build_flycoo(ft1.tensor, D)
     t_fly = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rt, packed = dist.prepare_runtime(ft, rank)
+    rt, packed = runtime(ft, rank)           # a new tensor: built here
     t_prep = time.perf_counter() - t0
     loads = np.stack([np.bincount(ft.owner_of(n), minlength=D)
                       for n in range(ft.nmodes)])
@@ -1784,7 +1865,7 @@ def phase_dist_main(ft1, dev, gpu: str):
         f"nonzeros per worker per mode (LPT) {loads.tolist()}, max/mean "
         f"{[round(r, 6) for r in ratio]}; nnz_cap {rt.nnz_cap}, rows_cap "
         f"{rt.rows_cap}, exchange caps {rt.bucket_caps}, blk {rt.blk}")
-    rt1, packed1 = dist.prepare_runtime(ft1, rank)
+    rt1, packed1 = runtime(ft1, rank)
     for r_ in (rt1, rt):
         picks = [ops.select_backend(
             "auto", nmodes=r_.nmodes, rank=rank, blk=r_.blk,
@@ -2083,7 +2164,7 @@ def phase_resilience(ft, main_fits, dev, gpu: str):
     chaos smoke ``python -m repro_torch.resilience --device cuda``."""
     import shutil
     import tempfile
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.kernels.mttkrp import ops
     from repro_torch.obs import Tracer, use_registry, validate_chrome_trace
     from repro_torch.oocore import executor, planner
@@ -2177,7 +2258,7 @@ def phase_resilience(ft, main_fits, dev, gpu: str):
             f"resume: restores {restores}, fits {run3.fits} vs {run1.fits}")
 
     # --- 4. one sweep of each driver on one state, profiled -------------
-    rt, packed = dist.prepare_runtime(ft, 16)
+    rt, packed = runtime(ft, 16)
     wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   workers=wk)
@@ -2280,7 +2361,7 @@ def phase_obs(ft, dev, gpu: str) -> dict:
     ``auto`` sweep's mode steps), then ``[auto-stream]``. Returns the
     launches of the counted run and of ``[auto-stream]``'s ``auto`` run."""
     import tempfile
-    from repro_torch.core import cpals, distributed as dist
+    from repro_torch.core import cpals
     from repro_torch.kernels.mttkrp import ops
     from repro_torch.obs import (Tracer, baseline, use_registry, use_tracer,
                                  validate_chrome_trace)
@@ -2373,7 +2454,7 @@ def phase_obs(ft, dev, gpu: str) -> dict:
     require(prof["roofline"], "[obs] the profile has no roofline row")
 
     # --- 4. timed_device_step per mode on the nell-2 stand-in ------------
-    rt, packed = dist.prepare_runtime(ft, 16)
+    rt, packed = runtime(ft, 16)
     wk = one_device(dev)
     stream, factors, lam, x2 = cpals.device_state(ft, rt, packed, seed=0,
                                                   workers=wk)
@@ -2972,72 +3053,121 @@ def phase_examples(gpu: str) -> dict:
     return launched
 
 
-def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int, *,
-                   routed_prefill=(), routed_decode=()) -> dict:
-    """Least times of the serving path's two steps on this card's
-    published peaks, counting what the run's data needs.
-
-    Prefill operations, at the bf16 tensor-core peak: every weight
-    product (attention's projections, the MLP, mamba's ``in_proj`` and
-    ``out_proj``, an MoE layer's shared experts and the three products of
-    each routed (token, expert) pair, the unembedding of the last
-    position); at the fp32 peak the products the path runs in fp32:
-    attention's scores and PV (every score of the causal square, as the
-    recurrence computes), the MoE router, and the SSD's intra-chunk
-    (``C·B`` and ``M·x``), chunk-state and state-to-output products.
-    Prefill bytes: the weight matrices read once, of an MoE layer's
-    experts only the distinct ones its router picked
-    (``routed_prefill``: one count per MoE layer, in order). Decode step:
-    the same weights (experts: ``routed_decode``), the bf16 K/V cache of
-    ``cache_len`` slots, and the fp32 SSM state read and written once;
-    its products are negligible."""
-    from repro_torch.models.params import torch_dtype
-    pb = torch_dtype(cfg.param_dtype).itemsize
-    d, tok = cfg.d_model, batch * prompt
+def lm_forward_work(cfg, batch: int, seq: int, mem_len: int = 0, *,
+                    unembed_rows: int | None = None) -> dict:
+    """What one forward of ``batch`` x ``seq`` tokens needs, counting the
+    run's data (``mem_len``: the memory's length, the encoder's frames or
+    the image tokens). ``mm``: FLOPs of the weight products, which run on
+    the bf16 tensor cores (attention's projections, the MLP, mamba's
+    ``in_proj`` / ``out_proj``, an MoE layer's shared experts and the
+    three products of each routed (token, expert) pair, the encoder's
+    layers and the frontend projection over the memory's tokens, the
+    cross-attention's K/V over the memory, the unembedding of
+    ``unembed_rows`` rows, default every token); ``fp32``: FLOPs of the
+    products the path runs in fp32 (attention's scores and PV over every
+    score of the square the recurrence computes, ``seq`` x ``seq`` for
+    self-attention and ``seq`` x ``mem_len`` for cross-attention; the MoE
+    router; the SSD's intra-chunk, chunk-state and state-to-output
+    products). ``weights``: the matrix elements a decode step reads
+    (decoder, routed experts not included); ``enc_weights``: those only
+    the memory needs (encoder, frontend projections, the cross-attention
+    K/V projections); ``kv_bytes`` / ``cross_bytes`` / ``ssm_bytes``:
+    per cache slot of K/V, the whole cross-attention caches and the SSM
+    state, bf16 / fp32, as a decode step reads them."""
+    d, tok, mtok = cfg.d_model, batch * seq, batch * mem_len
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.d_state
     h, p = cfg.ssm_heads, cfg.ssm_headdim
     f = cfg.d_ff_expert or cfg.d_ff
-    mm = fp32 = 0                 # bf16 weight FLOPs; fp32 FLOPs
-    weights = cfg.vocab_padded * d  # the unembedding's matrix
-    mm += 2 * batch * cfg.vocab_padded * d
-    kv_bytes = ssm_bytes = 0
-    for kind in list(cfg.pattern) * cfg.n_repeats:
+    qd, kvd, dh, heads = cfg.q_dim, cfg.kv_dim, cfg.head_dim, cfg.n_heads
+    w_attn = d * (qd + 2 * kvd) + qd * d
+    rows = tok if unembed_rows is None else unembed_rows
+    out = {"mm": 2 * rows * cfg.vocab_padded * d, "fp32": 0,
+           "weights": cfg.vocab_padded * d, "enc_weights": 0,
+           "kv_bytes": 0, "cross_bytes": 0, "ssm_bytes": 0}
+
+    def layer(kind, tokens, length, mode):
         mixer, _, ffn = kind.partition("+")
         if mixer == "mamba":
             w = d * (2 * di + 2 * g * n + h) + di * d
-            c = min(cfg.ssm_chunk, prompt)
-            nc = -(-prompt // c)
-            fp32 += 2 * batch * h * nc * c * c * (n + p) \
+            c = min(cfg.ssm_chunk, length)
+            nc = -(-length // c)
+            out["fp32"] += 2 * batch * h * nc * c * c * (n + p) \
                 + 2 * 2 * batch * nc * c * h * p * n
-            conv = (cfg.d_conv - 1) * (di + 2 * g * n) + h * p * n
-            ssm_bytes += 2 * 4 * batch * conv
-            weights += w + cfg.d_conv * (di + 2 * g * n)
-        else:
-            w = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-            fp32 += 4 * batch * cfg.n_heads * prompt * prompt * cfg.head_dim
-            kv_bytes += 2 * batch * cache_len * cfg.kv_dim * 2
-            weights += w
-        mm += 2 * tok * w
+            out["ssm_bytes"] += 2 * 4 * batch * (
+                (cfg.d_conv - 1) * (di + 2 * g * n) + h * p * n)
+            out["mm"] += 2 * tokens * w
+            out[mode] += w + cfg.d_conv * (di + 2 * g * n)
+        if mixer in ("attn", "attn_local", "attn_cross"):
+            out["mm"] += 2 * tokens * w_attn
+            out["fp32"] += 4 * batch * heads * length * length * dh
+            out[mode] += w_attn
+            if mode == "weights":
+                out["kv_bytes"] += 2 * batch * kvd * 2
+        if mixer in ("xattn", "attn_cross"):
+            out["mm"] += 2 * tokens * 2 * qd * d + 2 * mtok * 2 * d * kvd
+            out["fp32"] += 4 * batch * heads * length * mem_len * dh
+            out["weights"] += 2 * qd * d
+            out["enc_weights"] += 2 * d * kvd
+            out["cross_bytes"] += 2 * batch * mem_len * kvd * 2
         if ffn == "mlp":
-            mm += 2 * tok * 3 * d * cfg.d_ff
-            weights += 3 * d * cfg.d_ff
+            out["mm"] += 2 * tokens * 3 * d * cfg.d_ff
+            out[mode] += 3 * d * cfg.d_ff
         elif ffn == "moe":
             shared = 3 * d * cfg.n_shared_experts * f
-            mm += 2 * tok * (cfg.top_k * 3 * d * f + shared)
-            fp32 += 2 * tok * d * cfg.n_experts_padded
-            weights += shared
-    expert = 3 * d * f * pb
-    router = 4 * d * cfg.n_experts_padded
+            out["mm"] += 2 * tokens * (cfg.top_k * 3 * d * f + shared)
+            out["fp32"] += 2 * tokens * d * cfg.n_experts_padded
+            out[mode] += shared
+
+    for kind in list(cfg.pattern) * cfg.n_repeats:
+        layer(kind, tok, seq, "weights")
+    if cfg.family == "encdec":
+        out["mm"] += 2 * mtok * (cfg.d_frontend or d) * d
+        out["enc_weights"] += (cfg.d_frontend or d) * d
+        reps = cfg.n_enc_layers // len(cfg.enc_pattern)
+        for kind in list(cfg.enc_pattern) * reps:
+            layer(kind, mtok, mem_len, "enc_weights")
+    if cfg.family == "vlm":
+        out["mm"] += 2 * mtok * (cfg.d_frontend or d) * d
+        out["enc_weights"] += (cfg.d_frontend or d) * d
+    return out
+
+
+def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int, *,
+                   routed_prefill=(), routed_decode=(),
+                   mem_len: int = 0) -> dict:
+    """Least times of the serving path's two steps on this card's
+    published peaks, counting what the run's data needs
+    (:func:`lm_forward_work`; the unembedding of the last position only).
+
+    Prefill: its bf16 and fp32 products at their peaks, against its bytes:
+    every weight matrix read once (the encoder's and the frontend's
+    included), of an MoE layer's experts only the distinct ones its router
+    picked (``routed_prefill``: one count per MoE layer, in order). Decode
+    step: the decoder's weights (experts: ``routed_decode``), the bf16 K/V
+    cache of ``cache_len`` slots, the cross-attention caches of
+    ``mem_len`` slots and the fp32 SSM state, read once (and the state
+    written); its products are negligible."""
+    from repro_torch.models.params import torch_dtype
+    pb = torch_dtype(cfg.param_dtype).itemsize
+    f = cfg.d_ff_expert or cfg.d_ff
+    work = lm_forward_work(cfg, batch, prompt, mem_len, unembed_rows=batch)
+    expert = 3 * cfg.d_model * f * pb
+    router = 4 * cfg.d_model * cfg.n_experts_padded
     n_moe = sum("+moe" in k for k in cfg.pattern) * cfg.n_repeats
-    fixed = weights * pb + n_moe * router
-    t_ops = (mm / BF16_FLOPS_PER_S + fp32 / FP32_FLOPS_PER_S) * 1e3
-    pre_bytes = fixed + expert * sum(routed_prefill)
+    fixed = work["weights"] * pb + n_moe * router
+    t_ops = (work["mm"] / BF16_FLOPS_PER_S
+             + work["fp32"] / FP32_FLOPS_PER_S) * 1e3
+    pre_bytes = fixed + work["enc_weights"] * pb \
+        + expert * sum(routed_prefill)
     t_bytes = pre_bytes / HBM_BYTES_PER_S * 1e3
-    dec_bytes = fixed + expert * sum(routed_decode) + kv_bytes + ssm_bytes
+    dec_bytes = fixed + expert * sum(routed_decode) \
+        + work["kv_bytes"] * cache_len + work["cross_bytes"] \
+        + work["ssm_bytes"]
     return {"prefill_bound_ms": max(t_ops, t_bytes),
             "prefill_bound_by": "operations" if t_ops >= t_bytes
             else "bytes",
-            "prefill_bf16_flops": mm, "prefill_fp32_flops": fp32,
+            "prefill_bf16_flops": work["mm"],
+            "prefill_fp32_flops": work["fp32"],
             "prefill_bytes": pre_bytes, "decode_step_bytes": dec_bytes,
             "decode_step_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3}
 
@@ -3112,7 +3242,7 @@ def _logits_check(got, want, tol: float, what: str, tag: str,
 
 def _serve_check(cfg, params, prompts, first, tag: str,
                  tols=(SERVE_TOL_PREFILL, SERVE_TOL_DECODE),
-                 strict: bool = False) -> dict:
+                 strict: bool = False, extras=None) -> dict:
     """Prefill and one decode step against teacher-forced ``forward``
     (``first``: the first greedy token, appended to the prompts), and the
     first greedy token against prefill's argmax (meaningful at the
@@ -3128,17 +3258,19 @@ def _serve_check(cfg, params, prompts, first, tag: str,
     differs from the forward by rounding only, and is the check. Also
     the pairs prefill, forward and the decode step dropped and the
     distinct experts routed per MoE layer. ``tols`` and ``strict`` are
-    :func:`_logits_check`'s, for prefill and decode."""
+    :func:`_logits_check`'s, for prefill and decode; ``extras`` the stub
+    frontend's input (``frames`` / ``img``), the same for both."""
     from repro_torch.launch.serve import _pad_caches
     from repro_torch.models import model as M
     dev = torch.device("cuda")
     b, lp = prompts.shape
     toks = torch.from_numpy(np.concatenate([prompts, first[:, None]], 1)
                             ).to(dev)
+    extras = extras or {}
     with MoeProbe() as fwd:
-        full, _ = M.forward(cfg, params, toks, remat=False)
+        full, _ = M.forward(cfg, params, toks, remat=False, **extras)
     with MoeProbe() as pre:
-        last, cache = M.prefill(cfg, params, toks[:, :lp])
+        last, cache = M.prefill(cfg, params, toks[:, :lp], **extras)
     cache = _pad_caches(cache, lp, lp + 1)
     routed = bool(cfg.n_experts)
     fresh = (lambda: {g: {k: c.clone() for k, c in leaves.items()}
@@ -3190,16 +3322,19 @@ def profile_ops(fn, what: str, top: int = 8, tag: str = "serve") -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.device_time_total for ev in prof.key_averages()
+    t_read = time.perf_counter()
+    averages = prof.key_averages()        # one aggregation of the trace
+    busy = sum(ev.device_time_total for ev in averages
                if ev.device_type == DeviceType.CUDA) / 1e3
     ops = {ev.key: ev.self_device_time_total / 1e3
-           for ev in prof.key_averages()
+           for ev in averages
            if ev.device_type == DeviceType.CPU
            and ev.key.startswith("aten::") and ev.self_device_time_total > 0}
     cast_ms = ops.get("aten::copy_", 0.0)
     log(f"[{tag}] profile {what}: wall {wall_ms:.3f} ms, kernels "
         f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}; "
-        f"aten::copy_ (dtype casts and cache writes) {cast_ms:.3f} ms")
+        f"aten::copy_ (dtype casts and cache writes) {cast_ms:.3f} ms; "
+        f"profile read in {time.perf_counter() - t_read:.1f} s")
     for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[{tag}]   op {ms:9.3f} ms  {name}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
@@ -3207,17 +3342,22 @@ def profile_ops(fn, what: str, top: int = 8, tag: str = "serve") -> dict:
             "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:top])}
 
 
-def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
-                ) -> dict:
+def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]",
+                keep_params: bool = False) -> dict:
     """The LM serving path of ``arch`` at its published widths and full
     depth: ``ServeSession.generate`` with its checks and times. For an
     MoE arch also the pairs dropped (prefill and forward, summed over
     layers); where either drops one, the consistency check reruns at the
     smoke configs' drop-free capacity factor and only that rerun must
-    pass (prefill and forward then route the same pairs)."""
+    pass (prefill and forward then route the same pairs). For the
+    ``encdec`` / ``vlm`` families the stub frontend's ``frames`` / ``img``
+    drawn as ``repro_torch.launch.serve.main`` draws them, the ``xattn``
+    gates opened to ``XATTN_GATE``. With ``keep_params`` the parameters
+    stay on the card, in the result's ``"params"`` (not printed)."""
     import gc
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import ServeSession, _pad_caches
+    from repro_torch.launch.serve import (ServeSession, _pad_caches,
+                                          frontend_extras)
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params, iter_leaves, \
         spec_bytes
@@ -3238,8 +3378,17 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
     require(param_bytes == spec_bytes(M.model_specs(cfg))
             and all(t.dtype == torch.float32 for t in leaves),
             f"{tag} parameters are not the specs' fp32 leaves")
+    gates = open_gates(params)
     layers = ", ".join(f"{k} x {cfg.n_repeats}" for k in cfg.pattern)
     extra = ""
+    if cfg.family == "encdec":
+        extra += (f", encoder {cfg.n_enc_layers} layers ("
+                  f"{', '.join(cfg.enc_pattern)}) over frames of width "
+                  f"{cfg.d_frontend}")
+    if cfg.family == "vlm":
+        extra += (f", {cfg.n_img_tokens} image tokens of width "
+                  f"{cfg.d_frontend}, {gates} xattn layers' gates set to "
+                  f"{XATTN_GATE} (published init 0)")
     if cfg.n_experts:
         extra = (f", {cfg.n_experts} routed experts (padded "
                  f"{cfg.n_experts_padded}) of d_ff {cfg.d_ff_expert}, top-"
@@ -3256,15 +3405,18 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
         f"(padded {cfg.vocab_padded}), tied embeddings "
         f"{cfg.tie_embeddings}, act {cfg.act_dtype}; {param_bytes} B of "
         f"fp32 parameters drawn on the card in {init_s:.2f} s")
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab, (b, lp)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (b, lp)).astype(np.int32)
+    extras = frontend_extras(cfg, rng, b, lp, dev)
+    mem_len = {"encdec": lp, "vlm": cfg.n_img_tokens}.get(cfg.family, 0)
     sess = ServeSession(cfg, params, max_len=lp + n + 1)
     runs = {}
     for label, temp in (("greedy", 0.0), ("greedy-rerun", 0.0),
                         ("t0.8", 0.8)):
         with ocnt.use_registry() as reg:
             t0 = time.perf_counter()
-            out = sess.generate(prompts, n, temperature=temp, seed=0)
+            out = sess.generate(prompts, n, temperature=temp, seed=0,
+                                extras=extras)
             wall = time.perf_counter() - t0
         pre, dec = reg.get("serve.prefill_s"), reg.get("serve.decode_s")
         runs[label] = dict(out=out, prefill_ms=pre * 1e3,
@@ -3288,7 +3440,8 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
         f"{runs['t0.8']['out'][0, :12].tolist()}")
 
     # prefill and one decode step against teacher-forced forward.
-    check = _serve_check(cfg, params, prompts, greedy[:, 0], tag)
+    check = _serve_check(cfg, params, prompts, greedy[:, 0], tag,
+                         extras=extras)
     require(check["first_is_argmax"],
             f"{tag} first greedy token is not prefill's argmax")
     moe = {}
@@ -3347,23 +3500,21 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
         del c32
         gc.collect()
 
-    # Where a step's time goes, and the eager per-call weight cast.
-    _, cache = M.prefill(cfg, params, torch.from_numpy(prompts).to(dev))
+    # A decode step's time, and the eager per-call weight cast. (Where
+    # the time goes op by op: bench_torch/lm_profile.py.)
+    _, cache = M.prefill(cfg, params, torch.from_numpy(prompts).to(dev),
+                         **extras)
     cache = _pad_caches(cache, lp, lp + n + 1)
     tok = torch.from_numpy(greedy[:, :1]).to(dev)
-    prof_prefill = profile_ops(
-        lambda: M.prefill(cfg, params, torch.from_numpy(prompts).to(dev)),
-        f"one prefill ({b} x {lp} tokens)", tag=tag[1:-1])
-    prof_decode = profile_ops(
-        lambda: M.decode_step(cfg, params, cache, tok, lp),
-        f"one decode step (pos {lp}, cache {lp + n + 1} slots)",
-        tag=tag[1:-1])
     step_ms = cuda_ms(lambda: M.decode_step(cfg, params, cache, tok, lp), 5)
     matrices = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                "lm_head", "in_proj", "out_proj", "conv_w"}
+                "lm_head", "in_proj", "out_proj", "conv_w", "x_wq", "x_wo"}
     if cfg.tie_embeddings:
         matrices.add("embed")
-    cast = [t for path, t in iter_leaves(params) if path[-1] in matrices]
+    # A decode step casts the decoder's weights (of cross-attention only
+    # the query and output projections: the memory's K/V are cached).
+    cast = [t for path, t in iter_leaves(params)
+            if path[-1] in matrices and path[0] != "encoder"]
     cast_bytes = sum(t.numel() * 6 for t in cast)     # fp32 read, bf16 write
 
     def cast_all():
@@ -3374,13 +3525,15 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
     del cache
     bounds = serve_bound_ms(cfg, b, lp, lp + n + 1,
                             routed_prefill=check["routed_prefill"],
-                            routed_decode=check["routed_decode"])
+                            routed_decode=check["routed_decode"],
+                            mem_len=mem_len)
     cast_bound = cast_bytes / HBM_BYTES_PER_S * 1e3
     log(f"{tag} decode step {step_ms:.3f} ms (CUDA events, 5 steps); bound "
         f"{bounds['decode_step_bound_ms']:.3f} ms "
         f"({bounds['decode_step_bytes']} B: the weight matrices a step "
         f"needs, routed experts only, and the K/V cache and SSM state read "
-        f"once); the fp32 -> bf16 cast of every weight one step casts, "
+        f"once, the cross-attention caches of {mem_len} slots); the fp32 "
+        f"-> bf16 cast of every weight one step casts, "
         f"alone: {cast_ms:.3f} ms for {cast_bytes} B (bound "
         f"{cast_bound:.3f} ms), {cast_ms / step_ms:.1%} of the step  [{gpu}]")
     warm = runs["greedy-rerun"]
@@ -3404,8 +3557,12 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
         "decode_rel_err": check["decode_rel_err"], "decode_step_ms": step_ms,
         "weight_cast_ms": cast_ms, "weight_cast_bytes": cast_bytes,
         "weight_cast_bound_ms": cast_bound, **bounds, **moe, **fp32,
-        "profile_prefill": prof_prefill, "profile_decode": prof_decode,
     }
+    if cfg.family in ("encdec", "vlm"):
+        result["mem_len"] = mem_len
+        result["xattn_gate"] = XATTN_GATE if gates else None
+    if keep_params:
+        result["params"] = params
     del sess, params, leaves, cast
     gc.collect()
     torch.cuda.empty_cache()
@@ -3415,38 +3572,35 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]"
 
 
 def train_bound_ms(cfg, tokens: int, seq: int, param_bytes: int,
-                   remat: bool = True) -> dict:
+                   remat: bool = True, mem_len: int = 0) -> dict:
     """Least times of one train step on this card's published peaks, by
-    ``serve_bound_ms``'s method. Forward + backward: the weight products
-    (2 FLOP per weight and token forward, 4 backward, 2 more for the
-    forward recomputed under remat) at the bf16 tensor-core peak, and
-    attention (the causal square computed whole, as the recurrence does:
-    forward, recompute, and a backward of twice the forward) at the fp32
-    peak. Clip: the gradients read for their norm, then read and written
-    once scaled, at the HBM rate. Optimizer: its bytes at the HBM rate
+    ``serve_bound_ms``'s method (:func:`lm_forward_work` of ``tokens`` in
+    sequences of ``seq``, the memory ``mem_len`` long). Forward +
+    backward: the weight products (2 FLOP per weight and token forward, 4
+    backward, 2 more for the forward recomputed under remat) at the bf16
+    tensor-core peak, and the fp32 products (attention's squares computed
+    whole, as the recurrence does, the router, the SSD: forward,
+    recompute, and a backward of twice the forward) at the fp32 peak.
+    Clip: the gradients read for their norm, then read and written once
+    scaled, at the HBM rate. Optimizer (AdamW): its bytes at the HBM rate
     (parameters, gradients and both moments read once, parameters and
     moments written once, all of ``param_bytes`` each). ``model_flops``
     counts the step without the recompute: 6 FLOP per weight and token,
-    and attention's forward and backward."""
-    d, L = cfg.d_model, cfg.n_layers
-    weights = L * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-                   + 3 * d * cfg.d_ff) + cfg.vocab_padded * d
-    per_weight = 8 if remat else 6
-    mm_flops = per_weight * tokens * weights
-    attn_fwd = L * 4 * (tokens // seq) * cfg.n_heads * seq * seq \
-        * cfg.head_dim
-    attn_flops = attn_fwd * (4 if remat else 3)
+    and the fp32 products' forward and backward."""
+    work = lm_forward_work(cfg, tokens // seq, seq, mem_len)
+    mm_flops = work["mm"] * (4 if remat else 3)
+    fp32_flops = work["fp32"] * (4 if remat else 3)
     fwd_bwd = (mm_flops / BF16_FLOPS_PER_S
-               + attn_flops / FP32_FLOPS_PER_S) * 1e3
+               + fp32_flops / FP32_FLOPS_PER_S) * 1e3
     clip_bytes = 3 * param_bytes              # g read twice, written once
     clip = clip_bytes / HBM_BYTES_PER_S * 1e3
     opt_bytes = 7 * param_bytes               # p, g, m, v read; p, m, v
     opt = opt_bytes / HBM_BYTES_PER_S * 1e3
-    return {"mm_flops": mm_flops, "attn_flops": attn_flops,
+    return {"mm_flops": mm_flops, "fp32_flops": fp32_flops,
             "fwd_bwd_bound_ms": fwd_bwd, "clip_bytes": clip_bytes,
             "clip_bound_ms": clip, "opt_bytes": opt_bytes,
             "opt_bound_ms": opt, "step_bound_ms": fwd_bwd + clip + opt,
-            "model_flops": 6 * tokens * weights + 3 * attn_fwd}
+            "model_flops": 3 * (work["mm"] + work["fp32"])}
 
 
 def timed_optimizer(opt):
@@ -3531,20 +3685,30 @@ def _grad_errors(got, want) -> float:
     return worst
 
 
-def _train_checks_2_layers(cfg, batch, dev) -> dict:
-    """At full width and 2 layers with fp32 activations: grad_accum 2 vs
-    1, and remat ``nothing`` / ``dots`` vs off, per leaf."""
+def train_checks_2_layers(arch: str, tag: str) -> dict:
+    """At ``arch``'s full width and 2 layers with fp32 activations, on the
+    card, the first batch of the phase's stream (``SyntheticLMData`` seed
+    0, with its frames / img): grad_accum 2 vs 1, and remat ``nothing`` /
+    ``dots`` vs off, per leaf, each within TRAIN_GRAD_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import with_frontend
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
     from repro_torch.models.params import init_params
-    c2 = dataclasses.replace(cfg, n_layers=2, act_dtype="float32")
+    b, l = TRAIN_BATCH, TRAIN_SEQ
+    c2 = dataclasses.replace(get_config(arch), n_layers=2,
+                             act_dtype="float32")
+    data = [(0, SyntheticLMData(c2.vocab, l, b, seed=0).batch(0))]
+    (_, batch), = with_frontend(c2, data, b, l, 0)
+    dev = torch.device("cuda")
     params = init_params(M.model_specs(c2), seed=0, device=dev)
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     errs = {}
     (l1, _), g1 = S.accumulate_grads(c2, params, tb, 1)
     (l2, _), g2 = S.accumulate_grads(c2, params, tb, 2)
     errs["grad_accum 2 vs 1"] = _grad_errors(g2, g1)
-    errs["loss_rel_err"] = abs(float(l2 - l1)) / abs(float(l1))
+    loss_rel_err = abs(float(l2 - l1)) / abs(float(l1))
     del g2
     (_, _), g_off = S.loss_and_grads(c2, params, tb, remat=False)
     for policy in ("nothing", "dots"):
@@ -3552,12 +3716,23 @@ def _train_checks_2_layers(cfg, batch, dev) -> dict:
         (_, _), g = S.loss_and_grads(cp, params, tb, remat=True)
         errs[f"remat {policy} vs off"] = _grad_errors(g, g_off)
         del g
-    return errs
+    del params, g1, g_off
+    log(f"{tag} 2 layers, full width, fp32 activations: loss of "
+        f"grad_accum 2 vs 1: relative error {loss_rel_err:.4e}")
+    for what, err in errs.items():
+        ok = err <= TRAIN_GRAD_TOL
+        log(f"{tag} 2 layers, full width, fp32 activations: {what}: max "
+            f"error / max|g| over leaves {err:.4e} (tolerance "
+            f"{TRAIN_GRAD_TOL}): {'ok' if ok else 'FAIL'}")
+        require(ok, f"{tag} {what} differs: {err:.4e}")
+    torch.cuda.empty_cache()
+    return dict(errs, loss_rel_err=loss_rel_err)
 
 
-def _train_resume_check(dev) -> dict:
-    """``train`` on qwen3-32b's smoke config, 20 steps checkpointed every
-    5: uninterrupted, and preempted (SIGTERM) at step 10 then resumed."""
+def train_resume_check(tag: str) -> dict:
+    """``train`` on qwen3-32b's smoke config on the card, 20 steps
+    checkpointed every 5: uninterrupted, and preempted (SIGTERM) at step
+    10 then resumed; the losses within TRAIN_RESUME_TOL relative."""
     import signal
     import tempfile
     from repro_torch.launch.train import train
@@ -3565,7 +3740,7 @@ def _train_resume_check(dev) -> dict:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="train_resume_", dir=os.path.join(
         ROOT, "build"))
-    kw = dict(smoke=True, steps=20, ckpt_every=5, device=dev)
+    kw = dict(smoke=True, steps=20, ckpt_every=5, device="cuda")
     _, whole = train("qwen3-32b", ckpt_dir=os.path.join(root, "a"),
                      log_fn=quiet, **kw)
 
@@ -3584,35 +3759,299 @@ def _train_resume_check(dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     require([h["step"] for h in first] == list(range(11))
             and [h["step"] for h in second] == list(range(11, 20)),
-            "[train] the preempted run did not stop at 10 and resume at 11")
+            f"{tag} the preempted run did not stop at 10 and resume at 11")
     want = {h["step"]: h["loss"] for h in whole}
     rel = max(abs(h["loss"] - want[h["step"]]) / abs(want[h["step"]])
               for h in first + second)
     bitwise = all(h["loss"] == want[h["step"]] for h in first + second)
+    ok = rel <= TRAIN_RESUME_TOL
+    log(f"{tag} qwen3-32b smoke, 20 steps, preempted at 10 and resumed: "
+        f"losses within {rel:.4e} relative of the uninterrupted run's "
+        f"(tolerance {TRAIN_RESUME_TOL}; bitwise {bitwise}): "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the resumed run disagrees")
     return {"resume_loss_rel_err": rel, "resume_bitwise": bitwise}
 
 
-def phase_train(gpu: str) -> dict:
-    """The LM training path at phi3-mini-3.8b's published widths and full
-    depth: ``make_train_step`` for three steps, with its checks and
-    times."""
+def open_gates(params, gate: float = XATTN_GATE) -> int:
+    """Set every ``x_gate`` leaf (the ``xattn`` layers' tanh gate) to
+    ``gate``, in place; returns the number of layers gated."""
+    n = 0
+    for leaves in params["blocks"].values():
+        if "x_gate" in leaves:
+            leaves["x_gate"].fill_(gate)
+            n += leaves["x_gate"].shape[0]
+    return n
+
+
+def two_layer_config(cfg):
+    """``cfg`` at 2 layers and fp32 activations, every published width
+    kept: one encoder and one decoder layer for ``encdec``; a self- and a
+    cross-attention layer for ``vlm`` (its pattern's ``attn+mlp`` and
+    ``xattn+mlp``); 2 layers of a one-kind pattern otherwise."""
+    kw = {"act_dtype": "float32", "n_layers": 2}
+    if cfg.family == "encdec":
+        kw.update(n_layers=1, n_enc_layers=1)
+    if cfg.family == "vlm":
+        kw["pattern"] = ("attn+mlp", "xattn+mlp")
+    return dataclasses.replace(cfg, **kw)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _rel_err(got, want) -> float:
+    """max abs err / max|want| over the elements, on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _serve_card_vs_cpu(cfg, tag: str, batch: int = 2, prompt: int = 64
+                       ) -> dict:
+    """The serving step of ``two_layer_config(cfg)`` on the card against
+    the CPU on one set of weights (the port's draw, seed 0, gates opened):
+    prefill's logits, its caches (bf16 K/V and ``ck`` / ``cv``: within a
+    bf16 ulp of max), and one decode step, the card's given the CPU's
+    cache; logits within CARD_CPU_TOL of max|logits|. The weights are
+    drawn on the card and copied to the CPU."""
+    from repro_torch.launch.serve import _pad_caches, frontend_extras
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    t0 = time.perf_counter()
+    c2 = two_layer_config(cfg)
+    card = init_params(M.model_specs(c2), seed=0, device="cuda")
+    open_gates(card)
+    cpu = _to(card, "cpu")
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(0, c2.vocab, (batch, prompt + 1)
+                                            ).astype(np.int32))
+    extras = frontend_extras(c2, rng, batch, prompt, "cpu")
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        ex = _to(extras, dev)
+        last, cache = M.prefill(c2, params, prompts[:, :prompt].to(dev),
+                                **ex)
+        runs[dev] = (last, _pad_caches(cache, prompt, prompt + 1))
+    out = {"prefill_rel_err": _rel_err(runs["cuda"][0], runs["cpu"][0])}
+    cache_err = max(_rel_err(runs["cuda"][1][g][k], c)
+                    for g, leaves in runs["cpu"][1].items()
+                    for k, c in leaves.items())
+    tok = prompts[:, prompt:]
+    shared = _to(runs["cpu"][1], "cuda")      # before the CPU's step
+    want, _ = M.decode_step(c2, cpu, runs["cpu"][1], tok, prompt)
+    got, _ = M.decode_step(c2, card, shared, tok.to("cuda"), prompt)
+    out["decode_rel_err"] = _rel_err(got, want)
+    out["cache_rel_err"] = cache_err
+    ok = (out["prefill_rel_err"] <= CARD_CPU_TOL
+          and out["decode_rel_err"] <= CARD_CPU_TOL
+          and cache_err <= 2 ** -8)
+    log(f"{tag} card vs CPU at 2 layers ({', '.join(c2.pattern)}"
+        f"{', 1 encoder layer' if c2.family == 'encdec' else ''}), full "
+        f"width, fp32 activations, {batch} x {prompt} tokens: prefill "
+        f"{out['prefill_rel_err']:.4e}, decode step (the CPU's cache) "
+        f"{out['decode_rel_err']:.4e} of max|logits| (tolerance "
+        f"{CARD_CPU_TOL}); caches {cache_err:.4e} of max (tolerance 2^-8); "
+        f"{time.perf_counter() - t0:.1f} s: {'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the card and the CPU disagree at 2 layers")
+    return out
+
+
+def _step_card_vs_cpu(cfg, batch, tag: str, what: str, k: int = 2) -> dict:
+    """One ``make_train_step`` (the config's optimizer,
+    ``cosine_schedule(1e-2, 2, 10)``, ``grad_accum=k``) of ``cfg`` on the
+    card and on the CPU from one state (the port's draw, seed 0, gates
+    opened); the metrics, and the parameters: relative and absolute
+    errors, the elements past the CPU tests' bound (1e-5 of max|p|, or
+    past 2^-5 lr_t where the gradients accumulate in bf16). The weights
+    are drawn on the card and copied to the CPU (the CPU's generator takes
+    ~10 s for a billion elements)."""
+    from repro_torch import optim
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import init_params, iter_leaves
+    t0 = time.perf_counter()
+    card = init_params(M.model_specs(cfg), seed=0, device="cuda")
+    open_gates(card)
+    cpu = _to(card, "cpu")
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        opt = optim.make_optimizer(cfg.optimizer,
+                                   optim.cosine_schedule(1e-2, 2, 10))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        runs[dev] = S.make_train_step(cfg, opt, grad_accum=k)(state, batch)
+    (want, wm), (got, gm) = runs["cpu"], runs["cuda"]
+    out = {key: abs(float(gm[key]) - float(wm[key]))
+           / max(abs(float(wm[key])), 1e-30)
+           for key in ("loss", "ce", "z_loss", "moe_aux", "grad_norm")
+           if float(wm[key]) or float(gm[key])}
+    lr_t = float(optim.cosine_schedule(1e-2, 2, 10)(1))
+    floor = 2 ** -5 * lr_t if cfg.grad_accum_dtype == "bfloat16" else 0.0
+    outliers = total = 0
+    worst = 0.0
+    finite = True
+    for (path, a), (_, b) in zip(iter_leaves(got["params"]),
+                                 iter_leaves(want["params"])):
+        a = a.cpu().float()
+        b = b.float()
+        finite &= bool(torch.isfinite(a).all())
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        outliers += int((err > max(1e-5 * float(b.abs().max()),
+                                   floor)).sum())
+        total += err.numel()
+    out.update(param_max_abs_err=worst, lr_t=lr_t, param_outliers=outliers,
+               param_elements=total)
+    ok = finite and all(v <= CARD_CPU_STEP_TOL for key, v in out.items()
+                        if key in ("loss", "ce", "z_loss", "moe_aux",
+                                   "grad_norm")) \
+        and worst <= 2.5 * lr_t and outliers <= 1e-3 * total
+    metr = ", ".join(f"{key} {v:.3e}" for key, v in out.items()
+                     if key in ("loss", "ce", "z_loss", "moe_aux",
+                                "grad_norm"))
+    log(f"{tag} {what}: card vs CPU, one train step ({cfg.optimizer}, "
+        f"grad_accum {k}, params {cfg.param_dtype}, gradients accumulated "
+        f"in {cfg.grad_accum_dtype}, act {cfg.act_dtype}): relative "
+        f"errors {metr} (tolerance {CARD_CPU_STEP_TOL}); parameters: max "
+        f"abs err {worst:.3e} (bound 2.5 lr_t = {2.5 * lr_t:.3e}), "
+        f"{outliers} of {total} past the CPU tests' bound (<= 0.1%); "
+        f"{time.perf_counter() - t0:.1f} s: {'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} {what}: the card's step disagrees with the CPU's")
+    return out
+
+
+def _train_card_vs_cpu(cfg, tag: str, batch: int = 2) -> dict:
+    """The gradients of one train step of ``two_layer_config(cfg)``
+    (``accumulate_grads`` over 2 microbatches) on the card against the
+    CPU, on one set of weights (the port's draw on the card, seed 0, gates
+    opened, copied to the CPU) and the synthetic stream (seed 0)
+    with its frames / img: sequences of the SSD's whole chunk (256) for
+    the SSM family, 64 tokens otherwise. The loss and its terms within
+    CARD_CPU_STEP_TOL relative, every leaf's gradient within
+    CARD_CPU_TOL of its max|g| (the CPU tests' tolerances; for the leaves
+    of CARD_CPU_LEAF_TOL, that), compared on the card. The optimizer's update is elementwise and the same code on
+    both devices (``tests/test_torch_gpu.py`` holds whole steps of the
+    smoke configs); at these widths its CPU state alone would add ~1 min
+    to the phase."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import with_frontend
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import init_params, iter_leaves
+    t0 = time.perf_counter()
+    c2 = two_layer_config(cfg)
+    seq = c2.ssm_chunk if "mamba" in "".join(c2.pattern) else 64
+    data = [(0, SyntheticLMData(c2.vocab, seq, batch, seed=0).batch(0))]
+    (_, b), = with_frontend(c2, data, batch, seq, 0)
+    card = init_params(M.model_specs(c2), seed=0, device="cuda")
+    open_gates(card)
+    runs = {}
+    for dev, params in (("cpu", _to(card, "cpu")), ("cuda", card)):
+        tb = {key: torch.from_numpy(v).to(dev) for key, v in b.items()}
+        (loss, metrics), grads = S.accumulate_grads(c2, params, tb, 2)
+        runs[dev] = (dict(metrics, loss=loss), grads)
+        del params
+    (wm, want), (gm, got) = runs["cpu"], runs["cuda"]
+    out = {key: abs(float(gm[key]) - float(wm[key]))
+           / max(abs(float(wm[key])), 1e-30)
+           for key in ("loss", "ce", "z_loss", "moe_aux")
+           if float(wm[key]) or float(gm[key])}
+    errs, n, past = {}, 0, []          # worst error by leaf name
+    for (path, a), (_, w) in zip(iter_leaves(got), iter_leaves(want)):
+        w = w.to("cuda")
+        err = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        name = path[-1] if path[-1] in CARD_CPU_LEAF_TOL else ""
+        errs[name] = max(errs.get(name, 0.0), err)
+        if err > CARD_CPU_LEAF_TOL.get(name, CARD_CPU_TOL):
+            past.append("/".join(path))
+        n += a.numel()
+    metr = ", ".join(f"{key} {v:.3e}" for key, v in out.items())
+    ok = all(v <= CARD_CPU_STEP_TOL for v in out.values()) and not past
+    worst = errs.pop("")
+    heads = "".join(f"; {name} {v:.4e} (tolerance "
+                    f"{CARD_CPU_LEAF_TOL[name]})" for name, v in errs.items())
+    out.update(grad_rel_err=worst,
+               **{f"grad_rel_err_{name}": v for name, v in errs.items()})
+    log(f"{tag} card vs CPU at 2 layers ({', '.join(c2.pattern)}"
+        f"{', 1 encoder layer' if c2.n_enc_layers else ''}), full width, "
+        f"fp32 activations, {batch} x {seq} tokens in 2 microbatches: "
+        f"relative errors {metr} (tolerance {CARD_CPU_STEP_TOL}); "
+        f"gradients of {n} parameters: max error / max|g| over leaves "
+        f"{worst:.4e} (tolerance {CARD_CPU_TOL}){heads}; "
+        f"{time.perf_counter() - t0:.1f} s: {'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the card's gradients disagree with the CPU's in "
+            f"{past[:3]}")
+    return out
+
+
+def _hybrid_smoke_card_vs_cpu(tag: str) -> dict:
+    """The hybrid family's check on the card: jamba-1.5-large-398b's smoke
+    config (its 8-layer mamba / attention / MoE pattern, twice) with the
+    published config's bf16 parameters, Adafactor and bf16 gradient
+    accumulator, at fp32 activations (so that the card's and the CPU's
+    routes agree), one train step against the CPU's."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLMData
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(smoke_config(HYBRID_ARCH),
+                              param_dtype=full.param_dtype,
+                              act_dtype="float32")
+    require(cfg.optimizer == "adafactor"
+            and cfg.grad_accum_dtype == "bfloat16"
+            and cfg.param_dtype == "bfloat16",
+            f"{tag} jamba's config no longer sets bf16 / Adafactor")
+    batch = SyntheticLMData(cfg.vocab, 32, 4, seed=0).batch(0)
+    return _step_card_vs_cpu(cfg, batch, tag,
+                             f"{HYBRID_ARCH} smoke ({cfg.n_layers} layers)")
+
+
+def phase_train(gpu: str, arch: str = TRAIN_ARCH, tag: str = "[train]",
+                n_layers: int | None = None, params=None) -> dict:
+    """The LM training path of ``arch`` at its published widths:
+    ``make_train_step`` for three steps, with its checks and times. Full
+    depth unless ``n_layers`` cuts it (the cut and the bytes that forced
+    it are logged); ``params`` (the serving phase's, on the card) instead
+    of a fresh draw. For an MoE arch also the pairs its routers drop. The
+    checks at 2 layers are the caller's (``main``,
+    :func:`phase_other_families`)."""
     import gc
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import with_frontend
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
     from repro_torch.models.params import init_params, iter_leaves, \
         spec_bytes
     dev = torch.device("cuda")
-    cfg = get_config(TRAIN_ARCH)
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
     b, l, k, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    full_bytes = spec_bytes(M.model_specs(full))
+    cut_bytes = spec_bytes(M.model_specs(cfg))
+    if n_layers is not None:
+        log(f"{tag} depth cut to {n_layers} of {full.n_layers} layers: "
+            f"{cut_bytes} B of fp32 parameters, {4 * cut_bytes} B with "
+            f"gradients and AdamW's two moments; all {full.n_layers} "
+            f"layers: {full_bytes} B, {4 * full_bytes} B with them, "
+            f"beyond the card's "
+            f"{torch.cuda.get_device_properties(0).total_memory} B")
+    else:
+        log(f"{tag} full depth: {cut_bytes} B of fp32 parameters, "
+            f"{4 * cut_bytes} B with gradients and AdamW's two moments")
     t0 = time.perf_counter()
-    params = init_params(M.model_specs(cfg), seed=0, device=dev)
+    if params is None:
+        params = init_params(M.model_specs(cfg), seed=0, device=dev)
+    gates = open_gates(params)
     opt, opt_events = timed_optimizer(optim.make_optimizer(
         cfg.optimizer, optim.cosine_schedule(1e-3, 2, 10)))
     state = {"params": params, "opt": opt.init(params),
@@ -3622,20 +4061,47 @@ def phase_train(gpu: str) -> dict:
     param_bytes = spec_bytes(M.model_specs(cfg))
     state_bytes = sum(t.numel() * t.element_size()
                       for t in (x for _, x in iter_leaves(state)))
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-        f" {cfg.n_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab} (padded {cfg.vocab_padded}), act {cfg.act_dtype}, "
-        f"params {cfg.param_dtype}, {cfg.optimizer} (fp32 moments), remat "
-        f"{cfg.remat_policy}; {param_bytes} B of parameters, {state_bytes} "
-        f"B of train state, drawn on the card in {init_s:.2f} s")
+    layers = ", ".join(f"{kd} x {cfg.n_repeats}" for kd in cfg.pattern)
+    if cfg.family == "encdec":
+        layers += (f"; encoder {cfg.n_enc_layers} x "
+                   f"{', '.join(cfg.enc_pattern)} over {l} frames of width "
+                   f"{cfg.d_frontend}")
+    if cfg.family == "vlm":
+        layers += (f"; {cfg.n_img_tokens} image tokens of width "
+                   f"{cfg.d_frontend}, {gates} xattn layers' gates at "
+                   f"{XATTN_GATE}")
+    if cfg.n_experts:
+        layers += (f"; {cfg.n_experts} experts (padded "
+                   f"{cfg.n_experts_padded}) top-{cfg.top_k}, "
+                   f"{cfg.n_shared_experts} shared, capacity factor "
+                   f"{cfg.capacity_factor}")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers ({layers}), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), act "
+        f"{cfg.act_dtype}, params {cfg.param_dtype}, {cfg.optimizer} (fp32 "
+        f"moments), remat {cfg.remat_policy}; {param_bytes} B of "
+        f"parameters, {state_bytes} B of train state, drawn on the card in "
+        f"{init_s:.2f} s")
     before = {"parameter": _layer_sums(params),
               "moment": _layer_sums(state["opt"])}
     data = SyntheticLMData(vocab=cfg.vocab, seq_len=l, global_batch=b,
                            seed=0)
+
+    def batch_of(i):       # with the frontend's frames / img, if taken
+        return next(with_frontend(cfg, [(i, data.batch(i))], b, l, 0))[1]
+
+    def moe_dropped():     # untimed: step 0's first microbatch, no grad
+        mb = torch.from_numpy(batch_of(0)["tokens"][:b // k]).to(dev)
+        with torch.no_grad(), MoeProbe() as probe:
+            M.forward(cfg, params, mb, remat=False)
+        return [int(x) for x in probe.dropped]
+
+    dropped_before = moe_dropped() if cfg.n_experts else None
+
     step_fn = S.make_train_step(cfg, opt, grad_accum=k)
     steps = []
     for i in range(n):
-        batch = data.batch(i)
+        batch = batch_of(i)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -3649,92 +4115,146 @@ def phase_train(gpu: str) -> dict:
         row = {"step": i, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "ce": float(metrics["ce"]), "z_loss": float(metrics["z_loss"]),
-               "step_ms": ms,
+               "moe_aux": float(metrics["moe_aux"]), "step_ms": ms,
                "fwd_bwd_ms": start.elapsed_time(clip_start),
                "clip_ms": clip_start.elapsed_time(clip_stop),
                "opt_ms": opt_start.elapsed_time(opt_stop),
                "tokens_per_s": b * l / (ms / 1e3)}
         steps.append(row)
-        log(f"[train] step {i}: loss {row['loss']:.6f} (ce {row['ce']:.6f})"
-            f", grad_norm {row['grad_norm']:.6f}; {ms:.3f} ms (host clock, "
+        aux = f", moe_aux {row['moe_aux']:.6f}" if cfg.n_experts else ""
+        log(f"{tag} step {i}: loss {row['loss']:.6f} (ce {row['ce']:.6f}"
+            f"{aux}), grad_norm {row['grad_norm']:.6f}; {ms:.3f} ms (host "
+            f"clock, "
             f"device fenced): forward+backward {row['fwd_bwd_ms']:.3f} ms, "
             f"clip (global norm and scaling) {row['clip_ms']:.3f} ms, "
             f"optimizer {row['opt_ms']:.3f} ms (CUDA events); "
             f"{row['tokens_per_s']:.1f} tokens/s  [{gpu}]")
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
-    require(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
-                for r in steps), "[train] a non-finite loss or grad_norm")
+    require(all(np.isfinite([r["loss"], r["grad_norm"], r["moe_aux"]]).all()
+                for r in steps), f"{tag} a non-finite loss or grad_norm")
     require(int(state["step"]) == int(state["opt"]["count"]) == n,
-            f"[train] step {int(state['step'])}, count "
+            f"{tag} step {int(state['step'])}, count "
             f"{int(state['opt']['count'])}, not {n}")
     for what, tree in (("parameter", params), ("moment", state["opt"])):
         bad = [p for p, t in iter_leaves(tree)
                if not bool(torch.isfinite(t).all())]
-        require(not bad, f"[train] non-finite {what}s in {bad[:3]}")
+        require(not bad, f"{tag} non-finite {what}s in {bad[:3]}")
     after = {"parameter": _layer_sums(params),
              "moment": _layer_sums(state["opt"])}
     for what in before:
         same = _unchanged_layers(before[what], after[what])
-        log(f"[train] {what}s: {sum(len(v) for v in after[what].values())} "
+        log(f"{tag} {what}s: {sum(len(v) for v in after[what].values())} "
             f"sums (one per layer of each stacked leaf) over "
             f"{len(after[what])} leaves, {len(same)} unchanged by {n} steps")
-        require(not same, f"[train] {what} (leaf, layer) unchanged by {n} "
+        require(not same, f"{tag} {what} (leaf, layer) unchanged by {n} "
                 f"steps: {same[:3]}")
-    # Where a step's time goes: one more step, profiled (after the checks
-    # of the three above).
-    prof = profile_ops(lambda: step_fn(state, data.batch(n)),
-                       f"one train step ({b} x {l} tokens, grad_accum {k})",
-                       top=12, tag="train")
+    # Where a step's time goes, op by op: bench_torch/lm_profile.py (a
+    # profiled step's trace takes up to ~35 s to read).
     steady = steps[1:]
     step_ms = float(np.mean([r["step_ms"] for r in steady]))
-    bound = train_bound_ms(cfg, b * l, l, param_bytes)
+    mem_len = {"encdec": l, "vlm": cfg.n_img_tokens}.get(cfg.family, 0)
+    bound = train_bound_ms(cfg, b * l, l, param_bytes, mem_len=mem_len)
     mfu = bound["model_flops"] / (step_ms / 1e3) / BF16_FLOPS_PER_S
-    log(f"[train] steady step {step_ms:.3f} ms (mean of steps 1..{n - 1}),"
+    log(f"{tag} steady step {step_ms:.3f} ms (mean of steps 1..{n - 1}),"
         f" {b * l / (step_ms / 1e3):.1f} tokens/s; bound "
         f"{bound['step_bound_ms']:.3f} ms (forward+backward "
         f"{bound['fwd_bwd_bound_ms']:.3f}: {bound['mm_flops']:.4e} FLOP of "
-        f"weight products at the bf16 peak + {bound['attn_flops']:.4e} of "
-        f"fp32 attention; clip {bound['clip_bound_ms']:.3f}: "
+        f"weight products at the bf16 peak + {bound['fp32_flops']:.4e} of "
+        f"fp32 products; clip {bound['clip_bound_ms']:.3f}: "
         f"{bound['clip_bytes']} B at the HBM rate; optimizer "
         f"{bound['opt_bound_ms']:.3f}: {bound['opt_bytes']} B at the HBM "
         f"rate); model FLOPs "
         f"{bound['model_flops']:.4e} a step, {mfu:.4f} of the bf16 peak "
         f"(finding); peak device memory {peak / 1e9:.3f} GB ({peak} B) of "
         f"{total / 1e9:.3f} GB  [{gpu}]")
+    moe = {}
+    if cfg.n_experts:
+        # The pairs the routers drop at the published capacity factor, on
+        # the first microbatch of step 0: before training and after it.
+        from repro_torch.models.moe import capacity
+        cap = capacity(b // k * l, cfg.top_k, cfg.capacity_factor,
+                       cfg.n_experts_padded)
+        pairs = b // k * l * cfg.top_k
+        moe = {"moe_dropped_per_layer_before": dropped_before,
+               "moe_dropped_per_layer": moe_dropped(),
+               "moe_pairs_per_layer": pairs, "moe_capacity": cap,
+               "moe_aux_per_step": [r["moe_aux"] for r in steps]}
+        log(f"{tag} moe_dropped per layer (first microbatch of step 0): "
+            f"{dropped_before} before training, "
+            f"{moe['moe_dropped_per_layer']} after {n} steps, of "
+            f"{pairs} pairs (capacity {cap} a padded expert, factor "
+            f"{cfg.capacity_factor}); moe_aux per step "
+            f"{[round(x, 6) for x in moe['moe_aux_per_step']]}")
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": full.n_layers, "d_model": cfg.d_model,
+        "param_bytes": param_bytes, "published_param_bytes": full_bytes,
+        "state_bytes": state_bytes, "batch": b, "seq_len": l,
+        "grad_accum": k, "steps": steps, "step_ms": step_ms,
+        "tokens_per_s": b * l / (step_ms / 1e3), "peak_bytes": peak,
+        "total_memory": total, "mfu_bf16": mfu, "gpu": gpu, **bound,
+        **moe,
+    }
     del state, params, metrics, step_fn, opt
     gc.collect()
     torch.cuda.empty_cache()
+    return result
 
-    errs = _train_checks_2_layers(cfg, data.batch(0), dev)
-    log(f"[train] 2 layers, full width, fp32 activations: loss of "
-        f"grad_accum 2 vs 1: relative error {errs['loss_rel_err']:.4e}")
-    for what, err in errs.items():
-        if what == "loss_rel_err":
-            continue
-        ok = err <= TRAIN_GRAD_TOL
-        log(f"[train] 2 layers, full width, fp32 activations: {what}: max "
-            f"error / max|g| over leaves {err:.4e} (tolerance "
-            f"{TRAIN_GRAD_TOL}): {'ok' if ok else 'FAIL'}")
-        require(ok, f"[train] {what} differs: {err:.4e}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    resume = _train_resume_check(dev)
-    ok = resume["resume_loss_rel_err"] <= TRAIN_RESUME_TOL
-    log(f"[train] qwen3-32b smoke, 20 steps, preempted at 10 and resumed: "
-        f"losses within {resume['resume_loss_rel_err']:.4e} relative of the "
-        f"uninterrupted run's (tolerance {TRAIN_RESUME_TOL}; bitwise "
-        f"{resume['resume_bitwise']}): {'ok' if ok else 'FAIL'}")
-    require(ok, "[train] the resumed run disagrees")
-    return {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "param_bytes": param_bytes, "state_bytes": state_bytes,
-        "batch": b, "seq_len": l, "grad_accum": k, "steps": steps,
-        "step_ms": step_ms, "tokens_per_s": b * l / (step_ms / 1e3),
-        "peak_bytes": peak, "total_memory": total, "mfu_bf16": mfu,
-        "gpu": gpu, **bound, "checks_2_layers": errs, **resume,
-        "profile_step": prof,
-    }
+
+def phase_other_families(gpu: str) -> dict:
+    """The families beyond the dense one (ROADMAP A15 (3) (a) + (b)), each
+    phase's result under its key, each phase with its own checks at 2
+    layers and fp32 on the card against the CPU: [train-ssm] (and the
+    2-layer ``grad_accum`` / remat checks), [train-moe] (and the hybrid
+    family's smoke step), [serve-encdec] and [train-encdec] on its
+    weights, [serve-vlm], [train-vlm]. Each logs its own seconds."""
+    from repro_torch.configs import get_config
+    out = {}
+
+    def took(tag, t0):
+        log(f"{tag} phase took {time.perf_counter() - t0:.1f} s  [{gpu}]")
+
+    t0, tag = time.perf_counter(), "[train-ssm]"
+    r = out["train_ssm"] = phase_train(gpu, TRAIN_SSM_ARCH, tag)
+    r["card_vs_cpu_2_layers"] = _train_card_vs_cpu(
+        get_config(TRAIN_SSM_ARCH), tag)
+    r["checks_2_layers"] = train_checks_2_layers(TRAIN_SSM_ARCH, tag)
+    took(tag, t0)
+
+    t0, tag = time.perf_counter(), "[train-moe]"
+    r = out["train_moe"] = phase_train(gpu, TRAIN_MOE_ARCH, tag,
+                                       n_layers=TRAIN_MOE_LAYERS)
+    r["card_vs_cpu_2_layers"] = _train_card_vs_cpu(
+        get_config(TRAIN_MOE_ARCH), tag)
+    r["hybrid_smoke_card_vs_cpu"] = _hybrid_smoke_card_vs_cpu(tag)
+    took(tag, t0)
+
+    t0, tag = time.perf_counter(), "[serve-encdec]"
+    r = out["serve_encdec"] = phase_serve(gpu, ENCDEC_ARCH, tag,
+                                          keep_params=True)
+    r["card_vs_cpu_2_layers"] = _serve_card_vs_cpu(get_config(ENCDEC_ARCH),
+                                                   tag)
+    took(tag, t0)
+
+    t0, tag = time.perf_counter(), "[train-encdec]"
+    r = out["train_encdec"] = phase_train(
+        gpu, ENCDEC_ARCH, tag, params=out["serve_encdec"].pop("params"))
+    r["card_vs_cpu_2_layers"] = _train_card_vs_cpu(get_config(ENCDEC_ARCH),
+                                                   tag)
+    took(tag, t0)
+
+    t0, tag = time.perf_counter(), "[serve-vlm]"
+    r = out["serve_vlm"] = phase_serve(gpu, VLM_ARCH, tag)
+    r["card_vs_cpu_2_layers"] = _serve_card_vs_cpu(get_config(VLM_ARCH), tag)
+    took(tag, t0)
+
+    t0, tag = time.perf_counter(), "[train-vlm]"
+    r = out["train_vlm"] = phase_train(gpu, VLM_ARCH, tag,
+                                       n_layers=TRAIN_VLM_LAYERS)
+    r["card_vs_cpu_2_layers"] = _train_card_vs_cpu(get_config(VLM_ARCH), tag)
+    took(tag, t0)
+    return out
 
 
 def main() -> int:
@@ -3747,47 +4267,68 @@ def main() -> int:
     gpu = gpu_info()
     log(f"[gpu] {gpu}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
+    laps = [t_all]
+
+    def lap(what):         # each phase's seconds, for the time limit
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - laps[-1]:.1f} s ({now - t_all:.1f} s "
+            f"in all)")
+        laps.append(now)
+
     phase_build()
+    lap("[build]")
     phase_lowering()
+    lap("[lowering]")
     phase_l2_rate(dev, gpu)
     phase_kernels(dev)
     phase_stream_kernels(dev)
     phase_fused_kernels(dev)
+    lap("[gpu] [kernels] [stream-kernels] [fused-kernels]")
     ft, b1_fits, main_rows = phase_main(dev, gpu)
+    lap("[main] (the nell-2 stand-in's generation included)")
     main_rows.update(phase_fused_main(ft, b1_fits, dev, gpu))
+    lap("[fused-main] [auto]")
     main_rows.update(phase_stream_main(ft, dev, gpu))
+    lap("[stream-main]")
     main_rows.update(phase_bf16_main(ft, dev, gpu))
+    lap("[bf16-main]")
     # The [dist-main] path's launches, read apart from the D=1 paths'.
     dist_launches = {"fused_mttkrp_nmode_gather":
                      phase_dist_main(ft, dev, gpu)}
+    lap("[dist-main]")
     phase_four_mode(dev)
     phase_recovery()
     phase_bf16_kernels(dev)
     t_fit, fits_fit = phase_bf16_fit(gpu)
     phase_dist_fit(t_fit, fits_fit, gpu)
     del t_fit
+    lap("[four-mode] [recovery] [bf16-kernels] [bf16-fit] [dist-fit]")
     # The [resilience] path's launches (the stepped driver), read apart.
     res_launches = phase_resilience(ft, b1_fits, dev, gpu)
+    lap("[resilience]")
     # The [obs] paths' launches: the counted run and [auto-stream]'s auto.
     obs = phase_obs(ft, dev, gpu)
+    lap("[obs] [auto-stream]")
     # The [tune] paths' launches: the calibration and the tuned run.
     tune_launches, tune_main_launches = phase_tune(
         ft, b1_fits, obs["auto_stream_keys"], dev, gpu)
     del ft
+    _RUNTIMES.clear()
+    lap("[tune]")
     cli_launches = phase_cli()
     examples_launches = phase_examples(gpu)
-    t_serve = time.perf_counter()
+    lap("[cli] [examples]")
     serve = phase_serve(gpu)
-    log(f"[serve] phase took {time.perf_counter() - t_serve:.1f} s")
-    t_serve = time.perf_counter()
+    lap("[serve]")
     serve_moe = phase_serve(gpu, SERVE_MOE_ARCH, "[serve-moe]")
-    log(f"[serve-moe] phase took {time.perf_counter() - t_serve:.1f} s")
-    t_serve = time.perf_counter()
+    lap("[serve-moe]")
     serve_ssm = phase_serve(gpu, SERVE_SSM_ARCH, "[serve-ssm]")
-    log(f"[serve-ssm] phase took {time.perf_counter() - t_serve:.1f} s")
-    t_train = time.perf_counter()
+    lap("[serve-ssm]")
     train = phase_train(gpu)
-    log(f"[train] phase took {time.perf_counter() - t_train:.1f} s")
+    train["checks_2_layers"] = train_checks_2_layers(TRAIN_ARCH, "[train]")
+    train.update(train_resume_check("[train]"))
+    lap("[train]")
+    lm = phase_other_families(gpu)
     kernels = []
     for name, (launches, rows) in main_rows.items():
         kernels.append({
@@ -3834,6 +4375,8 @@ def main() -> int:
     print(json.dumps({"serve_moe": serve_moe}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"train": train}))
+    for key, result in lm.items():
+        print(json.dumps({key: result}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

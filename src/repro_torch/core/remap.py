@@ -32,11 +32,12 @@ __all__ = [
 def remap_capacities(ft: FlycooTensor) -> list[int]:
     """Per-transition max (src, dst) exchange sizes, mode n → n+1 (cyclic)."""
     D = ft.params.num_workers
+    if D == 1:                          # one worker sends itself everything
+        return [max(1, ft.nnz)] * ft.nmodes
+    owners = [ft.owner_of(n).astype(np.int64) for n in range(ft.nmodes)]
     caps = []
     for n in range(ft.nmodes):
-        nxt = (n + 1) % ft.nmodes
-        src = ft.owner_of(n).astype(np.int64)
-        dst = ft.owner_of(nxt).astype(np.int64)
+        src, dst = owners[n], owners[(n + 1) % ft.nmodes]
         counts = np.bincount(src * D + dst, minlength=D * D)
         caps.append(max(1, int(counts.max())))
     return caps

@@ -1,9 +1,10 @@
 """Sparse tensor containers and seeded synthetic generators.
 
-The port's own copy of ``repro/core/tensors.py`` (numpy only): the same
-seed gives the same tensor bit for bit, so the CPU parity tests can feed
-one generator's output to both packages, and :func:`save_tns` writes the
-reference's bytes for the same tensor.
+The port's own copy of ``repro/core/tensors.py`` (numpy, and torch's
+stable sort in :func:`_dedup`): the same seed gives the same tensor bit
+for bit, so the CPU parity tests can feed one generator's output to both
+packages, and :func:`save_tns` writes the reference's bytes for the same
+tensor.
 
 The paper evaluates on FROSTT tensors (Nell-1/2, Flickr, Delicious, Vast).
 Those are multi-GB downloads, so the benchmark suite uses *FROSTT-scaled
@@ -17,6 +18,7 @@ import math
 from typing import Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "SparseTensor",
@@ -69,13 +71,18 @@ class SparseTensor:
 
 
 def _dedup(indices: np.ndarray, values: np.ndarray, shape) -> SparseTensor:
-    """Sum duplicate coordinates (canonical COO)."""
+    """Sum duplicate coordinates (canonical COO), each coordinate's values
+    in their drawn order. The stable sort is torch's (the same permutation
+    as numpy's stable ``argsort``, which is several times slower on the
+    host at tens of millions of keys)."""
     flat = np.ravel_multi_index(tuple(indices.T), shape)
-    order = np.argsort(flat, kind="stable")
-    flat, indices, values = flat[order], indices[order], values[order]
-    uniq, start = np.unique(flat, return_index=True)
-    summed = np.add.reduceat(values, start)
-    return SparseTensor(indices[start].astype(np.int32), summed.astype(values.dtype), tuple(shape))
+    key, order = torch.sort(torch.from_numpy(flat), stable=True)
+    key, order = key.numpy(), order.numpy()
+    start = np.flatnonzero(np.concatenate(([key.size > 0],
+                                           key[1:] != key[:-1])))
+    summed = np.add.reduceat(values[order], start)
+    return SparseTensor(indices[order[start]].astype(np.int32),
+                        summed.astype(values.dtype), tuple(shape))
 
 
 def random_sparse_tensor(

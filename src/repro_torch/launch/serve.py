@@ -8,11 +8,14 @@ per-layer cache tree, written in place. Greedy or temperature sampling.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke
 
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
-Every arch of the dense, MoE, SSM and hybrid families runs; the
-``encdec`` and ``vlm`` families (and the int8 KV cache) raise
-``NotImplementedError`` (ROADMAP A15 (3)).
+Every arch of the ten runs; the int8 KV cache raises
+``NotImplementedError`` (ROADMAP A15 (3)). The ``encdec`` and ``vlm``
+families take their stub frontend's embeddings in ``generate``'s
+``extras`` (``frames`` / ``img``); ``main`` draws them as
+``repro/launch/serve.py``'s ``main`` does.
 
 Timing: ``serve.prefill_s`` and ``serve.decode_s`` fence the device before
 each clock read, so they time the card's work and not the launches. (The
@@ -36,7 +39,7 @@ from ..obs import counters as _obs
 from ..obs import tracer as _tracer_mod
 from ..runtime.device import resolve_device
 
-__all__ = ["ServeSession", "main"]
+__all__ = ["ServeSession", "main", "frontend_extras"]
 
 
 def _fence(device: torch.device) -> None:
@@ -115,7 +118,8 @@ class ServeSession:
 def _pad_caches(cache, prompt_len: int, max_len: int):
     """Grow the seq dim (axis 2 after layer stacking) of the K/V (and
     ``k_scale``) entries to ``max_len``; other entries (mamba's ``conv``
-    and ``ssd`` state) stay as they are."""
+    and ``ssd`` state, the cross-attention ``ck`` / ``cv`` of the memory,
+    which decode reads whole) stay as they are."""
     out = {}
     for key, c in cache.items():
         if isinstance(c, dict):
@@ -140,6 +144,20 @@ def _sample(logits, temperature, generator, vocab):
         torch.int32)
 
 
+def frontend_extras(cfg, rng, batch: int, prompt_len: int, device) -> dict:
+    """The stub frontend's embeddings, as ``repro/launch/serve.py``'s
+    ``main`` draws them from ``rng`` after the prompts: ``frames`` ``(batch, prompt_len,
+    d_frontend)`` (``encdec``) or ``img`` ``(batch, n_img_tokens,
+    d_frontend)`` (``vlm``), standard normal float32; ``{}`` for the other
+    families."""
+    input_ = model_lib.frontend_shape(cfg, batch, prompt_len)
+    if input_ is None:
+        return {}
+    key, shape = input_
+    return {key: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -158,10 +176,12 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)
                            ).astype(np.int32)
+    extras = frontend_extras(cfg, rng, args.batch, args.prompt_len, dev)
     sess = ServeSession(cfg, params, device=dev,
                         max_len=args.prompt_len + args.tokens + 1)
     t0 = time.perf_counter()
-    out = sess.generate(prompts, args.tokens, temperature=args.temperature)
+    out = sess.generate(prompts, args.tokens, temperature=args.temperature,
+                        extras=extras)
     dt = time.perf_counter() - t0
     print(f"generated {out.shape} in {dt:.2f}s "
           f"({args.batch * args.tokens / dt:.1f} tok/s on {dev})")

@@ -13,11 +13,12 @@ On hardware the same driver runs the full config at a production shape
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
 With a checkpoint directory the loop runs under ``runtime.
 TrainLoopRunner`` (atomic checkpoints, auto-resume, bounded retry,
-straggler telemetry). Only the dense family trains so far: an arch with
-a ``moe`` or ``mamba`` layer raises ``NotImplementedError`` before any
-parameter is drawn (``steps.require_trainable``), the ``encdec`` / ``vlm``
-families from ``model_specs`` (ROADMAP A15 (3)), and there is no mesh
-(``use_mesh`` is accepted and does nothing).
+straggler telemetry). Every family trains; there is no mesh yet
+(``use_mesh`` is accepted and does nothing, ROADMAP A15 (3)). The
+``encdec`` and ``vlm`` families get the stub frontend's inputs of
+``repro/launch/train.py`` with each batch: ``frames`` ``(batch, seq, d_frontend)`` or
+``img`` ``(batch, n_img_tokens, d_frontend)``, standard normal float32
+from ``numpy.random.default_rng(seed * 131 + step)``.
 
 Resuming. A checkpoint of step ``s`` holds the state after step ``s``,
 and its ``state["step"]`` counts the steps taken. The driver resumes the
@@ -30,6 +31,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
@@ -42,7 +44,21 @@ from ..runtime.device import resolve_device
 from ..runtime.fault_tolerance import TrainLoopRunner
 from .. import optim as optim_lib
 
-__all__ = ["train", "main"]
+__all__ = ["train", "main", "with_frontend"]
+
+
+def with_frontend(cfg, data, batch: int, seq: int, seed: int):
+    """``(step, batch)`` pairs of ``data`` with the stub frontend's input
+    added for the ``encdec`` (``frames``) and ``vlm`` (``img``) families,
+    drawn as ``repro/launch/train.py``'s ``batched`` draws them."""
+    input_ = model_lib.frontend_shape(cfg, batch, seq)
+    for step, b in data:
+        if input_ is not None:
+            key, shape = input_
+            rng = np.random.default_rng(seed * 131 + step)
+            b = dict(b, **{key: rng.standard_normal(shape).astype(
+                np.float32)})
+        yield step, b
 
 
 def train(arch: str, *, smoke: bool = False, steps: int = 20,
@@ -54,7 +70,6 @@ def train(arch: str, *, smoke: bool = False, steps: int = 20,
     per step run (and ``"time_s"`` under the runner)."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
-    steps_lib.require_trainable(cfg)
     opt = optim_lib.make_optimizer(
         cfg.optimizer, optim_lib.cosine_schedule(lr, max(2, steps // 10),
                                                  max(steps, 10)))
@@ -70,10 +85,12 @@ def train(arch: str, *, smoke: bool = False, steps: int = 20,
         start = int(state["step"])
         data = make_batch_iterator(cfg.vocab, seq, batch, seed=seed,
                                    start_step=start)
-        return runner.run(state, data, steps, start_step=start)
+        return runner.run(state, with_frontend(cfg, data, batch, seq, seed),
+                          steps, start_step=start)
 
     history = []
-    for step, b in make_batch_iterator(cfg.vocab, seq, batch, seed=seed):
+    data = make_batch_iterator(cfg.vocab, seq, batch, seed=seed)
+    for step, b in with_frontend(cfg, data, batch, seq, seed):
         if step >= steps:
             break
         state, metrics = step_fn(state, b)

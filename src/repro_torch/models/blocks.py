@@ -1,11 +1,12 @@
 """Layer blocks: ``<mixer>+<ffn>`` kinds, with forward / prefill / decode.
 
-Port of ``repro/models/blocks.py`` for the dense, MoE, SSM and hybrid
-families: the ``attn`` (causal self-attention), ``attn_local``
-(chunked-local causal, llama4 iRoPE) and ``mamba`` (SSD) mixers, and the
-``mlp`` (SwiGLU), ``moe`` and ``none`` FFNs. The cross-attention mixers of
-the reference (``xattn``, ``attn_cross``) and the int8 KV cache raise
-``NotImplementedError``: they come with a later part of ROADMAP A15 (3).
+Port of ``repro/models/blocks.py``. Mixers: ``attn`` (causal
+self-attention), ``attn_local`` (chunked-local causal, llama4 iRoPE),
+``xattn`` (cross-attention only, llama-3.2-vision style, with a learned
+``tanh`` gate), ``attn_cross`` (self then cross: the enc-dec decoder) and
+``mamba`` (SSD). FFNs: ``mlp`` (SwiGLU), ``moe`` and ``none``. The int8 KV
+cache raises ``NotImplementedError``: it comes with a later part of
+ROADMAP A15 (3).
 
 Every kind exposes the same three entry points so the model can loop over
 a heterogeneous pattern uniformly:
@@ -14,7 +15,9 @@ a heterogeneous pattern uniformly:
   * ``block_prefill`` — forward + build this block's decode cache;
   * ``block_decode``  — one-token step writing the new K/V (or the new
     SSM state) into the cache in place (the reference's
-    ``dynamic_update_slice`` on a donated cache).
+    ``dynamic_update_slice`` on a donated cache). The cross-attention
+    K/V (``ck`` / ``cv``) are computed once from the memory at prefill
+    and only read after.
 
 The reference's ``shard(...)`` activation constraints are the identity
 without a mesh; they return with the mesh (ROADMAP A15 (3)).
@@ -42,16 +45,16 @@ def parse_kind(kind: str) -> tuple[str, str]:
     return mixer, (ffn or "none")
 
 
+_MIXERS = ("attn", "attn_local", "xattn", "attn_cross", "mamba")
+_SELF = ("attn", "attn_local", "attn_cross")     # mixers with a K/V cache
+_CROSS = ("xattn", "attn_cross")                 # mixers reading memory
+
+
 def require_supported(cfg, kind: str) -> tuple[str, str]:
     """``parse_kind``, raising ``NotImplementedError`` for what the port
-    does not run yet (the ``xattn`` and ``attn_cross`` mixers, the int8
-    KV cache)."""
+    does not run yet (the int8 KV cache)."""
     mixer, ffn = parse_kind(kind)
-    if mixer in ("xattn", "attn_cross"):
-        raise NotImplementedError(
-            f"the {mixer!r} mixer ({cfg.name}) is not ported yet: "
-            f"{_LATER}")
-    if mixer not in ("attn", "attn_local", "mamba"):
+    if mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
@@ -66,17 +69,19 @@ def require_supported(cfg, kind: str) -> tuple[str, str]:
 # Specs
 # ---------------------------------------------------------------------------
 
-def _attn_specs(cfg, dtype) -> dict:
+def _attn_specs(cfg, dtype, prefix="") -> dict:
     d, qd, kvd, dh = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, qd), ("embed", "heads"), dtype=dtype),
-        "wk": ParamSpec((d, kvd), ("embed", "kv"), dtype=dtype),
-        "wv": ParamSpec((d, kvd), ("embed", "kv"), dtype=dtype),
-        "wo": ParamSpec((qd, d), ("heads", "embed"), dtype=dtype),
+        prefix + "wq": ParamSpec((d, qd), ("embed", "heads"), dtype=dtype),
+        prefix + "wk": ParamSpec((d, kvd), ("embed", "kv"), dtype=dtype),
+        prefix + "wv": ParamSpec((d, kvd), ("embed", "kv"), dtype=dtype),
+        prefix + "wo": ParamSpec((qd, d), ("heads", "embed"), dtype=dtype),
     }
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((dh,), (None,), init="ones", dtype=dtype)
-        s["k_norm"] = ParamSpec((dh,), (None,), init="ones", dtype=dtype)
+        s[prefix + "q_norm"] = ParamSpec((dh,), (None,), init="ones",
+                                         dtype=dtype)
+        s[prefix + "k_norm"] = ParamSpec((dh,), (None,), init="ones",
+                                         dtype=dtype)
     return s
 
 
@@ -85,8 +90,15 @@ def block_specs(cfg, kind: str, dtype) -> dict:
     s: dict = {"ln1": norm_spec(cfg.d_model, dtype)}
     if mixer == "mamba":
         s.update(ssm_lib.mamba_specs(cfg, dtype))
+    elif mixer == "xattn":
+        s.update(_attn_specs(cfg, dtype, prefix="x_"))
+        s["x_gate"] = ParamSpec((1,), (None,), init="zeros",
+                                dtype=torch.float32)
     else:
         s.update(_attn_specs(cfg, dtype))
+        if mixer == "attn_cross":
+            s["ln_cross"] = norm_spec(cfg.d_model, dtype)
+            s.update(_attn_specs(cfg, dtype, prefix="x_"))
     if ffn == "mlp":
         s["ln2"] = norm_spec(cfg.d_model, dtype)
         s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, dtype)
@@ -116,9 +128,63 @@ def _qkv(cfg, p, h):
     return q, k, v
 
 
-def _out_proj(cfg, p, out, h):
+def _kv_only(cfg, p, mem):
+    """The cross-attention K/V of the memory ``mem[(b, lm, d)]``."""
+    b, lm, _ = mem.shape
+    dh = cfg.head_dim
+    k = torch.matmul(mem, p["x_wk"].to(mem.dtype)).reshape(
+        b, lm, cfg.n_kv_heads, dh)
+    v = torch.matmul(mem, p["x_wv"].to(mem.dtype)).reshape(
+        b, lm, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["x_k_norm"])
+    return k, v
+
+
+def _out_proj(cfg, p, out, h, name="wo"):
     b, l = h.shape[:2]
-    return torch.matmul(out.reshape(b, l, cfg.q_dim), p["wo"].to(h.dtype))
+    return torch.matmul(out.reshape(b, l, cfg.q_dim), p[name].to(h.dtype))
+
+
+def _cross_q(cfg, p, x):
+    b, l, _ = x.shape
+    q = torch.matmul(x, p["x_wq"].to(x.dtype)).reshape(b, l, cfg.n_heads,
+                                                        cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["x_q_norm"])
+    return q
+
+
+def _gated(p, out):
+    """``tanh(x_gate) · out`` where the block has a gate (``xattn``)."""
+    if "x_gate" in p:
+        out = torch.tanh(p["x_gate"]).to(out.dtype) * out
+    return out
+
+
+def _cross_attn(cfg, p, x, memory):
+    """Cross-attention of ``x`` over the whole memory (``mode="full"``,
+    every position 0, as the reference): ``(mix, k, v)``, ``k`` / ``v``
+    the memory's K/V."""
+    b, l, _ = x.shape
+    q = _cross_q(cfg, p, x)
+    k, v = _kv_only(cfg, p, memory)
+    lm = memory.shape[1]
+    out = attn_lib.flash_attention(
+        q, k, v, mode="full",
+        pos_q=torch.zeros((b, l), dtype=torch.int32, device=x.device),
+        pos_k=torch.zeros((b, lm), dtype=torch.int32, device=x.device))
+    return _gated(p, _out_proj(cfg, p, out, x, "x_wo")), k, v
+
+
+def _decode_cross(cfg, p, x, cache):
+    """One token's cross-attention over the cached memory K/V: every
+    ``lm`` slot (``cur_pos = lm - 1``, ``mode="full"``)."""
+    lm = cache["ck"].shape[1]
+    out = attn_lib.decode_attention(
+        _cross_q(cfg, p, x), cache["ck"].to(x.dtype),
+        cache["cv"].to(x.dtype), cur_pos=lm - 1, mode="full")
+    return _gated(p, _out_proj(cfg, p, out, x, "x_wo"))
 
 
 def _self_attn(cfg, p, x, pos, mode):
@@ -151,14 +217,22 @@ def _with_ffn(cfg, p, h, ffn: str):
 # ---------------------------------------------------------------------------
 
 def block_apply(cfg, kind: str, p, h, *, pos, memory=None, mode="causal"):
-    """Full-sequence forward. Returns ``(h', metrics)``."""
+    """Full-sequence forward. Returns ``(h', metrics)``. ``memory``
+    (``(b, lm, d)``) is what the ``xattn`` and ``attn_cross`` mixers
+    attend to."""
     mixer, ffn = require_supported(cfg, kind)
     x = rms_norm(h, p["ln1"])
     if mixer == "mamba":
         mix = ssm_lib.mamba_apply(p, x, cfg)
+    elif mixer == "xattn":
+        mix, _, _ = _cross_attn(cfg, p, x, memory)
     else:
         mix, _, _ = _self_attn(cfg, p, x, pos,
                                "local" if mixer == "attn_local" else mode)
+        if mixer == "attn_cross":
+            h = h + mix
+            mix, _, _ = _cross_attn(cfg, p, rms_norm(h, p["ln_cross"]),
+                                    memory)
     return _with_ffn(cfg, p, h + mix, ffn)
 
 
@@ -169,8 +243,9 @@ def block_apply(cfg, kind: str, p, h, *, pos, memory=None, mode="causal"):
 def block_cache_specs(cfg, kind: str, batch: int, seq: int, mem_len: int,
                       dtype=torch.bfloat16) -> dict:
     """Cache (shape, logical axes, dtype) for one block: bf16 K/V of
-    ``seq`` slots for attention, the float32 ``conv`` tail and ``ssd``
-    state for mamba."""
+    ``seq`` slots for self-attention, bf16 ``ck`` / ``cv`` of ``mem_len``
+    slots for cross-attention, the float32 ``conv`` tail and ``ssd`` state
+    for mamba."""
     mixer, _ = require_supported(cfg, kind)
     if mixer == "mamba":
         shapes = ssm_lib.mamba_cache_shape(cfg, batch)
@@ -178,25 +253,42 @@ def block_cache_specs(cfg, kind: str, batch: int, seq: int, mem_len: int,
                          torch.float32),
                 "ssd": (shapes["ssd"], ("batch", "act_heads", None, None),
                         torch.float32)}
-    kv = ("batch", "seq_shard", None, None)
-    shp = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shp, kv, dtype), "v": (shp, kv, dtype)}
+    out = {}
+    if mixer in _SELF:
+        kv = ("batch", "seq_shard", None, None)
+        shp = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        out["k"], out["v"] = (shp, kv, dtype), (shp, kv, dtype)
+    if mixer in _CROSS:
+        shp = (batch, mem_len, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("batch", None, None, None)
+        out["ck"], out["cv"] = (shp, axes, dtype), (shp, axes, dtype)
+    return out
 
 
 def block_prefill(cfg, kind: str, p, h, *, pos, memory=None):
     """Forward + build this block's decode cache. Returns (h', cache).
 
-    K/V are stored as bf16 whatever the activation dtype; the mamba state
-    as float32."""
+    K/V (and the memory's ``ck`` / ``cv``) are stored as bf16 whatever
+    the activation dtype; the mamba state as float32. The reference
+    computes the memory's K/V twice, for the attention and for the cache;
+    the port keeps them from the one computation."""
     mixer, ffn = require_supported(cfg, kind)
     x = rms_norm(h, p["ln1"])
     if mixer == "mamba":
         mix, cache = ssm_lib.mamba_prefill(p, x, cfg)
+    elif mixer == "xattn":
+        mix, ck, cv = _cross_attn(cfg, p, x, memory)
+        cache = {"ck": ck.to(torch.bfloat16), "cv": cv.to(torch.bfloat16)}
     else:
         mix, k, v = _self_attn(cfg, p, x, pos,
                                "local" if mixer == "attn_local"
                                else "causal")
         cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        if mixer == "attn_cross":
+            h = h + mix
+            mix, ck, cv = _cross_attn(cfg, p, rms_norm(h, p["ln_cross"]),
+                                      memory)
+            cache.update(ck=ck.to(torch.bfloat16), cv=cv.to(torch.bfloat16))
     h, _ = _with_ffn(cfg, p, h + mix, ffn)
     return h, cache
 
@@ -205,7 +297,8 @@ def block_decode(cfg, kind: str, p, h, cache, *, pos: int, memory=None):
     """One-token step. ``h[(b, 1, d)]``; ``pos`` = slot of the new token
     (cache slots ``< pos`` already filled). Writes the new K/V into
     ``cache["k"]``/``cache["v"]`` at ``pos``, or the new ``conv`` /
-    ``ssd`` state over the old, in place; returns ``(h', cache)``."""
+    ``ssd`` state over the old, in place; the cross-attention ``ck`` /
+    ``cv`` are read; returns ``(h', cache)``."""
     mixer, ffn = require_supported(cfg, kind)
     pos = int(pos)
     x = rms_norm(h, p["ln1"])
@@ -213,6 +306,8 @@ def block_decode(cfg, kind: str, p, h, cache, *, pos: int, memory=None):
         mix, state = ssm_lib.mamba_decode(p, x, cache, cfg)
         for name, t in state.items():
             cache[name].copy_(t)
+    elif mixer == "xattn":
+        mix = _decode_cross(cfg, p, x, cache)
     else:
         b = h.shape[0]
         q, k, v = _qkv(cfg, p, x)
@@ -227,5 +322,8 @@ def block_decode(cfg, kind: str, p, h, cache, *, pos: int, memory=None):
             mode="local" if mixer == "attn_local" else "causal",
             window=cfg.window)
         mix = _out_proj(cfg, p, out, h)
+        if mixer == "attn_cross":
+            h = h + mix
+            mix = _decode_cross(cfg, p, rms_norm(h, p["ln_cross"]), cache)
     h, _ = _with_ffn(cfg, p, h + mix, ffn)
     return h, cache

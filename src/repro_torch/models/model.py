@@ -1,13 +1,12 @@
 """Unified LM: embedding → stacked block pattern → logits.
 
-Port of ``repro/models/model.py`` for the dense, MoE, SSM and hybrid
-families. Parameters for
-each pattern position are stacked along a leading ``layers`` axis, as in
-the reference; where the reference scans over that axis, the port runs a
-Python loop over views of it (no copies). Caches are stacked the same way,
-``(n_repeats, b, S, kh, dh)`` for attention's K/V and ``(n_repeats, b,
-…)`` for mamba's ``conv`` and ``ssd`` state, with the reference's keys and
-dtypes.
+Port of ``repro/models/model.py`` for all six families (dense, MoE, SSM,
+hybrid, enc-dec, VLM). Parameters for each pattern position are stacked
+along a leading ``layers`` axis, as in the reference; where the reference
+scans over that axis, the port runs a Python loop over views of it (no
+copies). Caches are stacked the same way, ``(n_repeats, b, S, kh, dh)``
+for attention's K/V and ``(n_repeats, b, …)`` for mamba's ``conv`` and
+``ssd`` state, with the reference's keys and dtypes.
 
 Entry points:
   * ``forward``      — full-sequence logits (training / teacher forcing);
@@ -24,11 +23,19 @@ of ``dots_with_no_batch_dims_saveable``) keeps the outputs of ``aten.mm``,
 the weight products, which ``torch.matmul`` of ``(b, l, d) @ (d, f)``
 lowers to, and recomputes attention's batched products with the rest.
 
-The ``encdec`` and ``vlm`` branches (the encoder scan, the image
-projection) come with a later part of ROADMAP A15 (3).
+The ``encdec`` and ``vlm`` families attend to a memory (the reference's
+stub frontends): ``frames`` ``(b, l_src, d_frontend)`` go through
+``encoder.frontend_proj`` and the encoder's stacked ``enc_pattern``
+blocks (bidirectional, ``mode="full"``, remat ``nothing`` per repeat
+group), ``img`` ``(b, n_img_tokens, d_frontend)`` through ``img_proj``.
+The memory is handed to each checkpointed layer group as an argument, so
+the encoder (or ``img_proj``) gets its gradient through every
+cross-attention layer. ``decode_step`` needs no memory: prefill caches
+each cross-attention layer's memory K/V (``ck`` / ``cv``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -42,6 +49,7 @@ from .params import ParamSpec, torch_dtype
 
 __all__ = [
     "model_specs", "forward", "prefill", "decode_step", "cache_specs",
+    "frontend_shape",
 ]
 
 
@@ -59,15 +67,7 @@ def _stack_specs(specs, n: int):
     return {k: _stack_specs(v, n) for k, v in specs.items()}
 
 
-def _require_ported(cfg):
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}: encoder / image "
-            "memory) is not ported yet: ROADMAP A15 (3)")
-
-
 def model_specs(cfg) -> dict:
-    _require_ported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
     specs: dict = {
@@ -84,6 +84,21 @@ def model_specs(cfg) -> dict:
         specs["lm_head"] = ParamSpec((cfg.vocab_padded, d),
                                      ("vocab", "embed"), init="small",
                                      dtype=dtype)
+    if cfg.family == "encdec":
+        n_enc_rep = cfg.n_enc_layers // len(cfg.enc_pattern)
+        specs["encoder"] = {
+            "frontend_proj": ParamSpec(
+                (cfg.d_frontend or d, d), (None, "embed"), dtype=dtype),
+            "blocks": {
+                f"p{j}": _stack_specs(blk.block_specs(cfg, kind, dtype),
+                                      n_enc_rep)
+                for j, kind in enumerate(cfg.enc_pattern)
+            },
+            "norm": norm_spec(d, dtype),
+        }
+    if cfg.family == "vlm":
+        specs["img_proj"] = ParamSpec((cfg.d_frontend or d, d),
+                                      (None, "embed"), dtype=dtype)
     return specs
 
 
@@ -101,7 +116,7 @@ def _layer(tree, r: int):
 
 
 def _positions(tokens):
-    b, l = tokens.shape
+    b, l = tokens.shape[:2]
     return torch.arange(l, dtype=torch.int32,
                         device=tokens.device)[None].expand(b, l)
 
@@ -140,21 +155,24 @@ def _checkpointed(cfg, fn):
                                     context_fn=context_fn)
 
 
-def _run_blocks(cfg, blocks, h, pos, remat: bool):
+def _run_blocks(cfg, blocks, h, pos, memory, remat: bool):
     """The layer loop of ``forward``; returns ``(h, moe aux)``.
 
     Remat is per repeat group, as the reference checkpoints its scan
     body; a group of more than two layers also checkpoints each layer, so
-    the backward recomputes one layer's residuals at a time."""
-    def one_layer(kind, p, h):
-        return blk.block_apply(cfg, kind, p, h, pos=pos, mode="causal")
+    the backward recomputes one layer's residuals at a time. ``memory``
+    (``None`` but for ``encdec`` / ``vlm``) is an argument of each
+    checkpointed function, as the hidden state is."""
+    def one_layer(kind, p, h, memory):
+        return blk.block_apply(cfg, kind, p, h, pos=pos, memory=memory,
+                               mode="causal")
 
     if remat and len(cfg.pattern) > 2:
         one_layer = _checkpointed(cfg, one_layer)
 
-    def body(h, aux, group):
+    def body(h, aux, group, memory):
         for j, kind in enumerate(cfg.pattern):
-            h, metrics = one_layer(kind, group[f"p{j}"], h)
+            h, metrics = one_layer(kind, group[f"p{j}"], h, memory)
             if "moe_aux" in metrics:       # summed in the reference's order
                 aux = aux + metrics["moe_aux"]
         return h, aux
@@ -163,8 +181,55 @@ def _run_blocks(cfg, blocks, h, pos, remat: bool):
         body = _checkpointed(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for r in range(cfg.n_repeats):
-        h, aux = body(h, aux, _layer(blocks, r))
+        h, aux = body(h, aux, _layer(blocks, r), memory)
     return h, aux
+
+
+def _run_encoder(cfg, enc, h, pos, remat: bool):
+    """The encoder's stacked ``enc_pattern`` groups, bidirectional
+    (``mode="full"``), then its norm. Under ``remat`` each group is
+    checkpointed with the reference's ``nothing_saveable``, whatever the
+    config's ``remat_policy``."""
+    def body(h, group):
+        for j, kind in enumerate(cfg.enc_pattern):
+            h, _ = blk.block_apply(cfg, kind, group[f"p{j}"], h, pos=pos,
+                                   mode="full")
+        return h
+
+    if remat:
+        body = _checkpointed(dataclasses.replace(cfg, remat_policy="nothing"),
+                             body)
+    for r in range(cfg.n_enc_layers // len(cfg.enc_pattern)):
+        h = body(h, _layer(enc["blocks"], r))
+    return rms_norm(h, enc["norm"])
+
+
+def frontend_shape(cfg, batch: int, seq: int):
+    """``(key, shape)`` of the stub frontend's input a batch of ``batch``
+    sequences of ``seq`` tokens takes: ``("frames", (batch, seq,
+    d_frontend))`` for ``encdec``, ``("img", (batch, n_img_tokens,
+    d_frontend))`` for ``vlm``; ``None`` for the other families."""
+    d_in = cfg.d_frontend or cfg.d_model
+    if cfg.family == "encdec":
+        return "frames", (batch, seq, d_in)
+    if cfg.family == "vlm":
+        return "img", (batch, cfg.n_img_tokens, d_in)
+    return None
+
+
+def _memory_of(cfg, params, frames=None, img=None, remat: bool = True):
+    """The stub frontend's embeddings → the backbone's memory
+    ``(b, lm, d)`` in the activation dtype: the encoder's output of
+    ``frames`` (``encdec``), the projected ``img`` (``vlm``), else
+    ``None``."""
+    act = torch_dtype(cfg.act_dtype)
+    if cfg.family == "encdec":
+        enc = params["encoder"]
+        h = torch.matmul(frames.to(act), enc["frontend_proj"].to(act))
+        return _run_encoder(cfg, enc, h, _positions(frames), remat)
+    if cfg.family == "vlm":
+        return torch.matmul(img.to(act), params["img_proj"].to(act))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -175,25 +240,28 @@ def forward(cfg, params, tokens, *, frames=None, img=None, remat=True):
     """Training forward: logits ``(b, l, vocab_padded)`` + aux losses.
 
     ``remat`` checkpoints as the module docstring says; it changes what
-    the backward keeps and recomputes, never the values."""
-    _require_ported(cfg)
+    the backward keeps and recomputes, never the values. ``frames``
+    (``encdec``) and ``img`` (``vlm``) are the stub frontends' embeddings
+    (module docstring)."""
+    memory = _memory_of(cfg, params, frames, img, remat)
     h = _embed_tokens(cfg, params, tokens)
     pos = _positions(tokens)
-    h, aux = _run_blocks(cfg, params["blocks"], h, pos, remat)
+    h, aux = _run_blocks(cfg, params["blocks"], h, pos, memory, remat)
     h = rms_norm(h, params["out_norm"])
     return _unembed(cfg, params, h), {"moe_aux": aux}
 
 
 def prefill(cfg, params, tokens, *, frames=None, img=None):
     """Prompt processing: returns (last-token logits, cache tree)."""
-    _require_ported(cfg)
+    memory = _memory_of(cfg, params, frames, img, remat=False)
     h = _embed_tokens(cfg, params, tokens)
     pos = _positions(tokens)
     cache: dict = {}
     for r in range(cfg.n_repeats):
         group = _layer(params["blocks"], r)
         for j, kind in enumerate(cfg.pattern):
-            h, c = blk.block_prefill(cfg, kind, group[f"p{j}"], h, pos=pos)
+            h, c = blk.block_prefill(cfg, kind, group[f"p{j}"], h, pos=pos,
+                                     memory=memory)
             stacked = cache.setdefault(f"p{j}", {})
             for name, t in c.items():
                 if name not in stacked:    # one stacked buffer per leaf

@@ -16,8 +16,13 @@ PyTorch's products do not promote mixed dtypes, so the port casts
 explicitly.
 
 The intra-chunk decay ``exp(seg)`` overflows to ``inf`` above the
-diagonal for long chunks; it is masked with ``where``, never multiplied by
-a 0/1 mask, which would turn ``inf · 0`` into NaN.
+diagonal for long chunks. The port masks ``seg`` with ``-inf`` before the
+``exp``, so the masked entries are ``exp(-inf) = 0`` exactly: the forward
+equals the reference's ``where(tri, exp(seg), 0)`` bitwise, and the
+gradient is finite. The reference's form gives its backward ``0 · inf =
+NaN`` wherever ``exp(seg)`` overflowed (the published chunk of 256); at
+a chunk short enough that nothing overflows (the smoke configs' 8) the two
+gradients are equal.
 """
 from __future__ import annotations
 
@@ -94,7 +99,7 @@ def _ssd(xdt, dA, B, C, chunk: int):
     # 1. intra-chunk (quadratic within a chunk)
     seg = A_cs[..., :, None] - A_cs[..., None, :]             # (b,h,nc,c,c)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xdt.device))
-    L = torch.where(tri, torch.exp(seg), 0.0)
+    L = torch.exp(torch.where(tri, seg, float("-inf")))
     CB = torch.einsum("bzlhn,bzshn->bhzls", Cc, Bc)
     M = (CB * L).to(xdt.dtype)
     y = torch.einsum("bhzls,bzshp->bzlhp", M, xc)

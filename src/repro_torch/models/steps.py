@@ -9,20 +9,20 @@ state in place. ``rules_for``, ``input_specs``, ``abstract_cache``,
 ``train_state_specs`` and ``MEM_LEN_DIV`` come with the mesh (ROADMAP
 A15 (3)).
 
-The serving steps run every family the model runs (dense, MoE, SSM,
-hybrid). Training runs the dense family only: for a config with a ``moe``
-or ``mamba`` layer, :func:`loss_and_grads` and :func:`make_train_step`
-raise ``NotImplementedError`` (:func:`require_trainable`) until that part
-of ROADMAP A15 (3) lands.
+Every family trains and serves: dense, MoE, SSM, hybrid, enc-dec and VLM
+(a batch of the last two also holds ``frames`` / ``img``, split into
+microbatches along with the tokens).
 
 Gradients of the stacked layer parameters: ``forward`` runs layer ``r``
-on ``params["blocks"][...][r]``. Taken through autograd on the stacked
-tensor, each such ``select`` would hand back a zero tensor of the whole
-stack with one layer filled in (3.2 GB per MLP leaf of phi3-mini-3.8b,
-per layer). :func:`loss_and_grads` instead gives ``forward`` one leaf
-per layer, a detached view of the stacked parameter whose ``.grad`` is
-the matching slice of one stacked gradient buffer: autograd's
-accumulation then adds each layer's gradient in place into that slice.
+on ``params["blocks"][...][r]`` (and the encoder's layer ``r`` on
+``params["encoder"]["blocks"][...][r]``). Taken through autograd on the
+stacked tensor, each such ``select`` would hand back a zero tensor of the
+whole stack with one layer filled in (3.2 GB per MLP leaf of
+phi3-mini-3.8b, per layer). :func:`loss_and_grads` instead gives
+``forward`` one leaf per layer, a detached view of the stacked parameter
+whose ``.grad`` is the matching slice of one stacked gradient buffer:
+autograd's accumulation then adds each layer's gradient in place into
+that slice.
 """
 from __future__ import annotations
 
@@ -34,21 +34,10 @@ from .. import optim as optim_lib
 
 __all__ = [
     "loss_fn", "loss_and_grads", "accumulate_grads", "make_train_step",
-    "make_prefill_step", "make_decode_step", "require_trainable",
+    "make_prefill_step", "make_decode_step",
 ]
 
 _LATER = "ROADMAP A15 (3)"
-
-
-def require_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not train
-    yet: one with a ``moe`` FFN or a ``mamba`` mixer."""
-    kinds = {k for kind in cfg.pattern for k in kind.split("+")}
-    if kinds & {"moe", "mamba"}:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}: "
-            f"{', '.join(sorted(kinds & {'moe', 'mamba'}))} layers) is not "
-            f"ported yet: {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -94,18 +83,18 @@ def _grad_leaf(p, g):
 
 def _grad_leaves(params, grads):
     """``params`` as autograd leaves whose ``.grad`` are views of
-    ``grads``; each stacked leaf under ``blocks`` as one leaf per layer."""
+    ``grads``; each stacked leaf under a ``blocks`` key (the decoder's,
+    the encoder's) as one leaf per layer."""
+    def per_layer(p, g):
+        return [_grad_leaf(p[r], g[r]) for r in range(p.shape[0])]
+
     def mapped(p, g, fn):
         if isinstance(p, dict):
-            return {k: mapped(p[k], g[k], fn) for k in p}
+            return {k: mapped(p[k], g[k], per_layer if k == "blocks"
+                              else fn) for k in p}
         return fn(p, g)
 
-    per_layer = lambda p, g: [_grad_leaf(p[r], g[r])
-                              for r in range(p.shape[0])]
-    out = {k: mapped(v, grads[k], _grad_leaf)
-           for k, v in params.items() if k != "blocks"}
-    out["blocks"] = mapped(params["blocks"], grads["blocks"], per_layer)
-    return out
+    return mapped(params, grads, _grad_leaf)
 
 
 def _zeros_like(params, dtype=None):
@@ -122,7 +111,6 @@ def loss_and_grads(cfg, params, batch, *, grads=None, remat: bool = True):
     the loss and its backward, **adding** the gradient of every leaf into
     ``grads`` (a zero buffer of the parameters' dtypes when ``None``).
     Returns ``((total, metrics), grads)``, detached."""
-    require_trainable(cfg)
     if grads is None:
         grads = _zeros_like(params)
     total, metrics = loss_fn(cfg, _grad_leaves(params, grads), batch,
@@ -197,7 +185,6 @@ def make_train_step(cfg, optimizer: optim_lib.Optimizer, mesh=None,
         raise NotImplementedError(
             "make_train_step(mesh=, rules=, param_shardings=): the mesh "
             f"and sharding rules are not ported yet: {_LATER}")
-    require_trainable(cfg)
     k = int(grad_accum)
 
     def train_step(state, batch):

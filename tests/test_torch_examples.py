@@ -1,10 +1,12 @@
 """The port's examples, ``examples/torch_quickstart.py``,
 ``examples/torch_cp_decompose_distributed.py``,
-``examples/torch_lm_serve.py`` and ``examples/torch_lm_train.py``, run end
-to end on the CPU (the kernels' plain versions), with the reference
-examples' asserts: exact recovery of dense low-rank tensors at fit > 0.99,
-tokens in the vocabulary, a held-out loss that falls, and ``OK`` last. On
-the card ``chip_smoke.py``'s ``[examples]`` runs all four."""
+``examples/torch_lm_serve.py`` (five archs, the enc-dec and vision ones
+among them) and ``examples/torch_lm_train.py`` (the dense default with
+its resume demo, and the MoE arch), run end to end on the CPU (the
+kernels' plain versions), with the reference examples' asserts: exact
+recovery of dense low-rank tensors at fit > 0.99, tokens in the
+vocabulary, a held-out loss that falls, and ``OK`` last. On the card
+``chip_smoke.py``'s ``[examples]`` runs all four."""
 import importlib.util
 import os
 
@@ -47,10 +49,15 @@ def test_cp_decompose_distributed_on_cpu(capsys):
 
 
 def test_lm_serve_on_cpu(capsys):
+    """The dense, MoE and SSM archs of the reference's example, then the
+    enc-dec and vision-language smoke runs."""
     _load("torch_lm_serve").main("cpu", tokens=8)
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == "OK"
-    assert out[0].startswith("qwen3-32b") and "generated 4x8 tokens" in out[0]
+    archs = ["qwen3-32b", "qwen2-moe-a2.7b", "mamba2-370m",
+             "seamless-m4t-large-v2", "llama-3.2-vision-11b"]
+    assert [ln.split()[0] for ln in out[:-1]] == archs
+    assert all("generated 4x8 tokens" in ln for ln in out[:-1])
 
 
 def test_lm_train_resume_demo_on_cpu(capsys):
@@ -63,6 +70,16 @@ def test_lm_train_resume_demo_on_cpu(capsys):
     assert "[runner] resumed from step 90" in out
     steps = [h["step"] for h in got["history"]]
     assert steps == list(range(91, 200))
+    assert got["end"] < got["start"]
+
+
+def test_lm_train_the_moe_arch_on_cpu(capsys):
+    """``--arch qwen2-moe-a2.7b``, as the reference's example names it:
+    200 steps of its smoke config, the held-out loss falls."""
+    got = _load("torch_lm_train").main("cpu", arch="qwen2-moe-a2.7b")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "OK"
+    assert [h["step"] for h in got["history"]] == list(range(200))
     assert got["end"] < got["start"]
 
 

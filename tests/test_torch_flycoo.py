@@ -40,9 +40,18 @@ def _assert_tensor_equal(a, b):
     np.testing.assert_array_equal(a.values, b.values)
 
 
-@pytest.mark.parametrize("gen", sorted(GENERATORS))
+# The dedup's edge cases: no nonzero, and most coordinates drawn many
+# times (their values summed in the order drawn).
+DEDUP_CASES = {
+    "empty": lambda m: m.random_sparse_tensor((5, 6, 7), 0, seed=3),
+    "duplicates": lambda m: m.random_sparse_tensor((3, 3, 3), 200, seed=3),
+}
+
+
+@pytest.mark.parametrize("gen", sorted(GENERATORS) + sorted(DEDUP_CASES))
 def test_generators_bit_equal(gen):
-    _assert_tensor_equal(GENERATORS[gen](tten), GENERATORS[gen](jten))
+    make = {**GENERATORS, **DEDUP_CASES}[gen]
+    _assert_tensor_equal(make(tten), make(jten))
 
 
 def test_low_rank_truth_factors_equal():

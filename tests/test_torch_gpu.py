@@ -17,6 +17,7 @@ from repro_torch.kernels.mttkrp import kernel as K  # noqa: E402
 from repro_torch.kernels.mttkrp import ops  # noqa: E402
 from repro_torch.oocore import executor, planner  # noqa: E402
 from repro_torch.reorder import reorder_stream  # noqa: E402
+from torch_lm_common import frontend_inputs, open_gates  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 BLK, TILE = 64, 8
@@ -1277,12 +1278,16 @@ def test_package_smoke_on_card_launches_b6_and_b1(cuda, smoke):
 # ---------------------------------------------------------------------------
 
 def _lm(name, act, dev, seed=0):
+    """Smoke config at ``act``, the port's weights on the CPU and a copy
+    on ``dev``; the ``xattn`` layers' ``x_gate`` opened to 0.5 (at its
+    published zero the cross-attention adds nothing)."""
     import dataclasses
     from repro_torch.configs import smoke_config
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params
     cfg = dataclasses.replace(smoke_config(name), act_dtype=act)
-    cpu = init_params(M.model_specs(cfg), seed=seed, device="cpu")
+    cpu = open_gates(init_params(M.model_specs(cfg), seed=seed,
+                                 device="cpu"))
     return cfg, cpu, _tree_to(cpu, dev)
 
 
@@ -1300,7 +1305,8 @@ def _tree_to(tree, dev):
         # tie: top-2 margin 1.547e-4 against the devices' difference of
         # 1.920e-4 (on an H100 80GB HBM3).
         ("llama4-scout-17b-a16e", 1),
-        ("jamba-1.5-large-398b", 0))])
+        ("jamba-1.5-large-398b", 0), ("seamless-m4t-large-v2", 0),
+        ("llama-3.2-vision-11b", 0))])
 def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name, near_ties):
     """Smoke config at fp32 activations (TF32 off). Prefill logits within
     1e-4 of max|logits| of the CPU's and its bf16 K/V within one bf16
@@ -1311,22 +1317,27 @@ def test_lm_generate_on_card_equals_cpu_at_fp32(cuda, name, near_ties):
     with a measured near tie (a step whose margin is within that
     difference) admits that many, where the two devices must rank the
     same two tokens on top. The MoE, SSM and hybrid smoke configs too
-    (their float32 mamba state within the same bound as the K/V)."""
+    (their float32 mamba state within the same bound as the K/V), and the
+    enc-dec and vision ones with their stub frontend's input (their
+    cross-attention ``ck`` / ``cv`` within the same bound)."""
     from repro_torch.launch.serve import ServeSession, _pad_caches
     from repro_torch.models import model as M
     cfg, cpu, card = _lm(name, "float32", cuda)
     b, lp, n = 3, 12, 8
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (b, lp)).astype(np.int32)
+    extras = frontend_inputs(cfg, np.random.default_rng(100), b, lp)
+    on = lambda dev: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                      for k, v in extras.items()}
     got = ServeSession(cfg, card, max_len=lp + n + 1,
-                       device=cuda).generate(prompts, n)
+                       device=cuda).generate(prompts, n, extras=on(cuda))
     want = ServeSession(cfg, cpu, max_len=lp + n + 1,
-                        device="cpu").generate(prompts, n)
+                        device="cpu").generate(prompts, n, extras=on("cpu"))
     np.testing.assert_array_equal(got, want)
     run = {}
     for key, dev, params in (("cpu", "cpu", cpu), ("card", cuda, card)):
         lg, cache = M.prefill(cfg, params,
-                              torch.from_numpy(prompts).to(dev))
+                              torch.from_numpy(prompts).to(dev), **on(dev))
         run[key] = dict(params=params, dev=dev, prefill=lg.float().cpu(),
                         cache=_pad_caches(cache, lp, lp + n + 1), free=[])
     scale = float(run["cpu"]["prefill"].abs().max())
@@ -1388,7 +1399,8 @@ def test_lm_serve_main_and_example_run_on_the_card_by_default(cuda, capsys):
     import importlib.util
     import os
     from repro_torch.launch import serve
-    for arch in ("phi3-mini-3.8b", "qwen2-moe-a2.7b", "mamba2-370m"):
+    for arch in ("phi3-mini-3.8b", "qwen2-moe-a2.7b", "mamba2-370m",
+                 "seamless-m4t-large-v2", "llama-3.2-vision-11b"):
         assert serve.main(["--arch", arch, "--smoke", "--tokens",
                            "4"]) is None
         assert "on cuda" in capsys.readouterr().out
@@ -1409,7 +1421,15 @@ def _lm_batch(cfg, b, l, seed):
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, cfg.vocab, (b, l)).astype(np.int32),
             "labels": rng.integers(0, cfg.vocab, (b, l)).astype(np.int32),
-            "loss_mask": (rng.random((b, l)) < 0.8).astype(np.float32)}
+            "loss_mask": (rng.random((b, l)) < 0.8).astype(np.float32),
+            **frontend_inputs(cfg, np.random.default_rng(seed + 100), b,
+                               l // 2)}
+
+
+# The families beyond the dense one: MoE, SSM, hybrid, enc-dec, VLM.
+LM_OTHERS = ["jamba-1.5-large-398b", "llama-3.2-vision-11b",
+             "llama4-scout-17b-a16e", "mamba2-370m", "qwen2-moe-a2.7b",
+             "seamless-m4t-large-v2"]
 
 
 def _on(batch, dev):
@@ -1421,11 +1441,11 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("name", ["internlm2-20b", "minitron-8b",
-                                  "phi3-mini-3.8b", "qwen3-32b"])
+                                  "phi3-mini-3.8b", "qwen3-32b"] + LM_OTHERS)
 def test_lm_grads_on_card_equal_cpu_at_fp32(cuda, name):
     """Smoke config, fp32 activations, one starting state: the loss within
     1e-5 relative and every leaf's gradient within 1e-4 of its max|g|
-    (the CPU tests' tolerances against the reference)."""
+    (the CPU tests' tolerances against the reference); all ten archs."""
     from repro_torch.models import steps as S
     from repro_torch.models.params import iter_leaves
     cfg, cpu, card = _lm(name, "float32", cuda)
@@ -1471,6 +1491,46 @@ def test_lm_train_step_on_card_equals_cpu(cuda, opt_name, k):
         err = (a.cpu() - b).abs()
         assert float(err.max()) <= 2.5 * lr_t, path
         outliers += int((err > 1e-5 * float(b.abs().max())).sum())
+        total += err.numel()
+    assert outliers <= 1e-3 * total
+
+
+@pytest.mark.parametrize("name", LM_OTHERS)
+def test_lm_train_step_of_each_family_on_card_equals_cpu(cuda, name):
+    """One train step of each family beyond the dense one (smoke config,
+    fp32 activations, the config's optimizer, ``grad_accum=2``; jamba:
+    Adafactor and its bf16 gradient accumulator) on the card against the
+    same step on the CPU: the CPU tests' bounds against the reference
+    (``tests/test_torch_lm_train.py::test_train_step_matches_reference``)."""
+    from repro_torch import optim as O
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import iter_leaves
+    cfg, cpu, card = _lm(name, "float32", cuda)
+    runs = {}
+    for dev, params in (("cpu", cpu), (cuda, card)):
+        opt = O.make_optimizer(cfg.optimizer, O.cosine_schedule(1e-2, 2, 10))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = _lm_batch(cfg, 4, 16, seed=4)
+        batch.pop("loss_mask")
+        runs[str(dev)] = S.make_train_step(cfg, opt, grad_accum=2)(state,
+                                                                   batch)
+    (want, wm), (got, gm) = runs["cpu"], runs[str(cuda)]
+    for key in ("loss", "ce", "z_loss", "moe_aux", "grad_norm"):
+        if float(wm[key]) or float(gm[key]):
+            assert _rel(gm[key], wm[key]) < 1e-5, key
+    assert int(got["step"]) == int(want["step"]) == 1
+    assert int(got["opt"]["count"]) == int(want["opt"]["count"]) == 1
+    lr_t = float(O.cosine_schedule(1e-2, 2, 10)(1))
+    floor = 2 ** -5 * lr_t if cfg.grad_accum_dtype == "bfloat16" else 0.0
+    outliers = total = 0
+    for (path, a), (_, b) in zip(iter_leaves(got["params"]),
+                                 iter_leaves(want["params"])):
+        assert bool(torch.isfinite(a).all()), path
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 2.5 * lr_t, path
+        outliers += int((err > max(1e-5 * float(b.abs().max()),
+                                   floor)).sum())
         total += err.numel()
     assert outliers <= 1e-3 * total
 

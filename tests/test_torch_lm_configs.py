@@ -29,6 +29,9 @@ NOT_DENSE = sorted(set(ARCHS) - set(DENSE))
 # The families the port serves beyond the dense one.
 SERVED = sorted(n for n, c in jreg.ARCHS.items()
                 if c.family in ("moe", "ssm", "hybrid"))
+# The families that attend to a memory (an encoder's output, an image's).
+MEMORY = sorted(n for n, c in jreg.ARCHS.items()
+                if c.family in ("encdec", "vlm"))
 DERIVED = ("q_dim", "kv_dim", "vocab_padded", "n_experts_padded",
            "n_repeats", "d_inner", "ssm_heads")
 
@@ -100,7 +103,7 @@ def _specs_equal(tspecs, jspecs):
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "published"])
-@pytest.mark.parametrize("name", DENSE + SERVED)
+@pytest.mark.parametrize("name", DENSE + SERVED + MEMORY)
 def test_model_specs_leaf_for_leaf(name, smoke):
     get = "smoke_config" if smoke else "get_config"
     tcfg, jcfg = getattr(treg, get)(name), getattr(jreg, get)(name)
@@ -109,11 +112,14 @@ def test_model_specs_leaf_for_leaf(name, smoke):
     assert TP.spec_bytes(tspecs) == JP.spec_bytes(jspecs)
 
 
-@pytest.mark.parametrize("name", DENSE + SERVED)
+@pytest.mark.parametrize("name", DENSE + SERVED + MEMORY)
 @pytest.mark.parametrize("batch, seq", [(2, 32), (8, 1057)])
 def test_cache_specs_equal(name, batch, seq):
-    t = TM.cache_specs(treg.smoke_config(name), batch, seq, 0)
-    j = JM.cache_specs(jreg.smoke_config(name), batch, seq, 0)
+    """``mem_len`` (the cross-attention caches' slots) 24 for the memory
+    families, 0 for the others."""
+    mem = 24 if name in MEMORY else 0
+    t = TM.cache_specs(treg.smoke_config(name), batch, seq, mem)
+    j = JM.cache_specs(jreg.smoke_config(name), batch, seq, mem)
     assert set(t) == set(j)
     for grp in j:
         assert set(t[grp]) == set(j[grp])
@@ -140,11 +146,33 @@ def test_the_served_moe_and_ssm_models_are_the_size_the_card_holds():
     assert 1.4e9 < ssm < 1.5e9
 
 
-@pytest.mark.parametrize("name", sorted(set(NOT_DENSE) - set(SERVED)))
-def test_other_families_raise_naming_a15(name):
-    """``encdec`` and ``vlm`` still raise naming A15."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        TM.model_specs(treg.smoke_config(name))
+@pytest.mark.parametrize("name", MEMORY)
+def test_memory_family_specs_equal_the_reference(name):
+    """The ``encdec`` and ``vlm`` families, which raised naming A15 before
+    they were ported, give the reference's specs leaf for leaf: the
+    encoder (``frontend_proj``, its stacked blocks, ``norm``) or
+    ``img_proj``, and the ``x_*`` cross-attention leaves, ``x_gate``
+    float32 zeros of shape (1,)."""
+    t = TM.model_specs(treg.smoke_config(name))
+    _specs_equal(t, JM.model_specs(jreg.smoke_config(name)))
+    assert set(t) >= ({"encoder"} if name.startswith("seamless")
+                      else {"img_proj"})
+    gates = [s for path, s in TP.iter_leaves(t) if path[-1] == "x_gate"]
+    assert all(g.shape == (2, 1) and g.init == "zeros"
+               and g.dtype == torch.float32 for g in gates)
+    assert len(gates) == (0 if name.startswith("seamless") else 1)
+
+
+def test_the_memory_models_are_the_size_the_card_holds():
+    """seamless-m4t-large-v2 (24 + 24 layers) and llama-3.2-vision-11b
+    (40 layers, its 7680-wide image projection included) at fp32 each
+    fit one 80 GB card."""
+    enc = TP.spec_bytes(TM.model_specs(treg.get_config(
+        "seamless-m4t-large-v2")))
+    assert enc == 8_143_740_928
+    vlm = TP.spec_bytes(TM.model_specs(treg.get_config(
+        "llama-3.2-vision-11b")))
+    assert vlm == 39_226_458_144
 
 
 @pytest.mark.parametrize("name", SERVED)

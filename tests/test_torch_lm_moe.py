@@ -5,7 +5,13 @@ aux loss to float32 rounding, ``moe_apply`` within 1e-5 of max|y| at
 float32 activations (2e-2 at bfloat16) for top-k 1/2/4 with and without
 a shared expert, the drop counts equal, the per-token dense reference,
 padding experts never routed, and a combine that gives the same bits on
-a rerun."""
+a rerun. Gradients at float32 (pairs dropped at the default capacity):
+those of the input, every weight and the router's probabilities within
+1e-5 of each one's max|g| (the aux loss included: its gradient reaches
+the router through ``mean_prob``; ``density`` comes from a count), and a
+dropped pair's probability and a token whose every pair dropped get a
+gradient of exactly 0 in both packages (the dump slot, written by every
+dropped pair, is sliced off)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,3 +188,125 @@ def test_specs_equal_the_reference():
                 (js.shape, js.axes, js.init, js.fan_in_dims)
             assert str(ts.dtype).replace("torch.", "") == \
                 np.dtype(js.dtype).name
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+def _dropped_pairs(ids, cap):
+    """(T, k) bool: the pairs past their expert's capacity, in the
+    dispatch's stable (token, slot) order."""
+    e = ids.reshape(-1)
+    order = np.argsort(e, kind="stable")
+    rank = np.empty_like(order)
+    for expert in np.unique(e):
+        members = order[e[order] == expert]
+        rank[members] = np.arange(members.size)
+    return (rank >= cap).reshape(ids.shape)
+
+
+def _port_grads(tp, tx, w, top_k, aux_coef, cap):
+    """The port's d/d(x, params, probs) of sum(w · y) + aux_coef · aux,
+    the probabilities through an added zero ``delta`` (T, k)."""
+    leaves = {k: (v.clone().requires_grad_(True) if not isinstance(v, dict)
+                  else {kk: vv.clone().requires_grad_(True)
+                        for kk, vv in v.items()}) for k, v in tp.items()}
+    x = tx.clone().requires_grad_(True)
+    T = x.shape[0] * x.shape[1]
+    delta = torch.zeros((T, top_k), requires_grad=True)
+    orig = TMoE.router_assign
+    seen = {}
+
+    def route(*args, **kw):
+        probs, ids, aux = orig(*args, **kw)
+        seen["ids"] = ids
+        return probs + delta, ids, aux
+
+    TMoE.router_assign = route
+    try:
+        y, m = TMoE.moe_apply(leaves, x, n_real=6, top_k=top_k,
+                              deterministic_cap=cap)
+    finally:
+        TMoE.router_assign = orig
+    ((y * torch.from_numpy(w)).sum() + aux_coef * m["moe_aux"]).backward()
+    grads = {"x": x.grad.numpy(), "probs": delta.grad.numpy()}
+    for k, v in leaves.items():
+        if isinstance(v, dict):
+            grads.update({f"{k}/{kk}": vv.grad.numpy()
+                          for kk, vv in v.items()})
+        else:
+            grads[k] = v.grad.numpy()
+    return grads, seen["ids"].numpy(), int(m["moe_dropped"])
+
+
+def _reference_grads(jp, jx, w, top_k, aux_coef, cap):
+    T = jx.shape[0] * jx.shape[1]
+    orig = JMoE.router_assign
+
+    def loss(params, x, delta):
+        def route(*args, **kw):
+            probs, ids, aux = orig(*args, **kw)
+            return probs + delta, ids, aux
+        JMoE.router_assign = route
+        try:
+            y, m = JMoE.moe_apply(params, x, n_real=6, top_k=top_k,
+                                  deterministic_cap=cap)
+        finally:
+            JMoE.router_assign = orig
+        return jnp.sum(w * y) + aux_coef * m["moe_aux"]
+
+    gp, gx, gd = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jp, jx, jnp.zeros((T, top_k), jnp.float32))
+    grads = {"x": np.asarray(gx), "probs": np.asarray(gd)}
+    for k, v in gp.items():
+        if isinstance(v, dict):
+            grads.update({f"{k}/{kk}": np.asarray(vv) for kk, vv in v.items()})
+        else:
+            grads[k] = np.asarray(v)
+    return grads
+
+
+@pytest.mark.parametrize("top_k,n_shared", [(2, 0), (2, 1), (4, 1)])
+def test_moe_gradients_match_reference(top_k, n_shared):
+    """A capacity of 8 slots for 48 tokens over 6 real experts: pairs
+    drop. Every gradient (input, router, experts, shared expert, the
+    probabilities) within 1e-5 of its max|g|; the aux loss weighted 0.01
+    as in ``loss_fn``. (At top-1 the normalized probability is 1 for
+    every token, so the router's gradient through it is 0 in exact
+    arithmetic and rounding noise in both packages: 7.4e-7 and 2.5e-6
+    here, beside probability gradients of up to 11.7.)"""
+    jp, tp = _params(8, n_shared, n_real=6, seed=4)
+    jx, tx = _x((2, 24, D), 4)
+    w = np.random.default_rng(5).standard_normal((2, 24, D)).astype(
+        np.float32)
+    got, ids, dropped = _port_grads(tp, tx, w, top_k, 0.01, 8)
+    want = _reference_grads(jp, jx, w, top_k, 0.01, 8)
+    assert dropped > 0
+    assert set(got) == set(want)
+    for k, g in want.items():
+        assert np.isfinite(g).all() and np.isfinite(got[k]).all(), k
+        scale = float(np.abs(g).max())
+        np.testing.assert_allclose(got[k], g, rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_dropped_pairs_get_no_gradient(top_k):
+    """Without the aux loss and the shared expert: a dropped pair's
+    probability, and a token whose every pair dropped, get exactly 0 in
+    both packages; the kept pairs' probabilities do not."""
+    jp, tp = _params(8, 0, n_real=6, seed=6)
+    jx, tx = _x((1, 48, D), 6)
+    w = np.random.default_rng(7).standard_normal((1, 48, D)).astype(
+        np.float32)
+    got, ids, dropped = _port_grads(tp, tx, w, top_k, 0.0, 4)
+    want = _reference_grads(jp, jx, w, top_k, 0.0, 4)
+    drop = _dropped_pairs(ids, 4)
+    assert int(drop.sum()) == dropped > 0
+    for g in (got, want):
+        assert (g["probs"][drop] == 0).all()
+        assert (g["probs"][~drop] != 0).all()
+        all_dropped = drop.all(axis=1)
+        assert all_dropped.any()
+        assert (g["x"].reshape(48, D)[all_dropped] == 0).all()

@@ -2,11 +2,14 @@
 ``ServeSession.generate`` equal the reference session's on the same
 weights at float32 activations (each step's top-2 logit margin above the
 two packages' agreement tolerance, so the equality means something) for
-the dense archs and the MoE, SSM and hybrid ones the port serves, the
-cache re-padding (mamba's ``conv`` / ``ssd`` state left as it is), the
-``serve.*`` counters and spans, temperature draws from a seeded
-generator, ``python -m repro_torch.launch.serve``, and what the port does
-not run yet (the ``encdec`` / ``vlm`` families, the int8 KV cache)."""
+the dense archs, the MoE, SSM and hybrid ones, and the two that attend to
+a memory (the ``encdec`` and ``vlm`` families, with the stub frontend's
+``frames`` / ``img`` in ``extras`` and the ``xattn`` gate opened to 0.5),
+the cache re-padding (mamba's ``conv`` / ``ssd`` state and the
+cross-attention ``ck`` / ``cv`` left as they are), the ``serve.*``
+counters and spans, temperature draws from a seeded generator, ``python
+-m repro_torch.launch.serve``, and what the port does not run yet (the
+int8 KV cache)."""
 import dataclasses
 
 import jax
@@ -28,6 +31,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import params as TP  # noqa: E402
 from repro_torch.obs import counters as tcnt  # noqa: E402
 from repro_torch.obs import tracer as ttracer  # noqa: E402
+from torch_lm_common import frontend_inputs, open_gates  # noqa: E402
 
 B, LP, NTOK = 3, 12, 10
 MAX_LEN = LP + NTOK + 1
@@ -44,10 +48,11 @@ def _prompts(cfg, seed=0):
         0, cfg.vocab, (B, LP)).astype(np.int32)
 
 
-def _step_logits(cfg, params, prompts, tokens):
+def _step_logits(cfg, params, prompts, tokens, extras=None):
     """The logits each greedy step chose from: prefill, then one decode
     step per generated token but the last (teacher-forced on ``tokens``)."""
-    logits, cache = TM.prefill(cfg, params, torch.from_numpy(prompts))
+    logits, cache = TM.prefill(cfg, params, torch.from_numpy(prompts),
+                               **(extras or {}))
     cache = tserve._pad_caches(cache, LP, MAX_LEN)
     out = [logits[:, -1, :cfg.vocab]]
     for i in range(tokens.shape[1] - 1):
@@ -60,23 +65,29 @@ def _step_logits(cfg, params, prompts, tokens):
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-32b",
                                   "qwen2-moe-a2.7b", "mamba2-370m",
                                   "llama4-scout-17b-a16e",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
 def test_greedy_tokens_equal_the_reference_session(name):
     jcfg, tcfg = _cfgs(name)
     # The port's draw, handed to both: it is the same in every process,
     # where the reference's init keys its leaves by the salted ``hash``,
     # so the margin check below would see other weights in each run.
-    params = TP.init_params(TM.model_specs(tcfg), seed=0, device="cpu")
+    params = open_gates(TP.init_params(TM.model_specs(tcfg), seed=0,
+                                        device="cpu"))
     jparams = jax.tree.map(lambda t: t.numpy(), params)
     prompts = _prompts(jcfg)
+    extras = frontend_inputs(jcfg, np.random.default_rng(7), B, LP)
     want = jserve.ServeSession(jcfg, jparams, max_len=MAX_LEN).generate(
-        prompts, NTOK)
+        prompts, NTOK, extras=extras)
+    textras = {k: torch.from_numpy(v) for k, v in extras.items()}
     got = tserve.ServeSession(tcfg, params, max_len=MAX_LEN,
-                              device="cpu").generate(prompts, NTOK)
+                              device="cpu").generate(prompts, NTOK,
+                                                     extras=textras)
     assert got.dtype == np.int32 and got.shape == (B, NTOK)
     np.testing.assert_array_equal(got, want)
     # Each step's choice is clear of the packages' 1e-4 disagreement.
-    logits = _step_logits(tcfg, params, prompts, got)
+    logits = _step_logits(tcfg, params, prompts, got, textras)
     top2 = torch.topk(logits, 2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]) / logits.abs().amax()
     assert float(margin.min()) > TOL, margin
@@ -85,16 +96,20 @@ def test_greedy_tokens_equal_the_reference_session(name):
 
 
 def _pad_caches_check(name):
-    """K/V grow to ``max_len`` slots; mamba's ``conv`` / ``ssd`` state
-    passes through as the same tensor."""
+    """K/V grow to ``max_len`` slots; mamba's ``conv`` / ``ssd`` state and
+    the cross-attention ``ck`` / ``cv`` pass through as the same
+    tensors."""
     jcfg, tcfg = _cfgs(name)
     jparams = jax.tree.map(np.asarray, j_init(JM.model_specs(jcfg), seed=0))
     prompts = _prompts(jcfg)
-    _, jcache = JM.prefill(jcfg, jparams, prompts)
+    extras = frontend_inputs(jcfg, np.random.default_rng(7), B, LP)
+    _, jcache = JM.prefill(jcfg, jparams, prompts, **extras)
     want = jserve._pad_caches(jcache, LP, MAX_LEN)
     _, tcache = TM.prefill(tcfg, lm_params_from_reference(jparams,
                                                           device="cpu"),
-                           torch.from_numpy(prompts))
+                           torch.from_numpy(prompts),
+                           **{k: torch.from_numpy(v)
+                              for k, v in extras.items()})
     got = tserve._pad_caches(tcache, LP, MAX_LEN)
     assert set(got) == set(want)
     for grp in want:
@@ -105,6 +120,11 @@ def _pad_caches_check(name):
             if leaf in ("conv", "ssd"):
                 assert g is tcache[grp][leaf]
                 assert g.dtype == torch.float32
+                continue
+            if leaf in ("ck", "cv"):
+                assert g is tcache[grp][leaf]
+                assert g.dtype == torch.bfloat16
+                assert w.shape[2] == _mem_len(tcfg)
                 continue
             assert w.shape == (tcfg.n_repeats, B, MAX_LEN, tcfg.n_kv_heads,
                                tcfg.head_dim)
@@ -123,8 +143,20 @@ def test_pad_caches_shapes_equal_the_reference():
     assert out["p0"]["conv"] is other["p0"]["conv"]
 
 
+def _mem_len(cfg) -> int:
+    return {"encdec": LP, "vlm": cfg.n_img_tokens}[cfg.family]
+
+
 @pytest.mark.parametrize("name", ["mamba2-370m", "jamba-1.5-large-398b"])
 def test_pad_caches_leave_the_mamba_state_as_the_reference(name):
+    _pad_caches_check(name)
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_pad_caches_leave_the_cross_caches_as_the_reference(name):
+    """Decode reads every slot of ``ck`` / ``cv`` (``mode="full"``), so
+    they keep their memory length: a zero-padded slot would be a key."""
     _pad_caches_check(name)
 
 
@@ -210,12 +242,36 @@ def test_main_serves_a_smoke_config_on_the_cpu(capsys):
     assert out[0].startswith("generated (2, 4) in")
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
-def test_main_refuses_a_non_dense_arch_naming_a15(name):
-    """The ``encdec`` family still raises naming A15."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        tserve.main(["--arch", name, "--smoke", "--tokens", "4", "--device",
-                     "cpu"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_main_serves_an_encdec_or_vlm_smoke_config_on_the_cpu(name, capsys):
+    """The ``encdec`` and ``vlm`` families, which raised naming A15 before
+    they were ported, serve from the command line: ``main`` draws the stub
+    frontend's input as the reference's does."""
+    assert tserve.main(["--arch", name, "--smoke", "--tokens", "4",
+                        "--device", "cpu"]) is None
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("generated (2, 4) in")
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_frontend_extras_are_what_the_reference_main_draws(name):
+    """``frontend_extras`` draws what ``repro.launch.serve.main`` draws
+    from the same generator after the same prompts."""
+    cfg = t_smoke(name)
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab, (2, 16))
+    got = tserve.frontend_extras(cfg, rng, 2, 16, "cpu")
+    want = np.random.default_rng(0)
+    want.integers(0, cfg.vocab, (2, 16))
+    shape = ((2, 16, cfg.d_frontend) if cfg.family == "encdec"
+             else (2, cfg.n_img_tokens, cfg.d_frontend))
+    (key, t), = got.items()
+    assert key == ("frames" if cfg.family == "encdec" else "img")
+    assert t.dtype == torch.float32 and tuple(t.shape) == shape
+    np.testing.assert_array_equal(
+        t.numpy(), want.standard_normal(shape).astype(np.float32))
 
 
 @pytest.mark.parametrize("name", ["mamba2-370m", "qwen2-moe-a2.7b"])

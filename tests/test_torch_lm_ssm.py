@@ -7,7 +7,10 @@ bfloat16 (2e-2) activations, the prefill cache and a decode step against
 the reference's (``mamba_prefill`` against its ``blocks._mamba_prefill``),
 decode after prefill against the full forward, the cache
 shapes and dtypes, and the masked decay at a full-size chunk of 256
-staying finite."""
+staying finite. The SSD's gradient: equal to the reference's at chunks
+of 4 and 8, and finite at the published chunk of 256, where the
+reference's (``where(tri, exp(seg), 0)``: ``0 · inf`` in its backward) is
+NaN and the port's equals the literal recurrence's."""
 import dataclasses
 
 import jax
@@ -89,6 +92,88 @@ def test_masked_decay_stays_finite_at_a_full_chunk():
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), naive_ssd(xdt, dA, B, C),
                                rtol=2e-4, atol=2e-4)
+
+
+def _weighted_sum_grads_port(ins, w, chunk):
+    """d/d(xdt, dA, B, C) of sum(w · _ssd_chunked(...)), the port's."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins]
+    y = TS._ssd_chunked(*leaves, chunk)
+    (y * torch.from_numpy(w)).sum().backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+def _weighted_sum_grads_reference(ins, w, chunk):
+    f = jax.jit(jax.grad(lambda *a: jnp.sum(w * JS._ssd_chunked(*a, chunk)),
+                         argnums=(0, 1, 2, 3)))
+    return [np.asarray(g) for g in f(*map(jnp.asarray, ins))]
+
+
+@pytest.mark.parametrize("chunk, l", [(4, 16), (8, 16), (8, 21)])
+def test_ssd_gradient_matches_reference(chunk, l):
+    """At the smoke configs' chunks nothing overflows: the port's masked
+    ``exp`` and the reference's masked product have the same gradient,
+    within 1e-5 of each input's max|g|."""
+    ins = _ssd_inputs(2, l, 3, 4, 5, seed=2)
+    w = np.random.default_rng(3).standard_normal((2, l, 3, 4)).astype(
+        np.float32)
+    got = _weighted_sum_grads_port(ins, w, chunk)
+    want = _weighted_sum_grads_reference(ins, w, chunk)
+    for name, g, r in zip(("xdt", "dA", "B", "C"), got, want):
+        assert np.isfinite(r).all()
+        _close(torch.from_numpy(g), r, 1e-5, name)
+
+
+def _recurrence_torch(xdt, dA, B, C):
+    """``naive_ssd`` in float64 autograd: the literal recurrence."""
+    S = torch.zeros(xdt.shape[0], xdt.shape[2], xdt.shape[3], B.shape[-1],
+                    dtype=torch.float64)
+    ys = []
+    for t in range(xdt.shape[1]):
+        S = torch.exp(dA[:, t])[..., None, None] * S + torch.einsum(
+            "bhn,bhp->bhpn", B[:, t], xdt[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", C[:, t], S))
+    return torch.stack(ys, 1)
+
+
+def test_ssd_gradient_is_finite_at_the_published_chunk():
+    """256 steps in one chunk (mamba2-370m's ``ssm_chunk``), decays whose
+    sum overflows ``exp`` above the diagonal: the reference's gradient is
+    NaN there (ROADMAP §C, an observed difference), the port's is finite
+    and equals the float64 recurrence's within 1e-4 of max|g|."""
+    xdt, _, B, C = _ssd_inputs(1, 256, 2, 4, 3, seed=4)
+    dA = np.full((1, 256, 2), -1.9, np.float32)
+    w = np.random.default_rng(5).standard_normal((1, 256, 2, 4)).astype(
+        np.float32)
+    ins = (xdt, dA, B, C)
+    want = _weighted_sum_grads_reference(ins, w, 256)
+    assert not all(np.isfinite(g).all() for g in want)
+    got = _weighted_sum_grads_port(ins, w, 256)
+    leaves = [torch.from_numpy(a).double().requires_grad_(True) for a in ins]
+    (_recurrence_torch(*leaves) * torch.from_numpy(w).double()).sum(
+        ).backward()
+    for name, g, leaf in zip(("xdt", "dA", "B", "C"), got, leaves):
+        assert np.isfinite(g).all(), name
+        exact = leaf.grad.numpy()
+        np.testing.assert_allclose(g, exact, rtol=1e-4,
+                                   atol=1e-4 * np.abs(exact).max(),
+                                   err_msg=name)
+
+
+def test_masked_exp_is_the_reference_form_bitwise():
+    """The port's intra-chunk decay ``exp(where(tri, seg, -inf))`` is the
+    reference's ``where(tri, exp(seg), 0)`` bit for bit (so the forward
+    is unchanged by the fix), at chunks of 8 and of 256 where ``exp(seg)``
+    overflows above the diagonal."""
+    for c, scale in ((8, 0.5), (256, 1.9)):
+        dA = -scale * np.abs(np.random.default_rng(c).standard_normal(
+            (1, 2, 1, c))).astype(np.float32)
+        A_cs = torch.cumsum(torch.from_numpy(dA), dim=-1)
+        seg = A_cs[..., :, None] - A_cs[..., None, :]
+        tri = torch.tril(torch.ones((c, c), dtype=torch.bool))
+        port = torch.exp(torch.where(tri, seg, float("-inf")))
+        reference = torch.where(tri, torch.exp(seg), 0.0)
+        assert torch.equal(port, reference)
+        assert bool(torch.isinf(torch.exp(seg)).any()) == (c == 256)
 
 
 def _mamba(act="float32", seed=0):
