@@ -1,4 +1,4 @@
-"""Ablations of the B1, B3/B4 and B6 designs on one H100: which change moves the time.
+"""Ablations of the B1/B2, B3/B4 and B6 designs on one H100: which change moves the time.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -11,21 +11,26 @@ through the port's own wrapper, on a device-made stream of the nell-2
 stand-in's shape (12100 x 9200 x 28800, 76,899,057 uniform nonzeros, seed
 0, sorted by the output mode): B1 at blk=512, R=16 (modes 0 and 2) and B2
 at R=256; B6 at blk=64, R=16 under Morton order (mode 0), also with the
-ring's stages and mapper warps forced; B3 at blk=512, R=16 on rows
+ring's stages and mapper warps forced; each of B1, B2 and B6 also on
+the same factors in bf16 (``-bf16`` cases); B3 at blk=512, R=16 on rows
 pre-gathered in fp32 (modes 0, 1, 2) and bf16 (modes 0, 2), and B4 at
 R=32 in two 16-column slabs (modes 0, 2), also with the ring's stages and
 slots per stage forced, and B4 at R=16 (one slab) on the same rows; beside
 each, B3/B4's first design, kept as source text in
 ``bench_torch/fused_mttkrp_direct.cu``. Every variant's
-output must equal the unmodified kernel's bitwise. Prints one line per
+output must equal the unmodified kernel's bitwise, but for B6's
+copies-without-adds and adds-without-copies, whose output must be zeros.
+``--cases REGEX`` runs only the cases whose label matches. Prints one line per
 variant with its CUDA-event mean time (B3/B4 lines also the HBM TB/s
 their bytes take at that time), the mode-2 gap (mode 2 minus mode 0) of
 every B3/B4 variant, and the card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -95,6 +100,11 @@ DIRECT = os.path.join(ROOT, "bench_torch/fused_mttkrp_direct.cu")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DIRECT_ARGS = ([_P] * 5 + [_P] * 3 + [_I] * 9 + [_P])
 DIRECT_NAME = "b3 first design (direct row loads, one CTA per tile)"
+B6_COPIES_ONLY = "b6 copies without adds"
+B6_ADDS_ONLY = "b6 adds without copies"
+# Variants that compute something else on purpose: their output must be
+# all zeros (no out_init is passed).
+ZERO_VARIANTS = {B6_COPIES_ONLY, B6_ADDS_ONLY}
 # name -> (library, source, edits[, edits of mttkrp_common.cuh]): each
 # undoes or varies one choice of the design.
 VARIANTS = {
@@ -111,6 +121,9 @@ VARIANTS = {
     "b1 kUnroll 8": ("gather_mttkrp", B1,
                      [("constexpr int kUnroll = 4;",
                        "constexpr int kUnroll = 8;")]),
+    "b1 kUnroll 16": ("gather_mttkrp", B1,
+                      [("constexpr int kUnroll = 4;",
+                        "constexpr int kUnroll = 16;")]),
     "b1 kUnroll 2": ("gather_mttkrp", B1,
                      [("constexpr int kUnroll = 4;",
                        "constexpr int kUnroll = 2;")]),
@@ -131,6 +144,25 @@ VARIANTS = {
           "                if (j > 0 && entry(w, j - 1) == tile - 1) {",
           "              if (false) {\n"
           "                if (j > 0 && entry(w, j - 1) == tile - 1) {")]),
+    # What sets B6's pace: its copies alone (the consumers wait on each
+    # stage and release it, adding nothing), or its adds alone (no tile
+    # is copied; the windows are zeroed once, so every product is 0).
+    # Both outputs are zeros, which is what they are checked against.
+    B6_COPIES_ONLY: (
+        "gather_stream_mttkrp", B6,
+        [("      if (adds && sl[plan_off + wsum]) {",
+          "      if (false) {")]),
+    B6_ADDS_ONLY: (
+        "gather_stream_mttkrp", B6,
+        [("  const int pl = threadIdx.x % 32;\n",
+          "  for (size_t e = threadIdx.x;\n"
+          "       e < (size_t)stages * win_elems * sizeof(T) / 4;\n"
+          "       e += blockDim.x)\n"
+          "    reinterpret_cast<int*>(win)[e] = 0;\n"
+          "  __syncthreads();\n"
+          "  const int pl = threadIdx.x % 32;\n"),
+         ("      if (runs[wsum]) {\n        // Entry e",
+          "      if (false) {\n        // Entry e")]),
     "b3": ("fused_mttkrp", B3, []),
     DIRECT_NAME: ("fused_mttkrp_direct", DIRECT, []),
     "b3 slabs by 16-byte cp.async (not the 2-D tensor copy)": (
@@ -161,11 +193,68 @@ VARIANTS = {
         [("constexpr int kMetaChunk = 1024;",
           "constexpr int kMetaChunk = 512;")]),
 }
+# The bf16 designs of B1/B2 and B6 (variants named "... bf16 ...", run on
+# the bf16 cases only): each undoes or varies one choice; the first bf16
+# designs undo all. Some also set a wrapper function for their run
+# (PATCHES) or force B6's ring (B6_RINGS).
+_NO_VEC_ROWS = [("constexpr int kVecMinSlab = 64;",
+                 "constexpr int kVecMinSlab = 1 << 30;")]
+_COLUMN_READS = [("  constexpr bool kPairReads = sizeof(T) == 2;",
+                  "  constexpr bool kPairReads = false;")]
+FIRST_B6 = "b6 bf16 first design (a column a lane, 16 lanes, deepest ring)"
+VARIANTS.update({
+    "b1 bf16 first design (a column a lane at every slab)": (
+        "gather_mttkrp", B1, _NO_VEC_ROWS),
+    "b1 bf16 16-byte rows at every slab": (
+        "gather_mttkrp", B1, [("constexpr int kVecMinSlab = 64;",
+                               "constexpr int kVecMinSlab = 16;")]),
+    "b1 bf16 16-byte rows at every slab, kUnrollBf16 16": (
+        "gather_mttkrp", B1, [("constexpr int kVecMinSlab = 64;",
+                               "constexpr int kVecMinSlab = 16;"),
+                              ("constexpr int kUnrollBf16 = 8;",
+                               "constexpr int kUnrollBf16 = 16;")]),
+    "b1 bf16 kUnrollBf16 16": (
+        "gather_mttkrp", B1, [("constexpr int kUnrollBf16 = 8;",
+                               "constexpr int kUnrollBf16 = 16;")]),
+    "b1 bf16 kUnrollBf16 4": (
+        "gather_mttkrp", B1, [("constexpr int kUnrollBf16 = 8;",
+                               "constexpr int kUnrollBf16 = 4;")]),
+    FIRST_B6: ("gather_stream_mttkrp", B6, _COLUMN_READS),
+    "b6 bf16 a column a lane (16 lanes)": (
+        "gather_stream_mttkrp", B6, _COLUMN_READS),
+    "b6 bf16 deepest ring in one CTA": ("gather_stream_mttkrp", B6, []),
+    "b6 bf16 8 issuer warps": (
+        "gather_stream_mttkrp", B6, [("constexpr int kIssuerWarps = 4;",
+                                      "constexpr int kIssuerWarps = 8;")]),
+})
+_COLUMN_LANES = {"_stream_lanes": lambda slab, gather_itemsize=4:
+                 K._lanes(slab)}
+_VEC_EVERYWHERE = {"BF16_VEC_MIN_SLAB": 16}
+PATCHES = {
+    "b1 bf16 first design (a column a lane at every slab)": {
+        "BF16_VEC_MIN_SLAB": 1 << 30},
+    "b1 bf16 16-byte rows at every slab": _VEC_EVERYWHERE,
+    "b1 bf16 16-byte rows at every slab, kUnrollBf16 16": _VEC_EVERYWHERE,
+    FIRST_B6: _COLUMN_LANES,
+    "b6 bf16 a column a lane (16 lanes)": _COLUMN_LANES,
+}
+# The deepest ring one bf16 CTA fits (the rule before the two-CTA one),
+# at the nell-2 stand-in's mode 0 windows (64, 62).
+_ONE_CTA_RING = (5, 8)
 # Variants that differ from the unmodified kernel only where the slab is
 # narrower than the row: timed on those cases alone.
 SLAB_ONLY = {"b3 slabs by 16-byte cp.async (not the 2-D tensor copy)"}
-# B6 ring shapes forced through the wrapper: (stages, mapper warps).
-RINGS = [(3, 8), (1, 8), (3, 4), (3, 2)]
+# B6 ring shapes forced through the wrapper per variant: (stages, mapper
+# warps); None is the ring the wrapper picks (kernel.stream_ring). A
+# shape whose CTA does not fit is reported as not launched.
+B6_RINGS = {
+    "b6": [None, (3, 8), (2, 8), (1, 8), (2, 4), (1, 4), (3, 2)],
+    FIRST_B6: [_ONE_CTA_RING],
+    "b6 bf16 deepest ring in one CTA": [_ONE_CTA_RING],
+    "b6 bf16 8 issuer warps": [None, _ONE_CTA_RING],
+    B6_COPIES_ONLY: [None, _ONE_CTA_RING],
+    B6_ADDS_ONLY: [None, _ONE_CTA_RING],
+}
 # B3/B4 ring shapes forced through the wrapper: (stages, slots per stage);
 # (1, 256) is one stage, no overlap of copies and adds. Shapes whose CTA
 # does not fit shared memory are skipped. The meta-ring variants run at a
@@ -246,6 +335,12 @@ def direct_call(lib, vals, pre, rows, tob, *, rows_cap, blk, tile_rows,
     return out
 
 
+def bf16_operands(operands):
+    """A kernel's operands with the factor matrices (the third) in bf16."""
+    return (operands[:2] + (tuple(f.to(torch.bfloat16) for f in operands[2]),)
+            + operands[3:])
+
+
 def fused_hbm_bytes(vals, pre, rows_cap, tile_rows):
     """B3/B4's HBM bytes (chip_smoke.fused_bound_ms's count): per nonzero
     its value, local row and K rows; the block starts; the output."""
@@ -262,6 +357,11 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cases", default="",
+                        help="regular expression: run only the cases whose "
+                        "label it matches (e.g. 'bf16')")
+    wanted = re.compile(parser.parse_args().cases)
     libs = build_variants()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -280,7 +380,10 @@ def main() -> int:
         """Every variant of ``prefix`` on ``call`` (``only``: those
         named), each == the unmodified kernel bitwise. ``fused``: (vals,
         pre, rows, tob, kw, slab) of a B3/B4 case, for the first design
-        and the forced rings."""
+        and the forced rings. Cases ``--cases`` does not match are
+        skipped."""
+        if not wanted.search(label):
+            return True
         build.load = lambda name, h=libs[prefix]: h
         want = call()
         hbm = fused_hbm_bytes(fused[0], fused[1], fused[4]["rows_cap"],
@@ -290,11 +393,13 @@ def main() -> int:
                 continue
             if only is not None and name not in only:
                 continue
+            if " bf16 " in name and "bf16" not in label:
+                continue
             if name in SLAB_ONLY and (fused is None
                                       or fused[5] == fused[1][0].shape[1]):
                 continue
-            if name == "b6":
-                rings = RINGS
+            if prefix == "b6":
+                rings = B6_RINGS.get(name, [None])
             elif name in FUSED_VARIANT_RINGS and only is None:
                 rings = [None] + FUSED_VARIANT_RINGS[name]
             else:
@@ -338,14 +443,36 @@ def main() -> int:
                         else:
                             what = name if ring is None else \
                                 f"{name} stages {ring[0]} slots {ring[1]}"
-                got = fn()
-                same = torch.equal(got, want)
-                ms = cuda_ms(fn, 3)
+                saved = {a: getattr(K, a) for a in PATCHES.get(name, {})}
+                for a, value in PATCHES.get(name, {}).items():
+                    setattr(K, a, value)
+                try:
+                    got = fn()
+                except RuntimeError as exc:  # a refused launch is a result
+                    print(f"[ablation] {label}: {what}: not launched "
+                          f"({exc})  [{gpu}]", flush=True)
+                    K.stream_ring, K.fused_ring = real_ring, real_fused_ring
+                    continue
+                finally:
+                    for a, value in saved.items():
+                        setattr(K, a, value)
+                if name in ZERO_VARIANTS:
+                    same = torch.equal(got, torch.zeros_like(got))
+                    check = f"{'==' if same else '!='} zeros (as it must)"
+                else:
+                    same = torch.equal(got, want)
+                    check = f"{'==' if same else '!='} unmodified bitwise"
+                for a, value in PATCHES.get(name, {}).items():
+                    setattr(K, a, value)
+                try:
+                    ms = cuda_ms(fn, 3)
+                finally:
+                    for a, value in saved.items():
+                        setattr(K, a, value)
                 times[(label, what)] = ms
                 rate = f", {hbm / ms / 1e9:.3f} TB/s" if hbm else ""
                 print(f"[ablation] {label}: {what}: {ms:.3f} ms{rate}, "
-                      f"{'==' if same else '!='} unmodified bitwise  [{gpu}]",
-                      flush=True)
+                      f"{check}  [{gpu}]", flush=True)
                 K.stream_ring, K.fused_ring = real_ring, real_fused_ring
                 if not same:
                     return False
@@ -364,13 +491,19 @@ def main() -> int:
             ok &= run_case(f"B1 mode {mode}", "b1",
                            lambda o=o16, kw=kw:
                            K.fused_mttkrp_nmode_gather(*o, **kw))
+            ok &= run_case(f"B1-bf16 mode {mode}", "b1",
+                           lambda o=bf16_operands(o16), kw=kw:
+                           K.fused_mttkrp_nmode_gather(*o, **kw))
         # B3 on rows pre-gathered in fp32 (every mode) and bf16.
         vals, ia, fm, rows, tob = o16
         for dtype in (torch.float32, torch.bfloat16):
             if dtype == torch.bfloat16 and mode == 1:
                 continue
-            pre = ops.pregathered_rows(ia, [f.to(dtype) for f in fm])
             tag = "" if dtype == torch.float32 else "-bf16"
+            if not (wanted.search(f"B3{tag} mode {mode}")
+                    or wanted.search(f"B4{tag} mode {mode}")):
+                continue
+            pre = ops.pregathered_rows(ia, [f.to(dtype) for f in fm])
             ok &= run_case(f"B3{tag} mode {mode}", "b3",
                            lambda p=pre: K.fused_mttkrp_nmode(
                                vals, p, rows, tob, **kw),
@@ -384,7 +517,7 @@ def main() -> int:
                            only=("b3", DIRECT_NAME))
             del pre
         del o16, vals, ia, fm, rows, tob
-        if mode != 1:
+        if mode != 1 and wanted.search(f"B4 R=32 mode {mode}"):
             # B4 at R=32 in two 16-column slabs (a slab narrower than the
             # row: the 2-D tensor copy, or cp.async).
             o32 = ops.gather_operands(si, sv, valid, f32, mode=mode,
@@ -405,6 +538,10 @@ def main() -> int:
                            lambda o=o256, kw=kw:
                            K.fused_mttkrp_nmode_gather_tiled(
                                *o, rank_slab=128, **kw))
+            ok &= run_case("B2-bf16 R=256 mode 0", "b1",
+                           lambda o=bf16_operands(o256), kw=kw:
+                           K.fused_mttkrp_nmode_gather_tiled(
+                               *o, rank_slab=128, **kw))
             del o256
             ri, rv, rva, _ = reorder_stream(si, sv, valid, mode=0,
                                             ordering="morton", tile_rows=8,
@@ -418,6 +555,9 @@ def main() -> int:
             s_ops = (vals, ia, fm, rows, tob, scheds)
             ok &= run_case(f"B6 mode 0 windows {windows}", "b6",
                            lambda s=s_ops, kw=skw:
+                           K.fused_mttkrp_nmode_gather_stream(*s, **kw))
+            ok &= run_case(f"B6-bf16 mode 0 windows {windows}", "b6",
+                           lambda s=bf16_operands(s_ops), kw=skw:
                            K.fused_mttkrp_nmode_gather_stream(*s, **kw))
             del ri, rv, rva, vals, ia, fm, rows, tob, scheds, s_ops
         del si, sv

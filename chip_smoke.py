@@ -486,6 +486,14 @@ def l2_fields(l2_bytes: int, ms: float) -> tuple[float, float]:
     return l2_bytes / ms / 1e9, l2_bytes / L2_BYTES_PER_S * 1e3
 
 
+def l2_text(l2_bytes: int, ms: float) -> str:
+    """``ms``, the L2 TB/s reached and the share of the L2 bound, for a
+    kernel line."""
+    tbps, bound = l2_fields(l2_bytes, ms)
+    return (f"{ms:.3f} ms, {tbps:.3f} TB/s of L2, {bound / ms:.1%} of its "
+            f"L2 bound {bound:.3f} ms")
+
+
 def gather_l2_bytes(operands) -> int:
     """The factor rows B1/B2 gather through L2 in one call: K rows of the
     padded rank per slot that holds a nonzero, at the factors' itemsize."""
@@ -1458,6 +1466,15 @@ def phase_bf16_kernels(dev):
                                                      **kw)),
                 f"B3-bf16 {what}: rerun differs")
         t1 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*ops_, **kw), 5)
+        f32_ops = ops_[:2] + (tuple(f.float() for f in fmats),) + ops_[3:]
+        t1_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*f32_ops, **kw),
+                         5)
+        t2 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_tiled(
+            *ops_, rank_slab=slab, **kw), 5)
+        t2_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_tiled(
+            *f32_ops, rank_slab=slab, **kw), 5)
+        l2b, l2b_f32 = gather_l2_bytes(ops_), gather_l2_bytes(f32_ops)
+        del f32_ops
         t3 = cuda_ms(lambda: K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw),
                      5)
         t4 = cuda_ms(lambda: K.fused_mttkrp_nmode_tiled(
@@ -1466,7 +1483,10 @@ def phase_bf16_kernels(dev):
                    tile_rows=TILE_ROWS)
         log(f"[bf16-kernels] {what} nnz={cap}: max_abs_err B1 {err1:.3e} "
             f"B2 {err2:.3e} B3 {err3:.3e} B4 {err4:.3e}; B2==B3==B4==B1 "
-            f"bitwise, reruns bitwise; B1-bf16 {t1:.4f} ms, B3-bf16 "
+            f"bitwise, reruns bitwise; B1-bf16 {l2_text(l2b, t1)} (fp32 B1 "
+            f"same inputs {l2_text(l2b_f32, t1_f32)}); B2-bf16 (slab {slab}) "
+            f"{l2_text(l2b, t2)} (fp32 B2 {l2_text(l2b_f32, t2_f32)}); "
+            f"B1-bf16 {t1:.4f} ms, B3-bf16 "
             f"{t3:.4f} ms ({fused_ring_fields(pre, t3, **rkw)}), B4-bf16 "
             f"(slab 16) {t4:.4f} ms "
             f"({fused_ring_fields(pre, t4, slab=16, **rkw)})")
@@ -1507,11 +1527,19 @@ def phase_bf16_kernels(dev):
                                         windows, gather_itemsize=2)
         t6 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(*s_ops, **kw),
                      3)
+        f32_s = s_ops[:2] + (tuple(f.float() for f in s_ops[2]),) + s_ops[3:]
+        t6_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather_stream(
+            *f32_s, **kw), 3)
+        copied = stream_copy_bytes(s_ops[0], s_ops[5], s_ops[2], STREAM_BLK,
+                                   K.FACTOR_ROW_TILE, K.STREAM_RANK_SLAB)
+        del f32_s
         log(f"[bf16-kernels] B6 {what} nnz={cap} blk={STREAM_BLK} windows="
             f"{windows} stages={stages} mappers={mappers}: max_abs_err "
             f"{err:.3e}, B6==B1 bitwise, rerun bitwise, {st2.chunks} chunks "
             f"with {splits} mid-tile splits == single pass bitwise; tile "
-            f"bytes {st1.distinct_tile_bytes} (bf16); B6-bf16 {t6:.4f} ms")
+            f"bytes {st1.distinct_tile_bytes} (bf16); B6-bf16 "
+            f"{l2_text(copied, t6)} (fp32 B6 same stream "
+            f"{l2_text(2 * copied, t6_f32)})")
         del stream, b1_ops, s_ops, b6, b6_again, b1, single, chunked
     torch.cuda.empty_cache()
 
@@ -1650,11 +1678,13 @@ def phase_bf16_main(ft, dev, gpu: str):
         f32_ops = ops.gather_operands(*cur, facs, slab=rank, **okw)
         t_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*f32_ops, **kw), 5)
         log(f"[bf16-main] B1-bf16 mode {n}: {nnz} nnz, kernel "
-            f"{row['ms']:.3f} ms (fp32 B1 {t_f32:.3f} ms, same inputs), plain "
+            f"{row['ms']:.3f} ms (fp32 B1 {t_f32:.3f} ms, same inputs: "
+            f"{l2_text(gather_l2_bytes(f32_ops), t_f32)}), plain "
             f"{row['plain_ms']:.3f} ms, HBM bound {bound[0]:.3f} ms "
             f"({bound[1]}); L2 {l2b} B gathered at "
             f"{l2_fields(l2b, row['ms'])[0]:.3f} TB/s, L2 bound "
-            f"{l2_fields(l2b, row['ms'])[1]:.3f} ms (fp32 "
+            f"{l2_fields(l2b, row['ms'])[1]:.3f} ms, "
+            f"{l2_fields(l2b, row['ms'])[1] / row['ms']:.1%} of it (fp32 "
             f"{gather_l2_bytes(f32_ops)} B); max_abs_err {row['err']:.3e}, "
             f"== the bf16 sweep bitwise  [{gpu}]")
         del f32_ops
@@ -1680,10 +1710,12 @@ def phase_bf16_main(ft, dev, gpu: str):
             *f32_256, **tkw), 3)
         tbps, l2bound = l2_fields(l2b256, row["ms"])
         log(f"[bf16-main] B2-bf16 mode {n}: R=256, 2 slabs, kernel "
-            f"{row['ms']:.3f} ms (fp32 B2 {t2_f32:.3f} ms, same inputs), plain "
+            f"{row['ms']:.3f} ms (fp32 B2 {t2_f32:.3f} ms, same inputs: "
+            f"{l2_text(gather_l2_bytes(f32_256), t2_f32)}), plain "
             f"{row['plain_ms']:.3f} ms, bound {bound256[0]:.3f} ms "
             f"({bound256[1]}); L2 {l2b256} B gathered at {tbps:.3f} TB/s, L2 "
-            f"bound {l2bound:.3f} ms; max_abs_err {row['err']:.3e}, == B1-bf16"
+            f"bound {l2bound:.3f} ms, {l2bound / row['ms']:.1%} of it; "
+            f"max_abs_err {row['err']:.3e}, == B1-bf16"
             f" at R=256 bitwise  [{gpu}]")
         del b2, out2, ops256, f32_256
         # B3-bf16 / B4-bf16 on rows pre-gathered in bf16 (timed: the gather
@@ -1760,10 +1792,12 @@ def phase_bf16_main(ft, dev, gpu: str):
             f"{secs:.2f} s in {stats.chunks} chunks == B1-bf16 bitwise, tile "
             f"bytes counted {stats.distinct_tile_bytes} (bf16); single pass "
             f"windows {windows}, stages {stages}, mappers {mappers}: kernel "
-            f"{row['ms']:.3f} ms (fp32 B6 {t6_f32:.3f} ms, same stream), "
+            f"{row['ms']:.3f} ms (fp32 B6 {t6_f32:.3f} ms, same stream: "
+            f"{l2_text(2 * copied, t6_f32)}), "
             f"plain {row['plain_ms']:.3f} ms, HBM bound {sbound[0]:.3f} ms "
             f"({sbound[1]}); L2 {copied} B of tiles copied at {tbps:.3f} "
-            f"TB/s, L2 bound {l2bound:.3f} ms; max_abs_err {row['err']:.3e}  "
+            f"TB/s, L2 bound {l2bound:.3f} ms, {l2bound / row['ms']:.1%} of "
+            f"it; max_abs_err {row['err']:.3e}  "
             f"[{gpu}]")
         del m_ops, s_ops, f32_s, b1m, b6, out6
         cur = remap_one(cur, (n + 1) % nmodes, rt)

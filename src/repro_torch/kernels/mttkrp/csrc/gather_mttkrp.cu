@@ -19,11 +19,14 @@
 // Element types. The factors are float, or bf16 (the reference's bf16
 // gathers, kernel.py:664: bf16 factor operands, fp32 products and sums).
 // Each kernel is instantiated for both, with one entry point each
-// (gather_mttkrp_launch, gather_mttkrp_bf16_launch); only the factor loads
-// differ: a bf16 element becomes fp32 as it is loaded (exact), so the bf16
-// variants of B1 and B2 agree bitwise with each other and with the bf16
-// variants of B3, B4 and B6 on one aligned stream. The stream (values,
-// local rows, indices) and the partial tiles are the same in both.
+// (gather_mttkrp_launch, gather_mttkrp_bf16_launch). A bf16 element
+// becomes fp32 as it is loaded (exact), and each column sees the fp32
+// kernel's operations in its order, so the bf16 variants of B1 and B2
+// agree bitwise with each other and with the bf16 variants of B3, B4 and
+// B6 on one aligned stream. The stream (values, local rows, indices), its
+// staging and the partial tiles are the same in both; at a slab of
+// kVecMinSlab columns or more, bf16 rows are loaded 16 bytes a lane by
+// gather_mttkrp_vec_kernel (below).
 //
 // What bounds it. Per nonzero the stream brings 4 B of value, 4 B of local
 // row and 4 B per input mode of factor index: 16 B/nnz for a 3-mode tensor,
@@ -71,6 +74,21 @@
 //  * Padding slots (val == 0) add nothing and are skipped before any
 //    gather. An out-of-range local row or factor index is skipped too, so
 //    a malformed stream cannot write or read out of bounds.
+//  * Wide bf16 slabs: 16-byte row loads. With a column a lane, a warp's
+//    load of a row slab brings 64 bytes in bf16 against 128 in fp32, in
+//    as many loads and L2 requests, so B2 moved half the bytes in the
+//    same time. gather_mttkrp_vec_kernel gives each lane blocks of kVec
+//    = 8 adjacent columns, each loaded with one 16-byte read (slab / 8
+//    lanes a group, at most 32: kernel._gather_lanes): a row slab of 128
+//    bf16 columns is one 16-lane load, 256 bytes in two L2 requests, and
+//    a group loads the blocks of kUnrollBf16 / K slots before it adds.
+//    Narrower bf16 slabs keep a column a lane. At R=16 the 16-byte loads
+//    make a group 2 lanes and a CTA one warp, and B1's pace there is the
+//    random 32-byte rows it keeps in flight (bench_torch/copy_rate.py's
+//    gather lines): the staging buffers hold a one-warp CTA to 5 an SM,
+//    and smaller buffers, which let more fit, slowed the last tile's walk
+//    over the stream's trailing padding as much
+//    (bench_torch/kernel_ablation.py).
 //
 // Shared memory (kernel.gather_smem_bytes): groups x tile_rows x slab
 // floats of partial tiles, then kBuffers staging buffers, each kChunk
@@ -80,6 +98,8 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ../build.py); bound with ctypes.
+
+#include <type_traits>
 
 #include "mttkrp_common.cuh"
 
@@ -95,6 +115,65 @@ constexpr int kChunk = 1024;
 constexpr int kBuffers = 2;
 // Slots of one group whose factor loads are in flight together.
 constexpr int kUnroll = 4;
+// bf16 at slabs of kVecMinSlab columns or more: columns one 16-byte load
+// brings, and a batch's slots times the input modes (kUnrollBf16 / K
+// slots of K row blocks: 32 registers of loaded rows, so a 512-thread
+// CTA, at slab 256, still fits the SM's registers).
+constexpr int kVec = 8;
+constexpr int kVecMinSlab = 64;
+constexpr int kUnrollBf16 = 8;
+
+// One bf16 group's adds for a batch of U slots: for each block of kVec
+// columns c..c+7 this lane owns (c = 8 * lane, 8 * (lane + lanes), ...),
+// the slots' K row blocks are loaded with one 16-byte read each, all of
+// the batch's before its first add; then, slot by slot in order, each
+// column's product v[u] * row(u,0)[c] * ... (left to right, __fmul_rn) is
+// added with __fadd_rn into row r[u] of the partial tile: per column the
+// operations of add_products.
+template <int K, int U>
+__device__ __forceinline__ void add_products_bf16x8(
+    const float (&v)[U], const int (&r)[U], const int (&off)[U][K],
+    const bool (&use)[U], const FactorSet<__nv_bfloat16>& fs, float* mine,
+    int slab, int lane, int lanes) {
+  for (int c = lane * kVec; c < slab; c += lanes * kVec) {
+    uint4 x[U][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int w = 0; w < K; ++w)
+        x[u][w] = use[u] ? __ldg(reinterpret_cast<const uint4*>(
+                               fs.ptr[w] + off[u][w] + c))
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!use[u]) continue;
+      float p[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) p[e] = v[u];
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        float f[kVec];
+        mttkrp_common::bf16x8_to_f32(x[u][w], f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) p[e] = __fmul_rn(p[e], f[e]);
+      }
+      float4* dst = reinterpret_cast<float4*>(mine + r[u] * slab + c);
+      float4 a = dst[0];
+      float4 b = dst[1];
+      a.x = __fadd_rn(a.x, p[0]);
+      a.y = __fadd_rn(a.y, p[1]);
+      a.z = __fadd_rn(a.z, p[2]);
+      a.w = __fadd_rn(a.w, p[3]);
+      b.x = __fadd_rn(b.x, p[4]);
+      b.y = __fadd_rn(b.y, p[5]);
+      b.z = __fadd_rn(b.z, p[6]);
+      b.w = __fadd_rn(b.w, p[7]);
+      dst[0] = a;
+      dst[1] = b;
+    }
+  }
+}
 
 // Issue the copies of slots [base, base + cnt) (cnt a multiple of 4) into
 // one staging buffer, and commit them as one group.
@@ -113,14 +192,15 @@ __device__ __forceinline__ void stage_chunk(const float* vals, const int* idx,
   mttkrp_common::cp_async_commit();
 }
 
-template <int K, typename T>
-__global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
-                                     const int* __restrict__ idx,
-                                     const int* __restrict__ lrow,
-                                     const int* __restrict__ blk_start,
-                                     FactorSet<T> fs, float* __restrict__ out,
-                                     int blk, int tile_rows, int ld,
-                                     int slab, int groups, int lanes) {
+// The kernels' body: kVecRows (bf16 only) loads rows in 16-byte blocks of
+// kVec columns a lane (add_products_bf16x8), else a column a lane
+// (add_products).
+template <int K, typename T, bool kVecRows>
+__device__ __forceinline__ void gather_body(
+    const float* __restrict__ vals, const int* __restrict__ idx,
+    const int* __restrict__ lrow, const int* __restrict__ blk_start,
+    const FactorSet<T>& fs, float* __restrict__ out, int blk, int tile_rows,
+    int ld, int slab, int groups, int lanes) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tile_elems = tile_rows * slab;
@@ -186,6 +266,31 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
     // multiple of groups, so across chunks it walks every groups-th slot
     // of the tile's run in order), kUnroll slots at a time: the factor
     // loads of a batch are issued before its adds, which run in slot order.
+    if constexpr (kVecRows) {
+      constexpr int U = kUnrollBf16 / K > 0 ? kUnrollBf16 / K : 1;
+      for (int j0 = g; j0 < cnt; j0 += groups * U) {
+        float v[U];
+        int r[U];
+        int off[U][K];  // slot u's row offset in factor w
+        bool use[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * groups;
+          v[u] = j < cnt ? s_val[j] : 0.0f;
+          use[u] = v[u] != 0.0f;
+          r[u] = use[u] ? s_row[j] : 0;
+          use[u] = use[u] && (unsigned)r[u] < (unsigned)tile_rows;
+#pragma unroll
+          for (int w = 0; w < K; ++w) {
+            const int ix = use[u] ? s_idx[j * K + w] : 0;
+            use[u] = use[u] && (unsigned)ix < (unsigned)fs.rows[w];
+            off[u][w] = ix * ld + col0;
+          }
+        }
+        add_products_bf16x8<K, U>(v, r, off, use, fs, mine, slab, lane,
+                                  lanes);
+      }
+    } else
     for (int j0 = g; j0 < cnt; j0 += groups * kUnroll) {
       float v[kUnroll];
       int r[kUnroll];
@@ -219,6 +324,28 @@ __global__ void gather_mttkrp_kernel(const float* __restrict__ vals,
       out + (long long)t * tile_rows * ld + col0, ld);
 }
 
+#define GATHER_KERNEL_ARGS                                                 \
+  const float *__restrict__ vals, const int *__restrict__ idx,             \
+      const int *__restrict__ lrow, const int *__restrict__ blk_start,     \
+      FactorSet<T> fs, float *__restrict__ out, int blk, int tile_rows,    \
+      int ld, int slab, int groups, int lanes
+#define GATHER_KERNEL_PASS                                                 \
+  vals, idx, lrow, blk_start, fs, out, blk, tile_rows, ld, slab, groups,   \
+      lanes
+
+// A column a lane: float factors, and bf16 ones at narrow slabs.
+template <int K, typename T>
+__global__ void gather_mttkrp_kernel(GATHER_KERNEL_ARGS) {
+  gather_body<K, T, false>(GATHER_KERNEL_PASS);
+}
+
+// bf16 factors at slabs of kVecMinSlab columns or more: 16-byte row loads.
+template <int K, typename T>
+__global__ void gather_mttkrp_vec_kernel(GATHER_KERNEL_ARGS) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 rows only");
+  gather_body<K, T, true>(GATHER_KERNEL_PASS);
+}
+
 template <int K, typename T>
 cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
                      const int* blk_start, const FactorSet<T>& fs, float* out,
@@ -227,10 +354,21 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
                      cudaStream_t stream) {
   const size_t smem = (size_t)groups * tile_rows * slab * sizeof(float) +
                       (size_t)kBuffers * kChunk * (2 + K) * sizeof(float);
+  const dim3 grid(num_tiles, num_slabs);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (slab >= kVecMinSlab) {
+      const cudaError_t e =
+          mttkrp_common::allow_smem(gather_mttkrp_vec_kernel<K, T>, smem);
+      if (e != cudaSuccess) return e;
+      gather_mttkrp_vec_kernel<K, T><<<grid, groups * lanes, smem, stream>>>(
+          vals, idx, lrow, blk_start, fs, out, blk, tile_rows, ld, slab,
+          groups, lanes);
+      return cudaGetLastError();
+    }
+  }
   const cudaError_t e =
       mttkrp_common::allow_smem(gather_mttkrp_kernel<K, T>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(num_tiles, num_slabs);
   gather_mttkrp_kernel<K, T><<<grid, groups * lanes, smem, stream>>>(
       vals, idx, lrow, blk_start, fs, out, blk, tile_rows, ld, slab, groups,
       lanes);
@@ -275,7 +413,9 @@ int launch(const void* vals, const void* idx, const void* lrow,
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // f1..f3 / rows1..rows3 are ignored beyond `num_in` input modes. The
 // factors are float (gather_mttkrp_launch) or bf16
-// (gather_mttkrp_bf16_launch); every other argument is the same.
+// (gather_mttkrp_bf16_launch; at a slab of kVecMinSlab or more the factors
+// are 16-byte aligned and `lanes` = slab / 8, at most 32); every other
+// argument is the same.
 #define GATHER_ARGS                                                        \
   const void *vals, const void *idx, const void *lrow,                     \
       const void *blk_start, const void *f0, const void *f1,               \

@@ -29,6 +29,19 @@
 // element into fp32 as they read it (exact), so the bf16 B6 == the bf16 B1
 // bitwise.
 //
+// What bf16 does besides. Its consumers read two adjacent columns a lane
+// (one 4-byte read per row, a float2 of the partial tile; the wrapper
+// gives them slab / 2 lanes, half the warps). And the wrapper's ring for
+// bf16 windows is the deepest of two stages or more that lets two CTAs
+// share an SM (kernel.stream_ring): on the nell-2 stand-in, at one CTA
+// an SM the copies alone and the adds alone each took most of the call,
+// and two CTAs of two stages overlap them (bench_torch/kernel_ablation.py
+// on one H100: 9.6 ms in one CTA of five stages, 6.5 in two of two).
+// Four issuer warps a CTA stay (eight ran slower at two CTAs an SM), and
+// so do the bulk copies: 16-byte cp.async moved random 256-byte tiles at
+// most at 14.3 G tiles/s against the bulk copy's 21.8
+// (bench_torch/copy_rate.py).
+//
 // What bounds it. Each nonzero's value, local row and K indices are read
 // from device memory once (4 + 4 + 4K bytes: the HBM bound), and each
 // block copies the distinct tiles of its schedule rows (frow * slab *
@@ -151,6 +164,8 @@ __global__ void gather_stream_mttkrp_kernel(
     int blk, int tile_rows, int ld, int slab, int groups, int lanes, int frow,
     int stages, int mappers, int carry_in_tile, int carry_in_phase,
     int carry_out_tile) {
+  // Consumer lanes read two adjacent bf16 columns at once.
+  constexpr bool kPairReads = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   int woff[K];  // first window tile of each mode
@@ -409,13 +424,34 @@ __global__ void gather_stream_mttkrp_kernel(
 #pragma unroll
           for (int w = 0; w < K; ++w)
             rowp[w] = wins + (size_t)s_loc[j * K + w] * slab;
-          for (int c = lane; c < slab; c += lanes) {
-            float p = v;
+          if constexpr (kPairReads) {
+            // Columns c, c + 1: the same operations as a column a lane.
+            for (int c = 2 * lane; c < slab; c += 2 * lanes) {
+              float p0 = v;
+              float p1 = v;
 #pragma unroll
-            for (int w = 0; w < K; ++w)
-              p = __fmul_rn(p, mttkrp_common::to_f32(rowp[w][c]));
-            float* dst = mine + r * slab + c;
-            *dst = __fadd_rn(*dst, p);
+              for (int w = 0; w < K; ++w) {
+                float lo, hi;
+                mttkrp_common::bf16x2_to_f32(
+                    *reinterpret_cast<const unsigned*>(rowp[w] + c), lo, hi);
+                p0 = __fmul_rn(p0, lo);
+                p1 = __fmul_rn(p1, hi);
+              }
+              float2* dst = reinterpret_cast<float2*>(mine + r * slab + c);
+              float2 d = *dst;
+              d.x = __fadd_rn(d.x, p0);
+              d.y = __fadd_rn(d.y, p1);
+              *dst = d;
+            }
+          } else {
+            for (int c = lane; c < slab; c += lanes) {
+              float p = v;
+#pragma unroll
+              for (int w = 0; w < K; ++w)
+                p = __fmul_rn(p, mttkrp_common::to_f32(rowp[w][c]));
+              float* dst = mine + r * slab + c;
+              *dst = __fadd_rn(*dst, p);
+            }
           }
         }
       }
@@ -524,7 +560,8 @@ int launch(const void* vals, const void* idx, const void* lrow,
 // Arguments past `num_in` input modes are ignored. carry_in / carry_out
 // may be null when carry_in_tile / carry_out_tile is -1. The factors are
 // float (gather_stream_mttkrp_launch) or bf16
-// (gather_stream_mttkrp_bf16_launch); every other argument is the same.
+// (gather_stream_mttkrp_bf16_launch, `lanes` = slab / 2 up to 32); every
+// other argument is the same.
 #define STREAM_ARGS                                                         \
   const void *vals, const void *idx, const void *lrow,                      \
       const void *blk_start, const void *f0, const void *f1,                \

@@ -59,6 +59,22 @@ __device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
           __ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
 }
 
+// Two and eight adjacent bf16 elements, as loaded in one 4-byte or one
+// 16-byte read (the first element in the low half), as fp32: exact, as
+// to_f32 is.
+__device__ __forceinline__ void bf16x2_to_f32(unsigned x, float& lo,
+                                              float& hi) {
+  lo = __uint_as_float(x << 16);
+  hi = __uint_as_float(x & 0xffff0000u);
+}
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& q,
+                                              float (&f)[8]) {
+  bf16x2_to_f32(q.x, f[0], f[1]);
+  bf16x2_to_f32(q.y, f[2], f[3]);
+  bf16x2_to_f32(q.z, f[4], f[5]);
+  bf16x2_to_f32(q.w, f[6], f[7]);
+}
+
 // One group's adds for a batch of U slots: for each of this lane's columns
 // c, the product v[u] * row(u,0)[c] * ... * row(u,K-1)[c] (multiplied left
 // to right with __fmul_rn) is added with __fadd_rn into row r[u] of the

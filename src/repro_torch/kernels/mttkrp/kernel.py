@@ -106,6 +106,10 @@ ROW_SLOTS = 128
 MAX_IN_MODES = 4
 # Dynamic shared memory one CTA may use on an H100 (227 KB).
 SMEM_LIMIT_BYTES = 232_448
+# Shared memory of one H100 SM (228 KB), and what each CTA resident on it
+# takes besides its own (1 KB).
+SM_SMEM_BYTES = 233_472
+CTA_SMEM_RESERVED = 1024
 # L2 bytes the gather kernels' factors may take (the residency ladder's
 # default l2_budget): half of the H100's 50 MB L2. B1 and B2 hold no factor
 # in shared memory; they gather rows out of L2, which plays the part VMEM
@@ -121,6 +125,9 @@ STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
 # in gather_mttkrp.cu).
 STAGE_SLOTS = 2048
 STAGE_BUFFERS = 2
+# B1/B2 on bf16 factors load rows 16 bytes (8 columns) a lane at slabs of
+# this many columns or more (kVecMinSlab in gather_mttkrp.cu).
+BF16_VEC_MIN_SLAB = 64
 # B3/B4's ring (fused_mttkrp.cu; kernel.fused_ring picks it): stages of a
 # power of two of slots, FUSED_MIN_SLOTS to FUSED_STAGE_SLOTS, holding at
 # most FUSED_STAGE_BYTES of rows; FUSED_STAGES of them when a stage's rows
@@ -190,6 +197,28 @@ def _groups(tile_rows: int) -> int:
 def _lanes(slab: int) -> int:
     """Threads of a group: 32 when they split the slab evenly, else 16."""
     return 32 if slab % 32 == 0 else 16
+
+
+def _vec_rows(slab: int, gather_itemsize: int) -> bool:
+    """Does B1/B2 load rows 16 bytes a lane (``gather_mttkrp_vec_kernel``):
+    bf16 factors at a slab of :data:`BF16_VEC_MIN_SLAB` or more."""
+    return gather_itemsize == 2 and slab >= BF16_VEC_MIN_SLAB
+
+
+def _gather_lanes(slab: int, gather_itemsize: int = 4) -> int:
+    """Threads of a group of B1/B2: :func:`_lanes`, but where each lane
+    owns blocks of 8 columns read 16 bytes at a time (:func:`_vec_rows`;
+    ``kVec`` in ``csrc/gather_mttkrp.cu``): ``slab // 8`` lanes, at most
+    32."""
+    return min(32, slab // 8) if _vec_rows(slab, gather_itemsize) \
+        else _lanes(slab)
+
+
+def _stream_lanes(slab: int, gather_itemsize: int = 4) -> int:
+    """Consumer threads of a group of B6: :func:`_lanes` for float32
+    windows; for bf16 ones each lane reads two columns at once, so
+    ``slab // 2`` lanes, at most 32."""
+    return _lanes(slab) if gather_itemsize == 4 else min(32, slab // 2)
 
 
 def _tile_starts(tile_of_block, num_tiles: int):
@@ -353,9 +382,9 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
             rows_cap: int, blk: int, tile_rows: int, slab: int, out_init):
     dev = vals.device
     require_sm90(dev)
-    rank = factors[0].shape[1]
+    rank, itemsize = factors[0].shape[1], factors[0].element_size()
     groups = _groups(tile_rows)
-    lanes = _lanes(slab)
+    lanes = _gather_lanes(slab, itemsize)
     smem = gather_smem_bytes(len(factors), rank, tile_rows, rank_slab=slab)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -365,8 +394,12 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     tensors = (vals, idx_stream, local_row_in_tile, tile_of_block) + factors
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    _check_async_operands(blk, vals=vals, idx_stream=idx_stream,
-                          local_row_in_tile=local_row_in_tile)
+    # Rows read 16 bytes at a time: the factors' bases are checked too.
+    _check_async_operands(
+        blk, vals=vals, idx_stream=idx_stream,
+        local_row_in_tile=local_row_in_tile,
+        **({f"factors[{w}]": f for w, f in enumerate(factors)}
+           if _vec_rows(slab, itemsize) else {}))
     if any(f.numel() >= 2**31 for f in factors):
         raise ValueError("a factor matrix of 2**31 or more elements: the "
                          "kernel keeps 32-bit row offsets")
@@ -571,13 +604,25 @@ def stream_ring(num_in_modes: int, rank_padded: int, blk: int,
     (:func:`gather_stream_smem_bytes`) with :data:`MAX_STREAM_MAPPERS`
     mapper warps; where not even one stage fits with them, one stage and
     the most mapper warps that fit. ``(0, 0)`` when the smallest CTA does
-    not fit. Both counts are monotone in the budget. bf16 windows
-    (``gather_itemsize=2``) are half the bytes, so more stages fit."""
-    def fits(stages, mappers):
+    not fit. Both counts are monotone in the budget.
+
+    bf16 windows (``gather_itemsize=2``) are half the bytes. For them the
+    deepest ring of two stages or more with which two CTAs share an SM
+    (:data:`SM_SMEM_BYTES`, each CTA also taking :data:`CTA_SMEM_RESERVED`)
+    comes first: at one CTA an SM the bf16 kernel's copies and its adds
+    each took most of the call, and two CTAs overlap them
+    (``bench_torch/kernel_ablation.py``). Where no such ring fits, the
+    rule above."""
+    def fits(stages, mappers, budget=smem_budget):
         return gather_stream_smem_bytes(
             num_in_modes, rank_padded, blk, tile_rows, window_tiles,
             frow_tile=frow_tile, rank_slab=rank_slab, stages=stages,
-            mappers=mappers, gather_itemsize=gather_itemsize) <= smem_budget
+            mappers=mappers, gather_itemsize=gather_itemsize) <= budget
+    if gather_itemsize == 2:
+        shared = min(smem_budget, SM_SMEM_BYTES // 2 - CTA_SMEM_RESERVED)
+        for stages in range(MAX_STREAM_STAGES, 1, -1):
+            if fits(stages, MAX_STREAM_MAPPERS, shared):
+                return stages, MAX_STREAM_MAPPERS
     for stages in range(MAX_STREAM_STAGES, 0, -1):
         if fits(stages, MAX_STREAM_MAPPERS):
             return stages, MAX_STREAM_MAPPERS
@@ -686,10 +731,10 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
     dev = vals.device
     require_sm90(dev)
     k, rank = len(factors), factors[0].shape[1]
-    groups = _groups(tile_rows)
-    lanes = _lanes(slab)
-    windows = tuple(s.shape[1] for s in scheds)
     itemsize = factors[0].element_size()
+    groups = _groups(tile_rows)
+    lanes = _stream_lanes(slab, itemsize)
+    windows = tuple(s.shape[1] for s in scheds)
     stages, mappers = stream_ring(k, rank, blk, tile_rows, windows,
                                   frow_tile=frow_tile, rank_slab=slab,
                                   gather_itemsize=itemsize)

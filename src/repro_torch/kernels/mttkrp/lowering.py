@@ -79,6 +79,9 @@ MAX_GRID_Y = 65535
 MAX_GRID_X = 2**31 - 1
 # The stream kernel's issuer warps (kIssuerWarps in gather_stream_mttkrp.cu).
 _STREAM_ISSUER_WARPS = 4
+# B1/B2's kernel for bf16 factors at slabs of kernel.BF16_VEC_MIN_SLAB or
+# more (16-byte row loads).
+_GATHER_VEC_KERNEL = "gather_mttkrp_vec_kernel"
 
 # Per kernel backend: its library, its kernel (the name in the source),
 # its launch function and its factor element bytes.
@@ -289,8 +292,9 @@ def launch_plan(backend: str, geom: Geometry) -> LaunchPlan | None:
     if backend in ("pallas_fused_gather", "pallas_fused_gather_tiled",
                    "pallas_fused_gather_bf16"):
         rcols = _kernel.padded_rank(geom.rank, slab)
-        return LaunchPlan(grid, groups * lanes, _kernel.gather_smem_bytes(
-            k, rcols, tr, rank_slab=slab))
+        return LaunchPlan(grid, groups * _kernel._gather_lanes(slab, gi),
+                          _kernel.gather_smem_bytes(k, rcols, tr,
+                                                    rank_slab=slab))
     if backend == _ops.STREAM_BACKEND:
         windows = (geom.window_tiles(),) * k
         stages, mappers = _kernel.stream_ring(k, rpad, geom.blk, tr, windows,
@@ -388,7 +392,8 @@ _TEMPLATE_ARGS = re.compile(r"ILi(\d+)E(f|13__nv_bfloat16)E")
 def kernel_label(mangled: str) -> str:
     """``gather_mttkrp_kernel<3, bf16>`` for the mangled name of one of
     this package's kernels (``mangled`` itself for any other)."""
-    kernels = {kern for _, kern, _, _ in _BACKEND_KERNEL.values()}
+    kernels = {kern for _, kern, _, _ in _BACKEND_KERNEL.values()} \
+        | {_GATHER_VEC_KERNEL}
     for kern in sorted(kernels | {"l2_read_kernel"}, key=len, reverse=True):
         base = f"{len(kern)}{kern}"
         if base in mangled:
@@ -444,6 +449,9 @@ def lower_backend(backend: str, geom: Geometry) -> LoweringResult:
         if backend == "ref":
             return result(True)
         library, kernel, entry, itemsize = _BACKEND_KERNEL[backend]
+        if kernel == "gather_mttkrp_kernel" and _kernel._vec_rows(
+                _slabs(backend, geom.rank)[0], itemsize):
+            kernel = _GATHER_VEC_KERNEL   # what the wrapper launches there
         path, report = _build.build()[library]
         lib = ctypes.CDLL(str(path))
         if not hasattr(lib, entry) \

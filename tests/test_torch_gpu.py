@@ -587,8 +587,14 @@ def test_stream_schedule_widths_one_and_blk(cuda, width, rank):
     """Every block reads one tile per mode (width 1), or every slot a
     tile of its own (width blk, no runs to merge when the tiles are
     spread)."""
+    _check_schedule_width(cuda, width, rank, torch.float32)
+
+
+def _check_schedule_width(cuda, width, rank, dtype):
     args, rows_cap = _runs_operands(cuda, 2, rank, [3, 5, 2], seed=40,
                                     frows=(8 * 2 * BLK, 8 * 2 * BLK))
+    if dtype == torch.bfloat16:
+        args = _to_bf16(args)
     vals, idx, factors, rows, tob = args
     rng = np.random.default_rng(41)
     nb = tob.shape[0]
@@ -730,12 +736,15 @@ def _bf16_ring_stages(k, rank, windows):
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("rank", [16, 64])
 def test_bf16_stream_runs_around_the_ring_depth(cuda, k, rank):
-    """The bf16 ring (more stages than at fp32): runs of 1, S-1, S, S+1
-    blocks, an empty tile and a run of 2S+1; bitwise the bf16 B1."""
+    """The bf16 ring (the deepest two CTAs of which share an SM): runs of
+    1, S-1, S, S+1 blocks, an empty tile and a run of 2S+1; bitwise the
+    bf16 B1."""
     widths = [min(BLK, -(-r // K.FACTOR_ROW_TILE))
               for r in (200, 300, 150, 90)[:k]]
     s = _bf16_ring_stages(k, rank, widths)
-    assert s >= _ring_stages(k, rank, widths)
+    assert s >= 2 and 2 * (K.gather_stream_smem_bytes(
+        k, rank, BLK, TILE, widths, stages=s, mappers=K.MAX_STREAM_MAPPERS,
+        gather_itemsize=2) + K.CTA_SMEM_RESERVED) <= K.SM_SMEM_BYTES
     runs = [1, max(s - 1, 0), s, s + 1, 0, 2 * s + 1]
     args, rows_cap = _runs_operands(cuda, k, rank, runs, seed=110 + k)
     _check_b6(_b6_args(_to_bf16(args), widths=widths)[0], rows_cap)
@@ -833,6 +842,73 @@ def test_bf16_chunked_equals_single_pass(cuda):
     f32 = executor.mttkrp_out_of_core(
         idx, val, valid, factors, **dict(kw, gather_dtype="float32"))[1]
     assert s1.distinct_tile_bytes * 2 == f32.distinct_tile_bytes
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [64, 96, 256])
+def test_bf16_gather_16_byte_rows_at_the_staging_edge(cuda, k, rank):
+    """The bf16 B1 and B2 where B1's slab takes the 16-byte row loads
+    (R >= BF16_VEC_MIN_SLAB; 96: 12 lanes a group, not a power of two;
+    256: 32 lanes, 512-thread CTAs, B2's 128-column slabs):
+    runs at a staging buffer's edge +-1 and the last nonzero one slot
+    before, at and after it."""
+    assert rank >= K.BF16_VEC_MIN_SLAB
+    chunk = K.STAGE_SLOTS // K.STAGE_BUFFERS
+    blk = 4
+    runs = [chunk // blk - 1, chunk // blk, chunk // blk + 1,
+            2 * chunk // blk + 3]
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, blk=blk,
+                                    seed=260 + k)
+    args = _to_bf16(args)
+    _check_b1_b2(args, rows_cap, rank, blk=blk)
+    start = sum(runs[:3]) * blk
+    for last in (chunk - 1, chunk, chunk + 1):
+        vals = args[0].clone()
+        vals[start + last:] = 0.0
+        _check_b1_b2((vals,) + args[1:], rows_cap, rank, blk=blk)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rank", [16, 64, 256])
+def test_bf16_gather_padding_chunks_on_the_last_tile(cuda, k, rank):
+    """The bf16 B1 and B2: the last tile's run ends in many staging
+    buffers of padding only."""
+    args, rows_cap = _runs_operands(cuda, k, rank, [5, 3, 120],
+                                    seed=270 + k, pad_blocks=range(12, 128))
+    _check_b1_b2(_to_bf16(args), rows_cap, rank, blk=BLK)
+
+
+@pytest.mark.parametrize("rank", [16, 64])
+def test_bf16_stream_padding_blocks_between_real_ones(cuda, rank):
+    """The bf16 B6: blocks of padding only inside runs copy and add
+    nothing; the bits are the bf16 B1's."""
+    args, rows_cap = _runs_operands(cuda, 3, rank, [10, 12, 6], seed=130,
+                                    pad_blocks=(3, 11, 12, 13, 27))
+    _check_b6(_b6_args(_to_bf16(args))[0], rows_cap)
+
+
+@pytest.mark.parametrize("width", ["one", "blk"])
+@pytest.mark.parametrize("rank", [16, 64])
+def test_bf16_stream_schedule_widths_one_and_blk(cuda, width, rank):
+    """The bf16 B6 with one tile per block and mode, and with a tile per
+    slot (no runs)."""
+    _check_schedule_width(cuda, width, rank, torch.bfloat16)
+
+
+def test_bf16_gather_checks_factor_alignment(cuda):
+    """The bf16 B1 at a slab of 64 reads factor rows 16 bytes at a time:
+    a factor whose base is not 16-byte aligned is refused by name."""
+    args, rows_cap = _runs_operands(cuda, 2, 64, [2, 3], seed=140)
+    vals, idx, factors, rows, tob = _to_bf16(args)
+    flat = torch.zeros(factors[0].numel() + 8, dtype=torch.bfloat16,
+                       device=cuda)
+    bad = flat[1:1 + factors[0].numel()].view(factors[0].shape)
+    bad.copy_(factors[0])
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match=r"factors\[0\]"):
+        K.fused_mttkrp_nmode_gather(vals, idx, [bad, factors[1]], rows, tob,
+                                    rows_cap=rows_cap, blk=BLK,
+                                    tile_rows=TILE)
 
 
 def test_bf16_cp_als_on_card_matches_cpu(cuda):

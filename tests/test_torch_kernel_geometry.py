@@ -116,9 +116,10 @@ def test_stream_cu_window_is_in_the_factors_type():
 def test_gather_and_fused_smem_hold_no_factor_element(source):
     """B1 and B2 keep factor elements out of shared memory (partial tiles
     are fp32, the staging holds values, local rows and indices): their
-    launches size shared memory by sizeof(float) alone, so one byte count
-    serves both element types. (B3 and B4 stage their rows in a ring:
-    test_fused_smem_bytes_equal_the_cu_layout.)"""
+    launches size shared memory by sizeof(float) alone; only the staging
+    chunk differs between the element types
+    (test_gather_smem_bytes_bf16_equal_the_cu_layout). (B3 and B4 stage
+    their rows in a ring: test_fused_smem_bytes_equal_the_cu_layout.)"""
     text = (CSRC / source).read_text()
     assert "sizeof(T)" not in text
     lib = source[:-3]
@@ -139,17 +140,21 @@ def test_bf16_ring_fits_and_is_monotone_in_the_budget(k, rank, blk,
                 gather_itemsize=2) <= budget
         assert stages >= prev[0] and mappers >= prev[1]
         prev = (stages, mappers)
-        # Never fewer stages than at fp32 under the same budget.
-        assert stages >= tk.stream_ring(k, rank, blk, 8, windows,
-                                        smem_budget=budget)[0]
+        # Never fewer stages than at fp32 under the same budget, up to
+        # the CTA size two of which share an SM (beyond it bf16 keeps
+        # its two-CTA ring).
+        if budget <= tk.SM_SMEM_BYTES // 2 - tk.CTA_SMEM_RESERVED:
+            assert stages >= tk.stream_ring(k, rank, blk, 8, windows,
+                                            smem_budget=budget)[0]
 
 
 def test_bf16_ring_of_the_nell2_stream():
     """At half the window bytes the nell-2 stand-in's Morton windows take
-    five stages beside eight mapper warps (three at fp32), and the
+    two stages beside eight mapper warps in a CTA two of which share an
+    SM (three in one CTA at fp32; five would fit one bf16 CTA), and the
     data-blind K=3, blk=128 window gets all eight mappers."""
     assert tk.stream_ring(2, 16, 64, 8, (64, 62), gather_itemsize=2) \
-        == (5, 8)
+        == (2, 8)
     assert tk.stream_ring(3, 16, 128, 8, (128, 128, 128),
                           gather_itemsize=2) == (1, 8)
 
@@ -167,6 +172,91 @@ def test_gather_smem_bytes_equal_the_cu_layout(k, rank, slab):
     width = rank if slab is None else min(rank, slab)
     want = 4 * (tk._groups(8) * 8 * width + buffers * chunk * (2 + k))
     assert tk.gather_smem_bytes(k, rank, 8, rank_slab=slab) == want
+
+
+@pytest.mark.parametrize("slab", [16, 32, 48, 64, 128, 256, 512])
+def test_gather_bf16_lanes_own_16_byte_column_blocks(slab):
+    """bf16 B1/B2 at a slab of kVecMinSlab (BF16_VEC_MIN_SLAB) or more: a
+    lane per kVec = 8 columns (one 16-byte read of a bf16 row), at most
+    32; below it, and for float32, _lanes. A CTA stays within 512
+    threads, and the staging is the float32 kernel's (one byte count)."""
+    vec = _cu_int("gather_mttkrp.cu", "kVec")
+    assert vec * 2 == 16
+    assert _cu_int("gather_mttkrp.cu", "kVecMinSlab") \
+        == tk.BF16_VEC_MIN_SLAB
+    lanes = tk._gather_lanes(slab, 2)
+    if slab >= tk.BF16_VEC_MIN_SLAB:
+        assert lanes == min(32, slab // vec)
+    else:
+        assert lanes == tk._lanes(slab)
+    assert tk._gather_lanes(slab) == tk._lanes(slab)
+    for tile_rows in (1, 8, 128):
+        assert tk._groups(tile_rows) * lanes <= 512
+    text = (CSRC / "gather_mttkrp.cu").read_text()
+    assert "gather_mttkrp_vec_kernel<K, T><<<grid, groups * lanes, smem" \
+        in text
+
+
+def test_stream_bf16_consumers_fit_a_block():
+    """B6's consumers read two bf16 columns a lane (slab / 2 lanes);
+    float32 keeps _lanes. With kIssuerWarps issuer warps (the count
+    lowering's launch plan names) and the most mapper warps, a CTA stays
+    within 1024 threads at every tile height."""
+    from repro_torch.kernels.mttkrp import lowering
+    issuers = _cu_int("gather_stream_mttkrp.cu", "kIssuerWarps")
+    assert issuers == lowering._STREAM_ISSUER_WARPS == 4
+    slab = tk.STREAM_RANK_SLAB
+    assert tk._stream_lanes(slab, 2) == slab // 2
+    assert tk._stream_lanes(slab) == tk._lanes(slab)
+    for tile_rows in (1, 2, 8, 32, 128):
+        for itemsize in (4, 2):
+            lanes = tk._stream_lanes(slab, itemsize)
+            consumers = -(-tk._groups(tile_rows) * lanes // 32) * 32
+            threads = consumers + 32 * (tk.MAX_STREAM_MAPPERS + issuers + 1)
+            assert threads <= lowering.MAX_BLOCK_THREADS
+
+
+@pytest.mark.parametrize("k,rank,blk,windows", SMOKE_STREAMS)
+def test_bf16_ring_lets_two_ctas_share_an_sm(k, rank, blk, windows):
+    """At the card's budget the bf16 ring is the deepest of two stages or
+    more whose CTA two can share an SM; where none is, the float32 rule
+    (the most stages within 227 KB)."""
+    half = tk.SM_SMEM_BYTES // 2 - tk.CTA_SMEM_RESERVED
+
+    def smem(stages, mappers):
+        return tk.gather_stream_smem_bytes(
+            k, rank, blk, 8, windows, stages=stages, mappers=mappers,
+            gather_itemsize=2)
+    stages, mappers = tk.stream_ring(k, rank, blk, 8, windows,
+                                     gather_itemsize=2)
+    two = [s for s in range(2, tk.MAX_STREAM_STAGES + 1)
+           if smem(s, tk.MAX_STREAM_MAPPERS) <= half]
+    if two:
+        assert (stages, mappers) == (max(two), tk.MAX_STREAM_MAPPERS)
+        assert 2 * (smem(stages, mappers) + tk.CTA_SMEM_RESERVED) \
+            <= tk.SM_SMEM_BYTES
+    else:
+        assert stages >= 1
+        assert smem(stages, mappers) <= tk.SMEM_LIMIT_BYTES
+        if stages < tk.MAX_STREAM_STAGES and \
+                mappers == tk.MAX_STREAM_MAPPERS:
+            assert smem(stages + 1, mappers) > tk.SMEM_LIMIT_BYTES
+
+
+def test_ladder_asks_the_fp32_gather_bytes_for_bf16():
+    """The ladder's gather rungs cost B1/B2's CTA for bf16 gathers as for
+    float32 ones (the same staging and partial tiles, byte for byte), so
+    its choices and plan_bytes do not move."""
+    for k, rpad, tr in ((2, 16, 8), (3, 256, 8), (2, 512, 128)):
+        for backend in ("pallas_fused_gather", "pallas_fused_gather_tiled"):
+            slab = None if backend == "pallas_fused_gather" else \
+                min(rpad, tk.RANK_SLAB)
+            want = tk.gather_smem_bytes(k, rpad, tr, rank_slab=slab)
+            for gi in (4, 2):
+                smem, _, _ = planner._rung_cost(
+                    backend, k=k, rpad=rpad, tile_rows=tr, blk=128,
+                    per_mode=None, total=1000, gi=gi)
+                assert smem == want, (backend, gi)
 
 
 @pytest.mark.parametrize("k,rank,blk,windows", SMOKE_STREAMS)

@@ -21,7 +21,10 @@
   (``convert.lm_train_state_from_reference``): qwen3-32b at k in {1, 2}
   with AdamW and Adafactor, and the six archs beyond the dense family at
   k = 2 with their configs' optimizers (jamba: Adafactor and a bfloat16
-  gradient accumulator): metrics within 1e-5 relative, ``step`` and
+  gradient accumulator, whose bf16 roundings are held equal as routes
+  are: the port's accumulator within 2^-7 of the reference's, recorded
+  with an ordered host callback, then the step goes on from the
+  reference's): metrics within 1e-5 relative, ``step`` and
   ``count`` equal, new parameters within 2.5 lr_t elementwise (the bound
   where a near-zero gradient's sign differs under AdamW's first step) and
   all but 0.1% of their elements within 1e-5 of max|p|; the optimizer
@@ -140,6 +143,53 @@ def _port_routes(replay=None):
         yield routes
     finally:
         TMoE.router_assign = orig
+
+
+@contextlib.contextmanager
+def _reference_accumulators():
+    """While active, each run of the reference's jitted train step appends
+    the gradients it hands to ``clip_by_global_norm`` (its accumulator
+    divided by k) to the list yielded (an ordered host callback traced
+    into the step)."""
+    grads, orig = [], JO.clip_by_global_norm
+
+    def record(tree, max_norm):
+        jax.debug.callback(lambda t: grads.append(
+            jax.tree.map(np.array, t)), tree, ordered=True)
+        return orig(tree, max_norm)
+
+    JO.clip_by_global_norm = record
+    try:
+        yield grads
+    finally:
+        JO.clip_by_global_norm = orig
+
+
+@contextlib.contextmanager
+def _port_accumulators(replay, tol):
+    """While active, the i-th call of the port's ``accumulate_grads``
+    checks its accumulator against ``replay[i]`` (``_reference_accumulators``'
+    list) within ``tol`` of each leaf's max, then continues from the
+    reference's (the port's own loss and metrics kept)."""
+    orig, calls = TS.accumulate_grads, []
+
+    def accumulate(*args, **kw):
+        out, acc = orig(*args, **kw)
+        want = replay[len(calls)]
+        calls.append(len(calls))
+        for path, a in iter_leaves(acc):
+            w = np.asarray(_at(want, path), np.float32)
+            np.testing.assert_allclose(
+                a.float().numpy(), w, rtol=tol,
+                atol=tol * float(np.abs(w).max()), err_msg=str(path))
+            a.copy_(torch.from_numpy(w).to(a.dtype))
+        return out, acc
+
+    TS.accumulate_grads = accumulate
+    try:
+        yield calls
+    finally:
+        TS.accumulate_grads = orig
 
 
 def _tb(batch):
@@ -322,6 +372,23 @@ def test_train_step_matches_reference(name, opt_name, k):
         jax.tree.map(np.asarray, jstate), device="cpu")
     step_fn = TS.make_train_step(tcfg, topt, grad_accum=k)
     jstep = jax.jit(JS.make_train_step(jcfg, jopt, grad_accum=k))
+    # A bf16 gradient accumulator (jamba) rounds each gradient to 2^-8 of
+    # itself, so the packages' fp32 rounding noise (~1e-5 of max|g|)
+    # lands some elements on the neighbouring bf16 value: at some of the
+    # reference's salted inits that moves grad_norm past 1e-5 relative.
+    # As a flipped route is, the rounding is held equal: the port's
+    # accumulator is checked against the reference's within two bf16 ulps
+    # (2^-7) and the step goes on from the reference's.
+    held = tcfg.grad_accum_dtype == "bfloat16"
+    with contextlib.ExitStack() as stack:
+        if held:
+            accs = stack.enter_context(_reference_accumulators())
+            stack.enter_context(_port_accumulators(accs, 2 ** -7))
+        _check_train_steps(jstep, jstate, step_fn, tstate, tcfg, peak)
+
+
+def _check_train_steps(jstep, jstate, step_fn, tstate, tcfg, peak):
+    """Two steps of both packages from one state, each compared."""
     for i in range(2):
         batch = _batch(tcfg, 4, 16, seed=10 + i, mask=False)
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))

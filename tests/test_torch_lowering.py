@@ -144,6 +144,10 @@ def test_launch_plan_matches_the_wrappers(backend, geom):
             stages=stages, mappers=mappers)
     elif backend in ("pallas_fused_gather", "pallas_fused_gather_bf16"):
         assert plan.smem == tk.gather_smem_bytes(k, rpad, geom.tile_rows)
+        # bf16 at a wide slab: a lane per 8 columns (16-byte row loads).
+        lanes = min(32, rpad // 8) if backend.endswith("_bf16") \
+            and rpad >= tk.BF16_VEC_MIN_SLAB else tk._lanes(rpad)
+        assert plan.block == tk._groups(geom.tile_rows) * lanes
     elif backend == "pallas":
         assert plan.smem == tk.segment_smem_bytes(rpad, geom.tile_rows)
 
@@ -221,7 +225,8 @@ def _fake_build(monkeypatch, tmp_path, *, drop_k=None):
     """``build.build()`` answering with a report of every kernel
     instantiation (less ``drop_k`` input modes) and libraries that export
     every launch function; nothing is compiled."""
-    names = {"gather_mttkrp": ["gather_mttkrp_kernel"],
+    names = {"gather_mttkrp": ["gather_mttkrp_kernel",
+                               "gather_mttkrp_vec_kernel"],
              "gather_stream_mttkrp": ["gather_stream_mttkrp_kernel"],
              "fused_mttkrp": ["fused_mttkrp_kernel",
                               "segment_accumulate_kernel"]}
@@ -249,6 +254,29 @@ def _fake_build(monkeypatch, tmp_path, *, drop_k=None):
     exports = {fn for fns in tbuild._LAUNCH_ARGTYPES.values() for fn in fns}
     monkeypatch.setattr(tlow.ctypes, "CDLL", lambda path: types.SimpleNamespace(
         **{fn: object() for fn in exports}))
+
+
+def test_bf16_wide_slab_points_check_the_vec_kernel(monkeypatch, tmp_path):
+    """B1 on bf16 factors at a slab of BF16_VEC_MIN_SLAB or more launches
+    gather_mttkrp_vec_kernel: that point is checked against its ptxas
+    entry (a build without it fails there, not at a narrow slab)."""
+    _fake_build(monkeypatch, tmp_path)
+    lib, report = tlow._build.build()["gather_mttkrp"]
+    kept = "\n".join(line for line in report.splitlines()
+                     if "gather_mttkrp_vec_kernel" not in line)
+    built = dict(tlow._build.build(), gather_mttkrp=(lib, kept))
+    monkeypatch.setattr(tlow._build, "build", lambda: built)
+    wide, narrow = tlow.Geometry(nmodes=3, rank=128, blk=128, tile_rows=8,
+                                 factor_rows=64), \
+        tlow.Geometry(nmodes=3, rank=16, blk=128, tile_rows=8,
+                      factor_rows=64)
+    res = tlow.lower_backend("pallas_fused_gather_bf16", wide)
+    assert not res.ok and "gather_mttkrp_vec_kernel" in res.error
+    assert tlow.lower_backend("pallas_fused_gather_bf16", narrow).ok
+    assert tlow.lower_backend("pallas_fused_gather", wide).ok
+    assert tlow.kernel_label(
+        "_Z24gather_mttkrp_vec_kernelILi2E13__nv_bfloat16EEvPKf") \
+        == "gather_mttkrp_vec_kernel<2, bf16>"
 
 
 def test_cli_exit_codes(monkeypatch, tmp_path, capsys):
