@@ -171,6 +171,32 @@ Phases (each prints its own lines; any failure exits non-zero):
       frees its tensors before the next phase (``memory_allocated`` is
       logged); its numbers are one JSON line ``{"serve_moe": {...}}`` /
       ``{"serve_ssm": {...}}``;
+  21c. ``[serve-int8]`` (ROADMAP A15 (3) (c)), inside ``[serve]`` on its
+      weights: phi3-mini-3.8b with ``kv_cache_dtype="int8"``, the same
+      prompts greedy twice (bitwise reruns); prefill's logits bitwise the
+      bf16 cache's; a decode step against teacher-forced ``forward``
+      within the reference's int8 bounds (0.12 of max|logits|, top-1
+      agreement >= 0.5); prefill / decode ms, peak memory and the cache's
+      bytes against the bf16 cache's; the int32 sums of
+      ``attention.int8_contract`` exact on the card (2048 slots of
+      ±127 x 127 against int64; at 2 layers, full width, a decode step's
+      QK and PV sums over a 1056-slot cache equal the CPU's element for
+      element); one JSON line ``{"serve_int8": {...}}``;
+  21d. ``[moe-owner]`` (ROADMAP A15 (3) (d1), (d2)), inside
+      ``[serve-moe]`` on its weights after the gather session is freed:
+      qwen2-moe-a2.7b served under a ``("data", "model")`` mesh of
+      ``(1, 4)`` (``ServeSession(mesh=)``: the owner-computes dispatch,
+      4 owners of 16 experts), greedy twice (bitwise), its times beside
+      the gather path's; prefill and a decode step against the gather
+      path's with its routes replayed (per-layer drops equal, logits in
+      ``[serve]``'s tolerances), the owner path's own routes a finding
+      past layer 0; psum bytes; one MoE layer's routed sum bitwise the
+      gather path's but on the tokens whose rows the owners group
+      otherwise; at 2 layers, full width, fp32: routes and drops equal
+      the gather path's, gradients against the gather path's and the
+      CPU's (1e-5 / 1e-4), and one ``make_train_step(mesh=,
+      rules=rules_for(train_4k), param_shardings=)`` step against the
+      step without a mesh; one JSON line ``{"moe_owner": {...}}``;
   22. ``[train]`` (ROADMAP A15, slice 2), after ``[serve]``'s tensors are
       freed: phi3-mini-3.8b with every published field trained on the
       card through ``models.steps.make_train_step`` (fp32 parameters from
@@ -294,6 +320,15 @@ BF16_FLOPS_PER_S = 989e12
 # their published widths and full depth, with [serve]'s traffic and checks.
 SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
 SERVE_SSM_ARCH = "mamba2-370m"
+# [serve-int8]: [serve]'s arch and traffic with the int8 KV cache, on
+# [serve]'s weights; a decode step against teacher-forced forward is held
+# to the reference's own int8 bounds (tests/test_perf_levers.py:54-56):
+# max abs err / max|logits| <= 0.12 and top-1 agreement >= 0.5.
+INT8_TOL, INT8_TOP1 = 0.12, 0.5
+# [moe-owner]: [serve-moe]'s arch on its weights under a ("data",
+# "model") mesh of this shape: 4 expert owners (the owner-computes
+# dispatch, models.moe.moe_apply_owner) and one token shard.
+OWNER_MESH = (1, 4)
 # The smoke configs' drop-free capacity factor: [serve-moe]'s consistency
 # check reruns at it when the published 1.25 drops a pair (the 1024-token
 # prefill and the 1025-token forward have 640 and 641 slots an expert, so
@@ -3210,11 +3245,11 @@ class MoeProbe:
     """While active, wraps ``repro_torch.models.moe``'s ``router_assign``
     and ``moe_apply`` (both reached through the module, so the model's
     calls go through the wrappers): per MoE call, in layer order, the
-    distinct experts routed, the pairs dropped and the router's
-    ``(probs, ids)``. With ``replay`` (a list of ``(probs, ids)``, one
-    per call) the router's own choice is recorded and ``replay``'s is
-    used in its place. It reads the device: use it on runs that are not
-    timed."""
+    distinct experts routed, the pairs dropped, the router's ``(probs,
+    ids)`` and the bytes the owner path's psum was handed (0 on the
+    gather path). With ``replay`` (a list of ``(probs, ids)``, one per
+    call) the router's own choice is recorded and ``replay``'s is used in
+    its place. It reads the device: use it on runs that are not timed."""
 
     def __init__(self, replay=None):
         self.replay = replay
@@ -3222,6 +3257,7 @@ class MoeProbe:
     def __enter__(self):
         from repro_torch.models import moe
         self.distinct, self.dropped, self.routes = [], [], []
+        self.sent_bytes = []
         self._moe, self._orig = moe, (moe.router_assign, moe.moe_apply)
         route, apply = self._orig
 
@@ -3236,6 +3272,7 @@ class MoeProbe:
         def moe_apply(*args, **kw):
             y, metrics = apply(*args, **kw)
             self.dropped.append(metrics["moe_dropped"])
+            self.sent_bytes.append(metrics.get("moe_sent_bytes", 0))
             return y, metrics
 
         moe.router_assign, moe.moe_apply = router_assign, moe_apply
@@ -3247,6 +3284,9 @@ class MoeProbe:
     def total_dropped(self) -> int:
         return int(sum(int(x) for x in self.dropped))
 
+    def per_layer_dropped(self) -> list:
+        return [int(x) for x in self.dropped]
+
     def ids(self, batch: int):
         """``(layers, batch, tokens, k)``: every layer's sorted ids."""
         return torch.stack([torch.sort(i, dim=1).values.reshape(
@@ -3254,10 +3294,13 @@ class MoeProbe:
 
 
 def _logits_check(got, want, tol: float, what: str, tag: str,
-                  note: str = "", strict: bool = False) -> tuple[bool, float]:
+                  note: str = "", strict: bool = False,
+                  against: str = "teacher-forced forward"
+                  ) -> tuple[bool, float]:
     """``torch.allclose(got, want, rtol=tol, atol=tol · max|want|)``, or
     with ``strict`` max abs err / max|want| <= tol; logged with the max
-    abs and relative error and which limit held; ``(ok, relative)``."""
+    abs and relative error and which limit held; ``(ok, relative)``.
+    ``against`` names ``want`` in the log."""
     got, want = got.float(), want.float()
     require(torch.isfinite(got).all() and torch.isfinite(want).all(),
             f"{tag} {what}: non-finite logits")
@@ -3268,7 +3311,7 @@ def _logits_check(got, want, tol: float, what: str, tag: str,
     else:
         ok = torch.allclose(got, want, rtol=tol, atol=tol * scale)
         limit = f"allclose rtol {tol}, atol {tol} x max|logits|"
-    log(f"{tag} {what} vs teacher-forced forward: max abs err {err:.4e}, "
+    log(f"{tag} {what} vs {against}: max abs err {err:.4e}, "
         f"max|logits| {scale:.4f}, relative {err / scale:.4e} ({limit})"
         f"{note}: {'ok' if ok else 'FAIL'}")
     return ok, err / scale
@@ -3602,6 +3645,507 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]",
     torch.cuda.empty_cache()
     log(f"{tag} freed: {torch.cuda.memory_allocated()} B still allocated "
         f"on the card")
+    return result
+
+
+def _int8_exact_on_card(tag: str, dev) -> dict:
+    """``attention.int8_contract`` on the card against the CPU and an
+    int64 product: 2048 slots of 127 x 127 (one of 127 x 2), whose exact
+    sum 33,016,317 is odd and above 2^24, so no single float32 product
+    gives it."""
+    from repro_torch.models.attention import int8_contract
+    a = torch.full((2, 4, 1, 2048), 127, dtype=torch.int8)
+    a[1] = -127
+    b = torch.full((2, 4, 2048, 8), 127, dtype=torch.int8)
+    b[:, :, 0, :] = 2
+    want = torch.matmul(a.long(), b.long())
+    got = int8_contract(a.to(dev), b.to(dev)).cpu()
+    one_pass = torch.matmul(a.to(dev).float(), b.to(dev).float()).cpu()
+    ok = torch.equal(got.long(), want) and torch.equal(
+        int8_contract(a, b), got) and not torch.equal(
+            one_pass.double(), want.double())
+    log(f"{tag} int8 x int8 -> int32 at 2048 slots of +-127 x 127: card == "
+        f"CPU == int64 ({int(want[0, 0, 0, 0])}, odd and > 2^24) "
+        f"{torch.equal(got.long(), want)}; one float32 product gives "
+        f"{float(one_pass[0, 0, 0, 0]):.1f}: {'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the int8 contraction is not exact on the card")
+    return {"exact_at_2048_slots": True}
+
+
+def _int8_sums_card_vs_cpu(cfg, tag: str, batch: int = 2,
+                           prompt: int = 1024, slots: int = 1056) -> dict:
+    """At 2 layers of ``cfg`` (full width, fp32 activations, the int8
+    cache): prefill ``batch x prompt`` tokens on the card, grow the cache
+    to ``slots`` slots, and record every ``int8_contract`` of one decode
+    step (the QK and PV sums of each layer); each recorded product of
+    int8 codes, recomputed on the CPU and as an int64 product, must equal
+    the card's element for element."""
+    from repro_torch.launch.serve import _pad_caches
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    c2 = two_layer_config(cfg)
+    params = init_params(M.model_specs(c2), seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, c2.vocab, (batch, prompt + 1)
+                                         ).astype(np.int32)).cuda()
+    _, cache = M.prefill(c2, params, toks[:, :prompt])
+    cache = _pad_caches(cache, prompt, slots)
+    seen, contract = [], A.int8_contract
+
+    def recording(a, b):
+        out = contract(a, b)
+        seen.append((a.cpu(), b.cpu(), out.cpu()))
+        return out
+
+    A.int8_contract = recording
+    try:
+        M.decode_step(c2, params, cache, toks[:, prompt:], prompt)
+    finally:
+        A.int8_contract = contract
+    del params, cache
+    equal, largest = True, 0
+    for a, b, out in seen:
+        cpu = contract(a, b)
+        exact = torch.matmul(a.long(), b.long())
+        equal &= torch.equal(out, cpu) and torch.equal(out.long(), exact)
+        largest = max(largest, int(exact.abs().max()))
+    shapes = sorted({(tuple(a.shape), tuple(b.shape)) for a, b, _ in seen})
+    ok = equal and len(seen) == 2 * c2.n_layers
+    log(f"{tag} 2 layers, full width, {batch} x {prompt} tokens, cache of "
+        f"{slots} slots: {len(seen)} int8 contractions of one decode step "
+        f"(QK and PV per layer, {shapes}), card == CPU == int64 element "
+        f"for element: {equal}; largest |sum| {largest}: "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the card's integer sums differ from the CPU's")
+    return {"int8_contractions": len(seen), "largest_abs_sum": largest}
+
+
+def phase_serve_int8(gpu: str, params) -> dict:
+    """``[serve-int8]``: ``[serve]``'s arch with ``kv_cache_dtype="int8"``
+    on ``[serve]``'s weights (``params``, on the card): the same prompts,
+    greedy twice; prefill's logits bitwise the bf16 cache's; a decode step
+    against teacher-forced ``forward`` within the reference's own int8
+    bounds (``INT8_TOL``, ``INT8_TOP1``); the cache's bytes against the
+    bf16 cache's; the integer sums exact on the card (2 layers and a
+    synthetic case)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeSession, _pad_caches
+    from repro_torch.models import model as M
+    from repro_torch.obs import counters as ocnt
+    tag = "[serve-int8]"
+    dev = torch.device("cuda")
+    base = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(base, kv_cache_dtype="int8")
+    b, lp, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    rng = np.random.default_rng(0)             # [serve]'s prompts
+    prompts = rng.integers(0, cfg.vocab, (b, lp)).astype(np.int32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sess = ServeSession(cfg, params, max_len=lp + n + 1)
+    runs = {}
+    for label in ("greedy", "greedy-rerun"):
+        with ocnt.use_registry() as reg:
+            out = sess.generate(prompts, n)
+        pre, dec = reg.get("serve.prefill_s"), reg.get("serve.decode_s")
+        runs[label] = dict(out=out, prefill_ms=pre * 1e3,
+                           decode_ms_per_token=dec * 1e3 / (n - 1),
+                           tokens_per_s=b * n / (pre + dec))
+        log(f"{tag} generate {label}: {b} x {lp}-token prompts, {n} new "
+            f"tokens, int8 K/V cache: prefill {pre * 1e3:.3f} ms, decode "
+            f"{dec * 1e3 / (n - 1):.3f} ms/token, {b * n / (pre + dec):.1f}"
+            f" tokens/s  [{gpu}]")
+        require(out.shape == (b, n) and (out >= 0).all()
+                and (out < cfg.vocab).all(), f"{tag} tokens out of range")
+    greedy = runs["greedy"]["out"]
+    require(np.array_equal(greedy, runs["greedy-rerun"]["out"]),
+            f"{tag} two greedy runs differ")
+    peak = torch.cuda.max_memory_allocated()
+    del sess
+    # prefill: bitwise the bf16 cache's; the caches' bytes at max_len.
+    toks = torch.from_numpy(prompts).to(dev)
+    last8, cache8 = M.prefill(cfg, params, toks)
+    last, cache = M.prefill(base, params, toks)
+    bitwise = torch.equal(last8, last)
+
+    def nbytes(c):
+        c = _pad_caches(c, lp, lp + n + 1)
+        by = {}
+        for leaves in c.values():
+            for k, t in leaves.items():
+                by[k] = by.get(k, 0) + t.numel() * t.element_size()
+        return by
+
+    by8, by16 = nbytes(cache8), nbytes(cache)
+    del cache
+    log(f"{tag} prefill logits bitwise the bf16 cache's: {bitwise}; cache "
+        f"at {lp + n + 1} slots: int8 {sum(by8.values())} B ({by8}) against "
+        f"bf16 {sum(by16.values())} B, "
+        f"{sum(by8.values()) / sum(by16.values()):.1%}")
+    require(bitwise, f"{tag} int8 prefill logits differ from the bf16 "
+                     f"cache's")
+    # a decode step against teacher-forced forward (bf16 cache config).
+    full_toks = torch.from_numpy(np.concatenate(
+        [prompts, greedy[:, :1]], 1)).to(dev)
+    full, _ = M.forward(base, params, full_toks, remat=False)
+    step, _ = M.decode_step(cfg, params, _pad_caches(cache8, lp, lp + 1),
+                            full_toks[:, lp:], lp)
+    got, want = step[:, 0].float(), full[:, lp].float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got[:, :cfg.vocab].argmax(-1)
+                  == want[:, :cfg.vocab].argmax(-1)).float().mean())
+    ok = rel <= INT8_TOL and top1 >= INT8_TOP1 and bool(
+        torch.isfinite(got).all())
+    log(f"{tag} decode step vs teacher-forced forward (bf16 K/V): max abs "
+        f"err / max|logits| {rel:.4e} (bound {INT8_TOL}), top-1 agreement "
+        f"{top1:.3f} (bound {INT8_TOP1}): {'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the int8 decode step is past the reference's "
+                f"bounds")
+    del full, step, cache8
+    tok = torch.from_numpy(greedy[:, :1]).to(dev)
+    _, c8 = M.prefill(cfg, params, toks)
+    c8 = _pad_caches(c8, lp, lp + n + 1)
+    step_ms = cuda_ms(lambda: M.decode_step(cfg, params, c8, tok, lp), 5)
+    del c8
+    gc.collect()
+    log(f"{tag} decode step {step_ms:.3f} ms (CUDA events, 5 steps); peak "
+        f"device memory {peak / 1e9:.3f} GB ({peak} B)  [{gpu}]")
+    result = {
+        "arch": cfg.name, "kv_cache_dtype": "int8", "batch": b,
+        "prompt_len": lp, "new_tokens": n, "gpu": gpu,
+        "prefill_ms": runs["greedy-rerun"]["prefill_ms"],
+        "decode_ms_per_token": runs["greedy-rerun"]["decode_ms_per_token"],
+        "tokens_per_s": runs["greedy-rerun"]["tokens_per_s"],
+        "cold_prefill_ms": runs["greedy"]["prefill_ms"],
+        "decode_step_ms": step_ms, "peak_bytes": peak,
+        "cache_bytes": sum(by8.values()), "cache_bytes_by_leaf": by8,
+        "bf16_cache_bytes": sum(by16.values()),
+        "decode_rel_err": rel, "decode_top1": top1,
+        "prefill_bitwise_bf16_cache": bitwise,
+    }
+    result.update(_int8_exact_on_card(tag, dev))
+    result.update(_int8_sums_card_vs_cpu(cfg, tag))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def owner_order_tokens(ids, dropped, n_exp: int, e_local: int):
+    """``(T,)`` bool: the tokens whose routed sum the owner path may add
+    in another grouping than the gather path. The gather path adds a
+    token's kept rows left to right in expert order; the owner path adds
+    each owner's rows left to right, then the owners' partials in owner
+    order: the same additions exactly when every owner after the token's
+    first holds at most one of its kept rows. ``dropped`` ``(T, k)``
+    marks the pairs past capacity (a zero row in both paths)."""
+    owner = torch.where(dropped, -1, ids.long() // e_local)
+    counts = torch.stack([(owner == o).sum(1) for o in range(n_exp)], 1)
+    first = torch.argmax((counts > 0).int(), dim=1)
+    later = torch.arange(n_exp, device=ids.device)[None] > first[:, None]
+    return ((counts > 1) & later).any(1)
+
+
+def _dropped_pairs(ids, cap: int):
+    """``(T, k)`` bool: the pairs past their expert's capacity, in the
+    dispatch's stable (token, slot) order."""
+    e = ids.reshape(-1).long()
+    order = torch.argsort(e, stable=True)
+    e_s = e[order]
+    rank = torch.arange(e.numel(), device=e.device) - torch.searchsorted(
+        e_s, e_s)
+    out = torch.empty_like(e, dtype=torch.bool)
+    out[order] = rank >= cap
+    return out.reshape(ids.shape)
+
+
+def _owner_layer_check(cfg, params, mesh, tag: str) -> dict:
+    """One MoE layer of ``cfg`` (layer 0's weights) on 8 x 1024 random
+    bf16 tokens: the owner path against the gather path, without the
+    shared experts (the routed sum: bitwise but on the tokens
+    ``owner_order_tokens`` names) and with them (the split ``f`` sum:
+    within a bf16 ulp's reach, element counts reported)."""
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh_rules
+    p = {k: v[0] if k != "shared" else {s: w[0] for s, w in v.items()}
+         for k, v in params["blocks"]["p0"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kw = dict(n_real=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    out = {}
+    for label, pp in (("routed", {k: v for k, v in p.items()
+                                  if k != "shared"}), ("with shared", p)):
+        yg, mg = moe.moe_apply(pp, x, **kw)
+        with use_mesh_rules(mesh):
+            yo, mo = moe.moe_apply(pp, x, **kw)
+        differ = (yg != yo).reshape(-1, cfg.d_model).any(1)
+        row = {"tokens_differing": int(differ.sum()),
+               "dropped_gather": int(mg["moe_dropped"]),
+               "dropped_owner": int(mo["moe_dropped"]),
+               "rel_err": _rel_err(yo, yg)}
+        ok = row["dropped_gather"] == row["dropped_owner"]
+        if label == "routed":
+            _, ids, _ = moe.router_assign(x.reshape(-1, cfg.d_model),
+                                          p["router"], cfg.n_experts,
+                                          cfg.top_k)
+            cap = moe.capacity(x.shape[0] * x.shape[1], cfg.top_k,
+                               cfg.capacity_factor, cfg.n_experts_padded)
+            n_exp = mesh.shape["model"]
+            may = owner_order_tokens(ids, _dropped_pairs(ids, cap), n_exp,
+                                     cfg.n_experts_padded // n_exp)
+            row["tokens_in_another_grouping"] = int(may.sum())
+            row["differing_outside_them"] = int((differ & ~may).sum())
+            ok &= row["differing_outside_them"] == 0
+        ok &= row["rel_err"] <= 2e-2
+        log(f"{tag} one MoE layer ({label}) on {x.shape[0]} x {x.shape[1]} "
+            f"bf16 tokens, owner vs gather: {row}: {'ok' if ok else 'FAIL'}")
+        require(ok, f"{tag} one layer's owner path disagrees ({label})")
+        out[label.replace(" ", "_")] = row
+    return out
+
+
+def _owner_train_checks(cfg, mesh, tag: str, batch: int = 2,
+                        seq: int = 64) -> dict:
+    """At 2 layers of ``cfg``, full width, fp32 activations: the routes and
+    per-layer drops of a forward under ``mesh`` equal the gather path's
+    exactly; the gradients of ``accumulate_grads`` (2 microbatches) under
+    ``mesh`` against the gather path's on the card and against the owner
+    path's on the CPU (losses within CARD_CPU_STEP_TOL relative, each
+    leaf within CARD_CPU_TOL of its max|g|; the elements that differ
+    bitwise from the gather path's are counted); then one whole
+    ``make_train_step(mesh=, rules=rules_for(train_4k),
+    param_shardings=)`` step against the step without a mesh."""
+    from repro_torch import optim
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import (init_params, iter_leaves,
+                                           tree_shardings)
+    from repro_torch.models.sharding import use_mesh_rules
+    t0 = time.perf_counter()
+    c2 = two_layer_config(cfg)
+    rules = S.rules_for(SHAPES["train_4k"])
+    b = SyntheticLMData(c2.vocab, seq, batch, seed=0).batch(0)
+    card = init_params(M.model_specs(c2), seed=0, device="cuda")
+    tb = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    with torch.no_grad():
+        with MoeProbe() as g:
+            fg, _ = M.forward(c2, card, tb["tokens"], remat=False)
+        with MoeProbe() as o, use_mesh_rules(mesh, rules):
+            fo, _ = M.forward(c2, card, tb["tokens"], remat=False)
+    routes_equal = all(torch.equal(a[1], c[1])
+                       for a, c in zip(g.routes, o.routes))
+    drops = (g.per_layer_dropped(), o.per_layer_dropped())
+    out = {"routes_equal": routes_equal, "dropped_gather": drops[0],
+           "dropped_owner": drops[1], "psum_bytes": sum(o.sent_bytes),
+           "logits_rel_err": _rel_err(fo, fg),
+           "logits_differing": int((fo != fg).sum()),
+           "logits_elements": fo.numel()}
+    del fg, fo
+    runs = {}
+    for label, params, ctx in (
+            ("gather", card, contextlib.nullcontext()),
+            ("owner", card, use_mesh_rules(mesh, rules)),
+            ("owner-cpu", _to(card, "cpu"), use_mesh_rules(mesh, rules))):
+        dev = next(iter_leaves(params))[1].device
+        with ctx:
+            (loss, metrics), grads = S.accumulate_grads(
+                c2, params, {k: v.to(dev) for k, v in tb.items()}, 2)
+        runs[label] = (dict(metrics, loss=loss), grads)
+        del params
+    rel, diff, n = {}, 0, 0
+    for other in ("gather", "owner-cpu"):
+        (wm, want), (gm, got) = runs[other], runs["owner"]
+        worst = max(abs(float(gm[k]) - float(wm[k]))
+                    / max(abs(float(wm[k])), 1e-30)
+                    for k in ("loss", "ce", "z_loss", "moe_aux"))
+        gworst = 0.0
+        for (_, a), (_, w) in zip(iter_leaves(got), iter_leaves(want)):
+            w = w.to("cuda")
+            gworst = max(gworst, float((a - w).abs().max())
+                         / max(float(w.abs().max()), 1e-30))
+            if other == "gather":
+                diff += int((a != w).sum())
+                n += a.numel()
+        rel[other] = (worst, gworst)
+    del runs
+    out.update(grad_vs_gather=rel["gather"][1],
+               loss_vs_gather=rel["gather"][0],
+               grad_vs_cpu=rel["owner-cpu"][1], loss_vs_cpu=rel["owner-cpu"][0],
+               grad_elements_differing=diff, grad_elements=n)
+    # one whole step under the mesh against the step without one
+    opt = optim.make_optimizer(c2.optimizer, optim.cosine_schedule(1e-3, 2,
+                                                                   10))
+    shardings = tree_shardings(M.model_specs(c2), mesh, rules)
+    steps = {}
+    for label, kw in (("gather", {}), ("owner", dict(
+            mesh=mesh, rules=rules, param_shardings=shardings))):
+        params = card if label == "gather" else init_params(
+            M.model_specs(c2), seed=0, device="cuda")
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        state, m = S.make_train_step(c2, opt, grad_accum=2, **kw)(state, b)
+        steps[label] = ({k: float(v) for k, v in m.items()},
+                        _to(state["params"], "cpu") if label == "gather"
+                        else state["params"])
+        del state, params
+        card = None
+    (wm, wp), (gm, gp) = steps["gather"], steps["owner"]
+    out["step_metrics_rel_err"] = max(
+        abs(gm[k] - wm[k]) / max(abs(wm[k]), 1e-30)
+        for k in ("loss", "grad_norm", "ce", "moe_aux"))
+    out["step_param_max_abs_err"] = max(
+        float((a - w.cuda()).abs().max())
+        for (_, a), (_, w) in zip(iter_leaves(gp), iter_leaves(wp)))
+    lr_t = float(optim.cosine_schedule(1e-3, 2, 10)(1))
+    del steps, gp, wp
+    ok = (routes_equal and drops[0] == drops[1]
+          and out["logits_rel_err"] <= CARD_CPU_TOL
+          and rel["gather"][0] <= CARD_CPU_STEP_TOL
+          and rel["gather"][1] <= CARD_CPU_TOL
+          and rel["owner-cpu"][0] <= CARD_CPU_STEP_TOL
+          and rel["owner-cpu"][1] <= CARD_CPU_TOL
+          and out["step_metrics_rel_err"] <= CARD_CPU_STEP_TOL
+          and out["step_param_max_abs_err"] <= 2.5 * lr_t)
+    log(f"{tag} 2 layers, full width, fp32 activations, {batch} x {seq} "
+        f"tokens: routes equal the gather path's {routes_equal}, drops per "
+        f"layer {drops[0]} / {drops[1]}; logits {out['logits_rel_err']:.4e} "
+        f"of max ({out['logits_differing']} of {out['logits_elements']} "
+        f"elements not bitwise); gradients in 2 microbatches vs gather: "
+        f"loss {rel['gather'][0]:.3e}, leaves {rel['gather'][1]:.4e} of "
+        f"max|g| ({diff} of {n} elements not bitwise); vs the owner path "
+        f"on the CPU: loss {rel['owner-cpu'][0]:.3e}, leaves "
+        f"{rel['owner-cpu'][1]:.4e} (tolerances {CARD_CPU_STEP_TOL} / "
+        f"{CARD_CPU_TOL}); make_train_step(mesh=, rules=rules_for("
+        f"train_4k), param_shardings=) vs no mesh: metrics "
+        f"{out['step_metrics_rel_err']:.3e}, parameters max abs err "
+        f"{out['step_param_max_abs_err']:.3e} (bound 2.5 lr_t = "
+        f"{2.5 * lr_t:.3e}); {time.perf_counter() - t0:.1f} s: "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the owner path's training disagrees at 2 layers")
+    return out
+
+
+def phase_moe_owner(gpu: str, params, gather: dict) -> dict:
+    """``[moe-owner]``: ``[serve-moe]``'s arch on its weights (``params``,
+    on the card) under a ``("data", "model")`` mesh of ``OWNER_MESH``,
+    whose MoE layers take the owner-computes dispatch
+    (``moe.moe_apply_owner``, 4 owners of 16 of the 64 padded experts):
+    the same prompts served greedy twice (bitwise reruns) beside
+    ``gather``'s (``[serve-moe]``'s result) times; prefill and a decode
+    step against the gather path's with the gather path's routes replayed
+    (per-layer drops equal exactly, logits within ``[serve]``'s
+    tolerances; the owner path's own routes against the gather path's: a
+    finding past layer 0, which sees the same input); one MoE layer's
+    routed sum bitwise but on the tokens of another grouping; then
+    :func:`_owner_train_checks` at 2 layers after the weights are
+    freed."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import ServeSession, _pad_caches
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import use_mesh_rules
+    from repro_torch.obs import counters as ocnt
+    tag = "[moe-owner]"
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_MOE_ARCH)
+    mesh = make_mesh(OWNER_MESH, ("data", "model"))
+    b, lp, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    rng = np.random.default_rng(0)              # [serve-moe]'s prompts
+    prompts = rng.integers(0, cfg.vocab, (b, lp)).astype(np.int32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{tag} {cfg.name} under a (data, model) mesh of {OWNER_MESH}: "
+        f"{mesh.shape['model']} owners of "
+        f"{cfg.n_experts_padded // mesh.shape['model']} of the "
+        f"{cfg.n_experts_padded} padded experts, the shared experts' "
+        f"{cfg.n_shared_experts * cfg.d_ff_expert} columns split "
+        f"{mesh.shape['model']} ways; {torch.cuda.memory_allocated()} B on "
+        f"the card")
+    sess = ServeSession(cfg, params, mesh=mesh, max_len=lp + n + 1)
+    runs = {}
+    for label in ("greedy", "greedy-rerun"):
+        with ocnt.use_registry() as reg:
+            out = sess.generate(prompts, n)
+        pre, dec = reg.get("serve.prefill_s"), reg.get("serve.decode_s")
+        runs[label] = dict(out=out, prefill_ms=pre * 1e3,
+                           decode_ms_per_token=dec * 1e3 / (n - 1))
+        log(f"{tag} generate {label}: prefill {pre * 1e3:.3f} ms (gather "
+            f"path {gather['prefill_ms']:.3f}), decode "
+            f"{dec * 1e3 / (n - 1):.3f} ms/token (gather "
+            f"{gather['decode_ms_per_token']:.3f})  [{gpu}]")
+    require(np.array_equal(runs["greedy"]["out"],
+                           runs["greedy-rerun"]["out"]),
+            f"{tag} two greedy runs differ")
+    peak = torch.cuda.max_memory_allocated()
+    del sess
+    toks = torch.from_numpy(prompts).to(dev)
+    with MoeProbe() as g:
+        last_g, cache = M.prefill(cfg, params, toks)
+    with MoeProbe(replay=g.routes) as o, use_mesh_rules(mesh):
+        last_o, cache_o = M.prefill(cfg, params, toks)
+    del cache_o
+    own = [int((a[1] != c[1]).any(1).sum())
+           for a, c in zip(g.routes, o.routes)]
+    drops = (g.per_layer_dropped(), o.per_layer_dropped())
+    against = "the gather path's (its routes replayed)"
+    ok_pre, pre_rel = _logits_check(last_o[:, 0], last_g[:, 0],
+                                    SERVE_TOL_PREFILL, "prefill", tag,
+                                    against=against)
+    # one decode step from the gather prefill's cache, both paths
+    cache = _pad_caches(cache, lp, lp + 1)
+    nxt = torch.from_numpy(runs["greedy"]["out"][:, :1]).to(dev)
+    fresh = (lambda: {k: {n_: c.clone() for n_, c in v.items()}
+                      for k, v in cache.items()})
+    with MoeProbe() as gd:
+        step_g, _ = M.decode_step(cfg, params, fresh(), nxt, lp)
+    with MoeProbe(replay=gd.routes) as od, use_mesh_rules(mesh):
+        step_o, _ = M.decode_step(cfg, params, fresh(), nxt, lp)
+    del cache
+    ok_dec, dec_rel = _logits_check(step_o[:, 0], step_g[:, 0],
+                                    SERVE_TOL_DECODE, "decode step", tag,
+                                    against=against)
+    ddrops = (gd.per_layer_dropped(), od.per_layer_dropped())
+    ok = (ok_pre and ok_dec and drops[0] == drops[1]
+          and ddrops[0] == ddrops[1] and own[0] == 0)
+    psum = sum(o.sent_bytes)
+    log(f"{tag} prefill drops per layer equal the gather path's: "
+        f"{drops[0] == drops[1]} ({sum(drops[1])} pairs in all), decode "
+        f"step's: {ddrops[0] == ddrops[1]}; the owner path's own routes "
+        f"differ from the gather path's for {own} tokens per layer (layer "
+        f"0 sees the same input; later layers a bf16 ulp apart: a "
+        f"finding); psum handed {psum} B in prefill "
+        f"({psum / len(o.sent_bytes):.0f} B a layer), "
+        f"{sum(od.sent_bytes)} B in a decode step; peak device memory "
+        f"{peak / 1e9:.3f} GB ({peak} B)  [{gpu}]: "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{tag} the owner path disagrees with the gather path")
+    result = {
+        "arch": cfg.name, "mesh": list(OWNER_MESH), "gpu": gpu,
+        "prefill_ms": runs["greedy-rerun"]["prefill_ms"],
+        "decode_ms_per_token": runs["greedy-rerun"]["decode_ms_per_token"],
+        "cold_prefill_ms": runs["greedy"]["prefill_ms"],
+        "gather_prefill_ms": gather["prefill_ms"],
+        "gather_decode_ms_per_token": gather["decode_ms_per_token"],
+        "peak_bytes": peak, "prefill_rel_err": pre_rel,
+        "decode_rel_err": dec_rel, "prefill_dropped": drops[1],
+        "own_routes_differing_per_layer": own,
+        "psum_bytes_prefill": psum,
+        "psum_bytes_decode_step": sum(od.sent_bytes),
+    }
+    result["one_layer"] = _owner_layer_check(cfg, params, mesh, tag)
+    del params, last_g, last_o, step_g, step_o
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["train_2_layers"] = _owner_train_checks(cfg, mesh, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
@@ -4352,10 +4896,13 @@ def main() -> int:
     cli_launches = phase_cli()
     examples_launches = phase_examples(gpu)
     lap("[cli] [examples]")
-    serve = phase_serve(gpu)
-    lap("[serve]")
-    serve_moe = phase_serve(gpu, SERVE_MOE_ARCH, "[serve-moe]")
-    lap("[serve-moe]")
+    serve = phase_serve(gpu, keep_params=True)
+    serve_int8 = phase_serve_int8(gpu, serve.pop("params"))
+    lap("[serve] [serve-int8]")
+    serve_moe = phase_serve(gpu, SERVE_MOE_ARCH, "[serve-moe]",
+                            keep_params=True)
+    moe_owner = phase_moe_owner(gpu, serve_moe.pop("params"), serve_moe)
+    lap("[serve-moe] [moe-owner]")
     serve_ssm = phase_serve(gpu, SERVE_SSM_ARCH, "[serve-ssm]")
     lap("[serve-ssm]")
     train = phase_train(gpu)
@@ -4406,7 +4953,9 @@ def main() -> int:
         "library_ms is index_add_ for segment_accumulate and null for the "
         "others: no single PyTorch call computes spMTTKRP")
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve_int8": serve_int8}))
     print(json.dumps({"serve_moe": serve_moe}))
+    print(json.dumps({"moe_owner": moe_owner}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"train": train}))
     for key, result in lm.items():

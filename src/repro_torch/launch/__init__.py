@@ -1,4 +1,5 @@
 """Launchers of the LM scaffolding: ``serve`` (the batched serving driver,
-``python -m repro_torch.launch.serve``) and ``train`` (the training
-driver, ``python -m repro_torch.launch.train``). The dry run, the mesh and
-the FLOP/HLO accounting come with ROADMAP A15, slice 3."""
+``python -m repro_torch.launch.serve``), ``train`` (the training driver,
+``python -m repro_torch.launch.train``) and ``mesh`` (the logical meshes
+the sharding rules resolve against, and the card's constants). The dry
+run and the FLOP/HLO accounting are ROADMAP A15 (3) (d3)."""

@@ -11,8 +11,11 @@ per-layer cache tree, written in place. Greedy or temperature sampling.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke
 
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
-Every arch of the ten runs; the int8 KV cache raises
-``NotImplementedError`` (ROADMAP A15 (3)). The ``encdec`` and ``vlm``
+Every arch of the ten runs, with the bf16 or the int8 KV cache
+(``kv_cache_dtype``). A session given a ``mesh`` (``launch.mesh``) runs
+its steps under that mesh's default rules, as the reference's: on one
+card that changes the MoE dispatch to the owner-computes path
+(``models.moe.moe_apply_owner``). The ``encdec`` and ``vlm``
 families take their stub frontend's embeddings in ``generate``'s
 ``extras`` (``frames`` / ``img``); ``main`` draws them as
 ``repro/launch/serve.py``'s ``main`` does.
@@ -52,10 +55,12 @@ class ServeSession:
 
     ``params`` must already lie on that device (``init_params(...,
     device=)`` or ``convert.lm_params_from_reference(..., device=)``).
+    ``mesh`` (a ``launch.mesh.Mesh``) is entered around every prefill and
+    decode step, as the reference's session jits its steps under it.
     """
 
-    def __init__(self, cfg, params, *, max_len: int = 128, tracer=None,
-                 device=None):
+    def __init__(self, cfg, params, *, mesh=None, max_len: int = 128,
+                 tracer=None, device=None):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -71,8 +76,8 @@ class ServeSession:
         # Default: resolve the process tracer per generate() call so a
         # session built before `use_tracer(...)` still records into it.
         self._tracer = tracer
-        self._prefill = steps_lib.make_prefill_step(cfg)
-        self._decode = steps_lib.make_decode_step(cfg)
+        self._prefill = steps_lib.make_prefill_step(cfg, mesh)
+        self._decode = steps_lib.make_decode_step(cfg, mesh)
 
     def generate(self, prompts: np.ndarray, n_tokens: int, *,
                  temperature: float = 0.0, seed: int = 0,
@@ -116,10 +121,12 @@ class ServeSession:
 
 
 def _pad_caches(cache, prompt_len: int, max_len: int):
-    """Grow the seq dim (axis 2 after layer stacking) of the K/V (and
-    ``k_scale``) entries to ``max_len``; other entries (mamba's ``conv``
-    and ``ssd`` state, the cross-attention ``ck`` / ``cv`` of the memory,
-    which decode reads whole) stay as they are."""
+    """Grow the seq dim (axis 2 after layer stacking) of the K/V (and the
+    int8 cache's ``k_scale``) entries to ``max_len`` with zeros, which
+    decode masks until it writes them; other entries (the int8 cache's
+    per-channel ``v_scale``, mamba's ``conv`` and ``ssd`` state, the
+    cross-attention ``ck`` / ``cv`` of the memory, which decode reads
+    whole) stay as they are."""
     out = {}
     for key, c in cache.items():
         if isinstance(c, dict):

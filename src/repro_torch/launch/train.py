@@ -13,8 +13,10 @@ On hardware the same driver runs the full config at a production shape
 Runs on CUDA unless ``--device cpu``; with no CUDA device it raises.
 With a checkpoint directory the loop runs under ``runtime.
 TrainLoopRunner`` (atomic checkpoints, auto-resume, bounded retry,
-straggler telemetry). Every family trains; there is no mesh yet
-(``use_mesh`` is accepted and does nothing, ROADMAP A15 (3)). The
+straggler telemetry). Every family trains. ``use_mesh`` runs the steps
+under the host mesh when the process has more than one device, as the
+reference's driver: the port runs on one card, so it trains without a
+mesh (``models.steps.make_train_step(mesh=...)`` takes one). The
 ``encdec`` and ``vlm`` families get the stub frontend's inputs of
 ``repro/launch/train.py`` with each batch: ``frames`` ``(batch, seq, d_frontend)`` or
 ``img`` ``(batch, n_img_tokens, d_frontend)``, standard normal float32
@@ -43,6 +45,7 @@ from ..models.params import init_params
 from ..runtime.device import resolve_device
 from ..runtime.fault_tolerance import TrainLoopRunner
 from .. import optim as optim_lib
+from .mesh import make_host_mesh
 
 __all__ = ["train", "main", "with_frontend"]
 
@@ -73,10 +76,12 @@ def train(arch: str, *, smoke: bool = False, steps: int = 20,
     opt = optim_lib.make_optimizer(
         cfg.optimizer, optim_lib.cosine_schedule(lr, max(2, steps // 10),
                                                  max(steps, 10)))
+    host = make_host_mesh()
+    mesh = {"mesh": host} if use_mesh and host.size > 1 else {}
     params = init_params(model_lib.model_specs(cfg), seed=seed, device=dev)
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    step_fn = steps_lib.make_train_step(cfg, opt)
+    step_fn = steps_lib.make_train_step(cfg, opt, **mesh)
 
     if ckpt_dir:
         runner = TrainLoopRunner(step_fn, CheckpointManager(ckpt_dir),

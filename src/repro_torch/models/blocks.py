@@ -4,9 +4,10 @@ Port of ``repro/models/blocks.py``. Mixers: ``attn`` (causal
 self-attention), ``attn_local`` (chunked-local causal, llama4 iRoPE),
 ``xattn`` (cross-attention only, llama-3.2-vision style, with a learned
 ``tanh`` gate), ``attn_cross`` (self then cross: the enc-dec decoder) and
-``mamba`` (SSD). FFNs: ``mlp`` (SwiGLU), ``moe`` and ``none``. The int8 KV
-cache raises ``NotImplementedError``: it comes with a later part of
-ROADMAP A15 (3).
+``mamba`` (SSD). FFNs: ``mlp`` (SwiGLU), ``moe`` and ``none``. The
+self-attention K/V cache is bf16, or int8 with ``kv_cache_dtype="int8"``
+(K per token and V per channel, with their float32 scales; prefill's
+attention reads the unquantized K/V, decode's the quantized cache).
 
 Every kind exposes the same three entry points so the model can loop over
 a heterogeneous pattern uniformly:
@@ -19,8 +20,9 @@ a heterogeneous pattern uniformly:
     K/V (``ck`` / ``cv``) are computed once from the memory at prefill
     and only read after.
 
-The reference's ``shard(...)`` activation constraints are the identity
-without a mesh; they return with the mesh (ROADMAP A15 (3)).
+The reference's ``shard(...)`` activation constraints sit at its sites
+(``sharding.shard``: the identity on one card, the spec resolved under a
+mesh context).
 """
 from __future__ import annotations
 
@@ -31,13 +33,12 @@ from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import apply_rope, mlp_apply, mlp_specs, norm_spec, rms_norm
 from .params import ParamSpec
+from .sharding import shard
 
 __all__ = [
     "parse_kind", "block_specs", "block_apply", "block_prefill",
     "block_decode", "block_cache_specs", "require_supported",
 ]
-
-_LATER = "ROADMAP A15 (3)"
 
 
 def parse_kind(kind: str) -> tuple[str, str]:
@@ -51,17 +52,13 @@ _CROSS = ("xattn", "attn_cross")                 # mixers reading memory
 
 
 def require_supported(cfg, kind: str) -> tuple[str, str]:
-    """``parse_kind``, raising ``NotImplementedError`` for what the port
-    does not run yet (the int8 KV cache)."""
+    """``parse_kind``, raising ``ValueError`` for an unknown mixer or
+    FFN."""
     mixer, ffn = parse_kind(kind)
     if mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache (kv_cache_dtype='int8') is not ported yet: "
-            f"{_LATER}")
     return mixer, ffn
 
 
@@ -192,6 +189,7 @@ def _self_attn(cfg, p, x, pos, mode):
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "act_heads", None)
     out = attn_lib.flash_attention(
         q, k, v, pos_q=pos, pos_k=pos, mode=mode, window=cfg.window,
         exact_causal=cfg.exact_causal_attn)
@@ -233,7 +231,8 @@ def block_apply(cfg, kind: str, p, h, *, pos, memory=None, mode="causal"):
             h = h + mix
             mix, _, _ = _cross_attn(cfg, p, rms_norm(h, p["ln_cross"]),
                                     memory)
-    return _with_ffn(cfg, p, h + mix, ffn)
+    h = shard(h + mix, "batch", "seq", "act_embed")
+    return _with_ffn(cfg, p, h, ffn)
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +241,11 @@ def block_apply(cfg, kind: str, p, h, *, pos, memory=None, mode="causal"):
 
 def block_cache_specs(cfg, kind: str, batch: int, seq: int, mem_len: int,
                       dtype=torch.bfloat16) -> dict:
-    """Cache (shape, logical axes, dtype) for one block: bf16 K/V of
-    ``seq`` slots for self-attention, bf16 ``ck`` / ``cv`` of ``mem_len``
-    slots for cross-attention, the float32 ``conv`` tail and ``ssd`` state
-    for mamba."""
+    """Cache (shape, logical axes, dtype) for one block: K/V of ``seq``
+    slots for self-attention (bf16; or int8 with their float32 scales,
+    ``k_scale`` per token, ``v_scale`` per channel), bf16 ``ck`` / ``cv``
+    of ``mem_len`` slots for cross-attention, the float32 ``conv`` tail
+    and ``ssd`` state for mamba."""
     mixer, _ = require_supported(cfg, kind)
     if mixer == "mamba":
         shapes = ssm_lib.mamba_cache_shape(cfg, batch)
@@ -257,7 +257,14 @@ def block_cache_specs(cfg, kind: str, batch: int, seq: int, mem_len: int,
     if mixer in _SELF:
         kv = ("batch", "seq_shard", None, None)
         shp = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
-        out["k"], out["v"] = (shp, kv, dtype), (shp, kv, dtype)
+        if cfg.kv_cache_dtype == "int8":
+            out["k"], out["v"] = (shp, kv, torch.int8), (shp, kv, torch.int8)
+            out["k_scale"] = ((batch, seq, cfg.n_kv_heads),
+                              ("batch", "seq_shard", None), torch.float32)
+            out["v_scale"] = ((batch, cfg.n_kv_heads, cfg.head_dim),
+                              ("batch", None, None), torch.float32)
+        else:
+            out["k"], out["v"] = (shp, kv, dtype), (shp, kv, dtype)
     if mixer in _CROSS:
         shp = (batch, mem_len, cfg.n_kv_heads, cfg.head_dim)
         axes = ("batch", None, None, None)
@@ -265,13 +272,30 @@ def block_cache_specs(cfg, kind: str, batch: int, seq: int, mem_len: int,
     return out
 
 
+def _kv_cache(cfg, k, v) -> dict:
+    """Prefill's self-attention cache of ``k`` / ``v`` ``(b, l, kh, dh)``:
+    bf16, or int8 codes (K per token, V per channel) and their scales."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = attn_lib.quantize_per_token(k)
+        vq, vs = attn_lib.quantize_per_channel(v)
+        return {"k": shard(kq, "batch", "seq_shard", None, None),
+                "v": shard(vq, "batch", "seq_shard", None, None),
+                "k_scale": shard(ks, "batch", "seq_shard", None),
+                "v_scale": vs}
+    return {"k": shard(k.to(torch.bfloat16), "batch", "seq_shard", None,
+                       None),
+            "v": shard(v.to(torch.bfloat16), "batch", "seq_shard", None,
+                       None)}
+
+
 def block_prefill(cfg, kind: str, p, h, *, pos, memory=None):
     """Forward + build this block's decode cache. Returns (h', cache).
 
     K/V (and the memory's ``ck`` / ``cv``) are stored as bf16 whatever
-    the activation dtype; the mamba state as float32. The reference
-    computes the memory's K/V twice, for the attention and for the cache;
-    the port keeps them from the one computation."""
+    the activation dtype, or K/V as int8 codes with their scales; the
+    mamba state as float32. The reference computes the memory's K/V
+    twice, for the attention and for the cache; the port keeps them from
+    the one computation."""
     mixer, ffn = require_supported(cfg, kind)
     x = rms_norm(h, p["ln1"])
     if mixer == "mamba":
@@ -283,7 +307,7 @@ def block_prefill(cfg, kind: str, p, h, *, pos, memory=None):
         mix, k, v = _self_attn(cfg, p, x, pos,
                                "local" if mixer == "attn_local"
                                else "causal")
-        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        cache = _kv_cache(cfg, k, v)
         if mixer == "attn_cross":
             h = h + mix
             mix, ck, cv = _cross_attn(cfg, p, rms_norm(h, p["ln_cross"]),
@@ -296,9 +320,10 @@ def block_prefill(cfg, kind: str, p, h, *, pos, memory=None):
 def block_decode(cfg, kind: str, p, h, cache, *, pos: int, memory=None):
     """One-token step. ``h[(b, 1, d)]``; ``pos`` = slot of the new token
     (cache slots ``< pos`` already filled). Writes the new K/V into
-    ``cache["k"]``/``cache["v"]`` at ``pos``, or the new ``conv`` /
-    ``ssd`` state over the old, in place; the cross-attention ``ck`` /
-    ``cv`` are read; returns ``(h', cache)``."""
+    ``cache["k"]``/``cache["v"]`` at ``pos`` (int8: K quantized per token
+    into ``k_scale[pos]``, V clamped into prefill's ``v_scale``), or the
+    new ``conv`` / ``ssd`` state over the old, in place; the
+    cross-attention ``ck`` / ``cv`` are read; returns ``(h', cache)``."""
     mixer, ffn = require_supported(cfg, kind)
     pos = int(pos)
     x = rms_norm(h, p["ln1"])
@@ -314,13 +339,24 @@ def block_decode(cfg, kind: str, p, h, cache, *, pos: int, memory=None):
         pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
         q = apply_rope(q, pos_b, cfg.rope_theta)
         k = apply_rope(k, pos_b, cfg.rope_theta)
+        mode = "local" if mixer == "attn_local" else "causal"
         kc, vc = cache["k"], cache["v"]
-        kc[:, pos:pos + 1] = k.to(kc.dtype)
-        vc[:, pos:pos + 1] = v.to(vc.dtype)
-        out = attn_lib.decode_attention(
-            q, kc.to(h.dtype), vc.to(h.dtype), cur_pos=pos,
-            mode="local" if mixer == "attn_local" else "causal",
-            window=cfg.window)
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = attn_lib.quantize_per_token(k)
+            # clamp the new V into the prefill-time per-channel scale
+            vq = attn_lib.quantize_at(v.float(), cache["v_scale"][:, None])
+            kc[:, pos:pos + 1] = kq
+            vc[:, pos:pos + 1] = vq
+            cache["k_scale"][:, pos:pos + 1] = ks
+            out = attn_lib.decode_attention_int8(
+                q, kc, cache["k_scale"], vc, cache["v_scale"], cur_pos=pos,
+                mode=mode, window=cfg.window)
+        else:
+            kc[:, pos:pos + 1] = k.to(kc.dtype)
+            vc[:, pos:pos + 1] = v.to(vc.dtype)
+            out = attn_lib.decode_attention(
+                q, kc.to(h.dtype), vc.to(h.dtype), cur_pos=pos, mode=mode,
+                window=cfg.window)
         mix = _out_proj(cfg, p, out, h)
         if mixer == "attn_cross":
             h = h + mix

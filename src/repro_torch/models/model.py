@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import blocks as blk
 from .layers import norm_spec, rms_norm
 from .params import ParamSpec, torch_dtype
+from .sharding import active_mesh_rules, shard, use_mesh_rules
 
 __all__ = [
     "model_specs", "forward", "prefill", "decode_step", "cache_specs",
@@ -123,12 +124,14 @@ def _positions(tokens):
 
 def _embed_tokens(cfg, params, tokens):
     h = params["embed"][tokens.long()]
-    return h.to(torch_dtype(cfg.act_dtype))
+    return shard(h.to(torch_dtype(cfg.act_dtype)),
+                 "batch", "seq", "act_embed")
 
 
 def _unembed(cfg, params, h):
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h, w.to(h.dtype).t())
+    return shard(torch.matmul(h, w.to(h.dtype).t()),
+                 "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +154,21 @@ def _checkpointed(cfg, fn):
     else:
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _save_weight_products)
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
-                                    context_fn=context_fn)
+
+    def run(*args):
+        # The backward's recompute runs where autograd runs it (on CUDA,
+        # the engine's device thread), outside the caller's mesh context:
+        # it re-enters the forward's, so both take the same MoE path.
+        mesh_rules = active_mesh_rules() or (None, None)
+
+        def in_context(*a):
+            with use_mesh_rules(*mesh_rules):
+                return fn(*a)
+
+        return checkpoint(in_context, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return run
 
 
 def _run_blocks(cfg, blocks, h, pos, memory, remat: bool):
@@ -175,7 +191,7 @@ def _run_blocks(cfg, blocks, h, pos, memory, remat: bool):
             h, metrics = one_layer(kind, group[f"p{j}"], h, memory)
             if "moe_aux" in metrics:       # summed in the reference's order
                 aux = aux + metrics["moe_aux"]
-        return h, aux
+        return shard(h, "batch", "seq", "act_embed"), aux
 
     if remat:
         body = _checkpointed(cfg, body)
@@ -226,6 +242,7 @@ def _memory_of(cfg, params, frames=None, img=None, remat: bool = True):
     if cfg.family == "encdec":
         enc = params["encoder"]
         h = torch.matmul(frames.to(act), enc["frontend_proj"].to(act))
+        h = shard(h, "batch", "seq", "act_embed")
         return _run_encoder(cfg, enc, h, _positions(frames), remat)
     if cfg.family == "vlm":
         return torch.matmul(img.to(act), params["img_proj"].to(act))

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .layers import rms_norm
 from .params import ParamSpec
+from .sharding import shard
 
 __all__ = ["mamba_specs", "mamba_apply", "mamba_decode", "mamba_cache_shape",
            "mamba_prefill"]
@@ -166,10 +167,14 @@ def _mixer(params, x, cfg):
     conv = F.silu(_causal_conv(xBC, params["conv_w"].to(x.dtype),
                              params["conv_b"].to(x.dtype)))
     xs, B, C = _split_xbc(conv, cfg)
-    dt = _dt(params, dt)
+    xs = shard(xs, "batch", "seq", "act_heads", None)
+    B = shard(B, "batch", "seq", "act_heads", None)
+    C = shard(C, "batch", "seq", "act_heads", None)
+    dt = shard(_dt(params, dt), "batch", "seq", "act_heads")
     A = -torch.exp(params["A_log"])                           # (h,)
     y, S = _ssd(xs.float() * dt[..., None], dt * A[None, None, :],
                 B.float(), C.float(), cfg.ssm_chunk)
+    y = shard(y, "batch", "seq", "act_heads", None)
     y = y + params["D"][None, None, :, None] * xs.float()
     return _finish(params, y.to(x.dtype), z, cfg), xBC, S
 

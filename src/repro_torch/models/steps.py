@@ -1,13 +1,16 @@
-"""Step functions: the loss, the train step, and the serving steps.
+"""Step functions: the loss, the train step, the serving steps, and the
+abstract input and state specs.
 
-Port of ``loss_fn``, ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step`` of ``repro/models/steps.py``. The reference closes
-over a mesh and its sharding rules and returns pure functions for
-``jax.jit``; the port runs eagerly on one device, so each factory closes
-over the config (and the optimizer) alone, and the train step updates its
-state in place. ``rules_for``, ``input_specs``, ``abstract_cache``,
-``train_state_specs`` and ``MEM_LEN_DIV`` come with the mesh (ROADMAP
-A15 (3)).
+Port of ``repro/models/steps.py``. The reference closes over a mesh and
+its sharding rules and returns pure functions for ``jax.jit``; the port
+runs eagerly on one card, so each factory closes over the config, the
+optimizer and the ``(mesh, rules)`` it enters around every call
+(``sharding.use_mesh_rules``: the model's ``shard`` sites resolve their
+specs, and the MoE takes the owner-computes dispatch), and the train step
+updates its state in place. ``rules_for``, ``input_specs``,
+``abstract_cache`` and ``train_state_specs`` give the reference's
+abstract trees (``params.ShapeDtypeStruct``: shape, dtype and partition
+spec, no allocation) for every (arch, shape, mesh).
 
 Every family trains and serves: dense, MoE, SSM, hybrid, enc-dec and VLM
 (a batch of the last two also holds ``frames`` / ``img``, split into
@@ -29,15 +32,40 @@ from __future__ import annotations
 import torch
 
 from . import model as model_lib
-from .params import iter_leaves, torch_dtype
+from .params import (ShapeDtypeStruct, abstract_params, iter_leaves,
+                     logical_to_spec, torch_dtype, tree_shardings)
+from .sharding import default_rules, long_context_rules, shard, \
+    use_mesh_rules
 from .. import optim as optim_lib
 
 __all__ = [
     "loss_fn", "loss_and_grads", "accumulate_grads", "make_train_step",
-    "make_prefill_step", "make_decode_step",
+    "make_prefill_step", "make_decode_step", "input_specs",
+    "train_state_specs", "rules_for", "abstract_cache", "MEM_LEN_DIV",
 ]
 
-_LATER = "ROADMAP A15 (3)"
+# enc-dec / vlm memory length relative to seq (the reference's): train
+# splits seq 50/50 between source and target; decode shapes use seq/8
+# source frames (speech prompt) and n_img_tokens patches for vlm.
+MEM_LEN_DIV = {"train": 2, "prefill": 2, "decode": 8}
+
+
+def rules_for(shape, cfg=None):
+    """Sharding rules per input shape (``configs.SHAPES``), the
+    reference's: ``long_500k`` takes :func:`long_context_rules`; serving
+    (prefill / decode) replicates the parameters over the data axes
+    (``embed`` → ``None``) when a 16-way model split leaves at most 9e9
+    bytes of them a device."""
+    if shape.name == "long_500k":
+        rules = long_context_rules()
+    else:
+        rules = default_rules()
+    if cfg is not None and shape.kind in ("prefill", "decode"):
+        per_chip = (cfg.param_count()
+                    * torch_dtype(cfg.param_dtype).itemsize / 16)
+        if per_chip <= 9e9:
+            rules["embed"] = None      # replicate over data/pod for serving
+    return rules
 
 
 # ---------------------------------------------------------------------------
@@ -178,43 +206,150 @@ def make_train_step(cfg, optimizer: optim_lib.Optimizer, mesh=None,
     ``moe_aux`` (means over the microbatches) as 0-d device tensors.
 
     ``batch`` holds numpy arrays or tensors; they are moved to the
-    parameters' device. ``mesh``, ``rules`` and ``param_shardings`` are
-    the reference's sharding arguments: they come with ``mesh.py``.
+    parameters' device.
+
+    ``mesh`` (``launch.mesh.Mesh``) and ``rules`` (default
+    :func:`sharding.default_rules`) are entered around the step, as the
+    reference's ``use_mesh_rules``: the batch and the model's activations
+    resolve their specs, and an MoE layer runs the owner-computes
+    dispatch. ``param_shardings``, the reference's pin of the gradient
+    accumulator to the parameters' layout, must equal
+    ``params.tree_shardings`` of the config's specs on ``mesh`` (a
+    ``ValueError`` names the first leaf that differs); on one card the
+    accumulator is the parameters' layout already.
     """
-    if mesh is not None or rules is not None or param_shardings is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=, rules=, param_shardings=): the mesh "
-            f"and sharding rules are not ported yet: {_LATER}")
+    rules = rules or default_rules()
+    if param_shardings is not None:
+        _check_shardings(param_shardings, tree_shardings(
+            model_lib.model_specs(cfg), mesh, rules))
     k = int(grad_accum)
 
     def train_step(state, batch):
         params = state["params"]
         device = next(iter_leaves(params))[1].device
-        (loss, metrics), grads = accumulate_grads(
-            cfg, params, _on_device(batch, device), k)
-        grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm)
-        optimizer.update(grads, state["opt"], params)
+        with use_mesh_rules(mesh, rules):
+            batch = {key: shard(x, "batch", *([None] * (x.ndim - 1)))
+                     for key, x in _on_device(batch, device).items()}
+            (loss, metrics), grads = accumulate_grads(cfg, params, batch, k)
+            grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm)
+            optimizer.update(grads, state["opt"], params)
         state["step"] += 1
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
 
 
+def _check_shardings(got, want, path=()):
+    """``ValueError`` at the first leaf where the partition-spec trees
+    ``got`` and ``want`` differ (in keys or in a spec)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            keys = sorted(got) if isinstance(got, dict) else got
+            raise ValueError(f"param_shardings at {'/'.join(path) or '/'}: "
+                             f"{keys} is not the parameters' keys "
+                             f"{sorted(want)}")
+        for key in sorted(want):
+            _check_shardings(got[key], want[key], path + (key,))
+    elif tuple(got) != want:
+        raise ValueError(f"param_shardings at {'/'.join(path)}: {got} is "
+                         f"not the parameters' partition spec {want}")
+
+
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, mesh=None, rules=None):
+    rules = rules or default_rules()
+
     def prefill_step(params, batch):
-        return model_lib.prefill(
-            cfg, params, batch["tokens"], frames=batch.get("frames"),
-            img=batch.get("img"))
+        with use_mesh_rules(mesh, rules):
+            return model_lib.prefill(
+                cfg, params, batch["tokens"], frames=batch.get("frames"),
+                img=batch.get("img"))
 
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, mesh=None, rules=None):
+    rules = rules or default_rules()
+
     def decode_step(params, cache, token, pos):
-        return model_lib.decode_step(cfg, params, cache, token, pos)
+        with use_mesh_rules(mesh, rules):
+            return model_lib.decode_step(cfg, params, cache, token, pos)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract specs (dry-run: zero allocation)
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype, axes, mesh, rules):
+    return ShapeDtypeStruct(
+        tuple(shape), dtype,
+        None if mesh is None else logical_to_spec(axes, rules, mesh))
+
+
+def input_specs(cfg, shape, mesh=None, rules=None) -> dict:
+    """:class:`params.ShapeDtypeStruct` stand-ins for every model input of
+    the cell ``(cfg, shape)``: tokens (and labels for training), the stub
+    frontend's ``frames`` / ``img``, or for decode the cache, one token
+    and its position."""
+    rules = rules or rules_for(shape)
+    B, L = shape.global_batch, shape.seq_len
+    d_front = cfg.d_frontend or cfg.d_model
+
+    def tok(shp, axes):
+        return _sds(shp, torch.int32, axes, mesh, rules)
+
+    def emb(shp, axes):
+        return _sds(shp, torch.float32, axes, mesh, rules)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            l_tgt = L // 2
+            batch = {
+                "frames": emb((B, L - l_tgt, d_front), ("batch", "seq", None)),
+                "tokens": tok((B, l_tgt), ("batch", "seq")),
+            }
+            if shape.kind == "train":
+                batch["labels"] = tok((B, l_tgt), ("batch", "seq"))
+        else:
+            batch = {"tokens": tok((B, L), ("batch", "seq"))}
+            if cfg.family == "vlm":
+                batch["img"] = emb((B, cfg.n_img_tokens, d_front),
+                                   ("batch", None, None))
+            if shape.kind == "train":
+                batch["labels"] = tok((B, L), ("batch", "seq"))
+        return batch
+
+    # decode: cache + one token
+    return {
+        "cache": abstract_cache(cfg, shape, mesh, rules),
+        "token": tok((B, 1), ("batch", None)),
+        "pos": ShapeDtypeStruct((), torch.int32),
+    }
+
+
+def abstract_cache(cfg, shape, mesh, rules) -> dict:
+    """The decode cache of ``(cfg, shape)`` (``model.cache_specs``) as
+    :class:`params.ShapeDtypeStruct` leaves."""
+    B, L = shape.global_batch, shape.seq_len
+    mem_len = (cfg.n_img_tokens if cfg.family == "vlm"
+               else L // MEM_LEN_DIV["decode"])
+    tree = model_lib.cache_specs(cfg, B, L, mem_len)
+    return {g: {name: _sds(shp, dtype, axes, mesh, rules)
+                for name, (shp, axes, dtype) in leaves.items()}
+            for g, leaves in tree.items()}
+
+
+def train_state_specs(cfg, optimizer: optim_lib.Optimizer, mesh=None,
+                      rules=None):
+    """The abstract train state ``{params, opt, step}``."""
+    rules = rules or default_rules()
+    pspecs = model_lib.model_specs(cfg)
+    return {"params": abstract_params(pspecs, mesh, rules),
+            "opt": abstract_params(optimizer.state_specs(pspecs), mesh,
+                                   rules),
+            "step": ShapeDtypeStruct((), torch.int32)}

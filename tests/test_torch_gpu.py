@@ -1641,3 +1641,174 @@ def test_lm_train_main_runs_on_the_card_by_default(cuda, capsys):
     state, history = train.train("phi3-mini-3.8b", smoke=True, steps=2,
                                  log_fn=lambda *_: None)
     assert state["step"].device.type == "cuda" and len(history) == 2
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache, the mesh and the owner-computes MoE dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [64, 1056, 2100])
+def test_lm_int8_decode_on_card_equals_cpu(cuda, S):
+    """``decode_attention_int8`` on the card against the CPU on the same
+    inputs: the quantizers' codes and scales bitwise; both int32
+    contractions of the card (recorded with their int8 codes) equal the
+    CPU's and an int64 product on those codes element for element, and
+    the QK sums equal the CPU run's own (the same codes); the output
+    within 1e-5 of max|out|. At S past 1040 the PV sum takes two or more
+    float32 chunks."""
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(S)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 8, 64)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, 4, 64)).astype(
+        np.float32) * 2) for _ in range(2))
+    runs = {}
+    contract = A.int8_contract
+    for dev in ("cpu", cuda):
+        kq = A.quantize_per_token(k.to(dev))
+        vq = A.quantize_per_channel(v.to(dev))
+        sums = []
+
+        def recording(a, b):
+            out = contract(a, b)
+            sums.append((a.cpu(), b.cpu(), out.cpu()))
+            return out
+
+        A.int8_contract = recording
+        try:
+            out = A.decode_attention_int8(q.to(dev), *kq, *vq,
+                                          cur_pos=S - 5)
+        finally:
+            A.int8_contract = contract
+        runs[str(dev)] = ([t.cpu() for t in kq + vq], sums, out.cpu())
+    (cq, cs, co), (gq, gs, go) = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(cq, gq):
+        assert torch.equal(a, b)
+    assert len(cs) == len(gs) == 2
+    for a, b, out in gs:
+        assert out.dtype == torch.int32
+        assert torch.equal(out, contract(a, b))
+        assert torch.equal(out.long(), torch.matmul(a.long(), b.long()))
+    # the QK codes are the same on both devices (the PV codes come from
+    # each device's softmax)
+    assert torch.equal(cs[0][2], gs[0][2])
+    assert float((co - go).abs().max()) <= 1e-5 * float(co.abs().max())
+
+
+def test_lm_int8_contract_exact_on_card(cuda):
+    from repro_torch.models.attention import int8_contract
+    a = torch.full((2, 3, 1, 2048), 127, dtype=torch.int8)
+    b = torch.full((2, 3, 2048, 5), -127, dtype=torch.int8)
+    b[:, :, 0] = 2
+    want = torch.matmul(a.long(), b.long())
+    got = int8_contract(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu().long(), want)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-127, 128, (4, 3, 1057)).astype(
+        np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (4, 1057, 96)).astype(
+        np.int8))
+    assert torch.equal(int8_contract(a.to(cuda), b.to(cuda)).cpu(),
+                       int8_contract(a, b))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("top_k,n_shared", [(2, 0), (4, 1)])
+def test_lm_moe_owner_on_card_equals_cpu(cuda, shape, top_k, n_shared):
+    """``moe_apply_owner`` under a mesh on the card against the CPU: the
+    drops and the psum's bytes equal, the output within 1e-5 of max|y|
+    (float32), a rerun on the card bitwise."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import use_mesh_rules
+    p = init_params({"m": MoE.moe_specs(64, 96, 16, n_shared, 14)}, seed=2,
+                    device="cpu")["m"]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 64, 64)).astype(np.float32))
+    outs = {}
+    with use_mesh_rules(make_mesh(shape, ("data", "model"))):
+        for dev in ("cpu", cuda, cuda):
+            y, m = MoE.moe_apply(_tree_to(p, dev), x.to(dev), n_real=14,
+                                 top_k=top_k)
+            outs.setdefault(str(dev), []).append(
+                (y.cpu(), int(m["moe_dropped"]), m["moe_sent_bytes"]))
+    (cy, cd, cb), = outs["cpu"]
+    (gy, gd, gb), (gy2, _, _) = outs[str(cuda)]
+    assert cd == gd > 0 and cb == gb > 0
+    assert float((gy - cy).abs().max()) <= 1e-5 * float(cy.abs().max())
+    assert torch.equal(gy, gy2)
+
+
+@pytest.mark.parametrize("name", ["qwen3-32b"] + LM_OTHERS)
+def test_lm_mesh_train_step_of_each_family_on_card(cuda, name):
+    """One ``make_train_step(mesh=, rules=rules_for(train_4k),
+    param_shardings=)`` step of each family (smoke config, fp32
+    activations, a ``(1, 4)`` mesh: the MoE layers on the owner path, the
+    checkpointed layers recomputed under the same mesh context in the
+    backward) on the card against the same step on the CPU: the CPU
+    tests' bounds."""
+    from repro_torch import optim as O
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+    from repro_torch.models.params import iter_leaves, tree_shardings
+    cfg, cpu, card = _lm(name, "float32", cuda)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    rules = S.rules_for(SHAPES["train_4k"])
+    kw = dict(mesh=mesh, rules=rules, grad_accum=2,
+              param_shardings=tree_shardings(M.model_specs(cfg), mesh,
+                                             rules))
+    runs = {}
+    for dev, params in (("cpu", cpu), (cuda, card)):
+        opt = O.make_optimizer(cfg.optimizer, O.cosine_schedule(1e-2, 2, 10))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = _lm_batch(cfg, 4, 16, seed=4)
+        batch.pop("loss_mask")
+        runs[str(dev)] = S.make_train_step(cfg, opt, **kw)(state, batch)
+    (want, wm), (got, gm) = runs["cpu"], runs[str(cuda)]
+    for key in ("loss", "ce", "z_loss", "moe_aux", "grad_norm"):
+        if float(wm[key]) or float(gm[key]):
+            assert _rel(gm[key], wm[key]) < 1e-5, key
+    lr_t = float(O.cosine_schedule(1e-2, 2, 10)(1))
+    floor = 2 ** -5 * lr_t if cfg.grad_accum_dtype == "bfloat16" else 0.0
+    outliers = total = 0
+    for (path, a), (_, b) in zip(iter_leaves(got["params"]),
+                                 iter_leaves(want["params"])):
+        assert bool(torch.isfinite(a).all()), path
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 2.5 * lr_t, path
+        outliers += int((err > max(1e-5 * float(b.abs().max()),
+                                   floor)).sum())
+        total += err.numel()
+    assert outliers <= 1e-3 * total
+
+
+def test_lm_int8_and_mesh_sessions_on_card(cuda):
+    """``ServeSession`` with the int8 cache, and under a ``(1, 4)`` mesh
+    (the MoE's owner path), serve on the card with bitwise greedy reruns;
+    the int8 prefill's logits are bitwise the bf16 cache's."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models import model as M
+    for name, kw, mesh in (
+            ("qwen3-32b", {"kv_cache_dtype": "int8"}, None),
+            ("qwen2-moe-a2.7b", {}, make_mesh((1, 4), ("data", "model")))):
+        cfg, _, card = _lm(name, "bfloat16", cuda)
+        cfg = dataclasses.replace(cfg, **kw)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, (3, 40)).astype(np.int32)
+        sess = ServeSession(cfg, card, mesh=mesh, max_len=60)
+        a, b = sess.generate(prompts, 8), sess.generate(prompts, 8)
+        assert a.shape == (3, 8) and np.array_equal(a, b)
+    toks = torch.from_numpy(prompts).to(cuda)
+    cfg8 = dataclasses.replace(_lm("qwen3-32b", "bfloat16", cuda)[0],
+                               kv_cache_dtype="int8")
+    card = _lm("qwen3-32b", "bfloat16", cuda)[2]
+    assert torch.equal(M.prefill(cfg8, card, toks)[0],
+                       M.prefill(dataclasses.replace(
+                           cfg8, kv_cache_dtype="bfloat16"), card, toks)[0])

@@ -184,10 +184,22 @@ def test_moe_ssm_and_hybrid_specs_equal_the_reference(name):
 
 
 def test_int8_kv_cache_raises_naming_a15():
+    """The int8 KV cache, refused until ROADMAP A15 (3) (c) was ported,
+    now builds: its config's parameter specs equal the reference's leaf
+    for leaf (the cache adds no parameter), and its cache holds int8 K/V
+    and the float32 per-token ``k_scale`` / per-channel ``v_scale`` with
+    the reference's shapes and logical axes."""
     cfg = dataclasses.replace(treg.smoke_config("qwen3-32b"),
                               kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A15"):
-        TM.model_specs(cfg)
+    jcfg = dataclasses.replace(jreg.smoke_config("qwen3-32b"),
+                               kv_cache_dtype="int8")
+    _specs_equal(TM.model_specs(cfg), JM.model_specs(jcfg))
+    got = TM.cache_specs(cfg, 2, 32, 8)["p0"]
+    want = JM.cache_specs(jcfg, 2, 32, 8)["p0"]
+    assert set(got) == set(want) == {"k", "v", "k_scale", "v_scale"}
+    for leaf, (shape, axes, dtype) in want.items():
+        assert got[leaf][:2] == (shape, axes)
+        assert _dtype_name(got[leaf][2]) == _dtype_name(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -360,12 +360,31 @@ def test_exact_causal_forward_matches_reference(monkeypatch):
 
 
 def test_int8_kv_cache_raises_naming_a15():
+    """The int8 KV cache, refused until ROADMAP A15 (3) (c) was ported,
+    now runs: prefill's logits are bitwise the bf16 cache's (its
+    attention reads the unquantized K/V), its cache holds int8 codes and
+    float32 scales, and a decode step gives finite logits (held against
+    the reference in ``test_torch_lm_int8.py``)."""
     cfg = dataclasses.replace(t_smoke("qwen3-32b"), kv_cache_dtype="int8")
     params = TP.init_params(TM.model_specs(t_smoke("qwen3-32b")), seed=0,
                             device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A15"):
-        TM.prefill(cfg, params, toks)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 5)).astype(np.int32))
+    last, cache = TM.prefill(cfg, params, toks[:, :4])
+    want, _ = TM.prefill(t_smoke("qwen3-32b"), params, toks[:, :4])
+    assert torch.equal(last, want)
+    leaves = cache["p0"]
+    assert leaves["k"].dtype == leaves["v"].dtype == torch.int8
+    assert leaves["k_scale"].dtype == leaves["v_scale"].dtype == \
+        torch.float32
+    cache = {g: {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1))
+                 if k in ("k", "v") else
+                 torch.nn.functional.pad(c, (0, 0, 0, 1))
+                 if k == "k_scale" else c for k, c in grp.items()}
+             for g, grp in cache.items()}
+    step, _ = TM.decode_step(cfg, params, cache, toks[:, 4:], 4)
+    assert step.shape == (1, 1, cfg.vocab_padded)
+    assert torch.isfinite(step.float()).all()
 
 
 @pytest.mark.parametrize("name", MEMORY)

@@ -165,13 +165,22 @@ def test_combine_gives_the_same_bits_on_a_rerun():
 
 
 def test_impls_without_a_mesh_all_gather_and_owner_raises():
+    """Without a mesh every impl runs the gather path, as the
+    reference's; ``moe_apply_owner`` itself (ported with ROADMAP A15 (3)
+    (d2), held against the reference in ``test_torch_lm_mesh.py``) needs a
+    mesh context, and on a one-owner mesh gives the gather path's bits."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import use_mesh_rules
     _, tp = _params(8, 0, n_real=6, seed=5)
     _, tx = _x((1, 16, D), 5)
     outs = [TMoE.moe_apply(tp, tx, n_real=6, top_k=2, impl=i)[0]
             for i in ("auto", "owner", "gather")]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="mesh context"):
         TMoE.moe_apply_owner(tp, tx, n_real=6, top_k=2)
+    with use_mesh_rules(make_host_mesh()):
+        y, m = TMoE.moe_apply_owner(tp, tx, n_real=6, top_k=2)
+    assert torch.equal(y, outs[0]) and m["moe_sent_bytes"] == y.numel() * 4
     with pytest.raises(ValueError, match="unknown moe impl"):
         TMoE.moe_apply(tp, tx, n_real=6, top_k=2, impl="scatter")
 

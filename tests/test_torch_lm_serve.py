@@ -283,12 +283,29 @@ def test_main_serves_a_moe_or_ssm_smoke_config_on_the_cpu(name, capsys):
 
 
 def test_int8_kv_cache_raises_naming_a15():
+    """The int8 KV cache, refused until ROADMAP A15 (3) (c) was ported,
+    now serves: in range tokens, a greedy rerun with the same bits, the
+    ``serve.tokens`` count; and a session under a mesh (the MoE's owner
+    path) serves too (held against the reference session in
+    ``test_torch_lm_int8.py`` and ``test_torch_lm_mesh.py``)."""
+    from repro_torch.launch.mesh import make_mesh
     cfg = dataclasses.replace(t_smoke("qwen3-32b"), kv_cache_dtype="int8")
     params = TP.init_params(TM.model_specs(t_smoke("qwen3-32b")), seed=0,
                             device="cpu")
     sess = tserve.ServeSession(cfg, params, max_len=MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        sess.generate(_prompts(cfg), 2)
+    with tcnt.use_registry() as reg:
+        out = sess.generate(_prompts(cfg), NTOK)
+    assert out.shape == (B, NTOK) and ((0 <= out) & (out < cfg.vocab)).all()
+    assert reg.get("serve.tokens") == B * NTOK
+    np.testing.assert_array_equal(sess.generate(_prompts(cfg), NTOK), out)
+    moe = t_smoke("qwen2-moe-a2.7b")
+    mp = TP.init_params(TM.model_specs(moe), seed=0, device="cpu")
+    want = tserve.ServeSession(moe, mp, max_len=MAX_LEN, device="cpu"
+                               ).generate(_prompts(moe), 4)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    got = tserve.ServeSession(moe, mp, mesh=mesh, max_len=MAX_LEN,
+                              device="cpu").generate(_prompts(moe), 4)
+    assert got.shape == want.shape == (B, 4)
 
 
 def test_session_runs_on_cuda_unless_asked_for_the_cpu():

@@ -476,12 +476,35 @@ def test_train_step_fits_one_batch():
 
 
 def test_make_train_step_refuses_a_mesh():
+    """``make_train_step``'s mesh arguments, refused until ROADMAP A15 (3)
+    (d1) was ported, now run: a step under the host mesh, under the
+    default rules given (``{}`` is the reference's default too) and with
+    the parameters' own ``param_shardings`` equals the plain step; a
+    ``param_shardings`` tree that is not the parameters' is refused
+    (``ValueError``). The step under a ``(1, 4)`` mesh is held in
+    ``test_torch_lm_mesh.py``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import tree_shardings
     cfg = t_smoke("qwen3-32b")
     opt = TO.make_optimizer("adamw")
-    for kw in ({"mesh": object()}, {"rules": {}},
-               {"param_shardings": {}}):
-        with pytest.raises(NotImplementedError, match="A15"):
-            TS.make_train_step(cfg, opt, **kw)
+    mesh = make_host_mesh()
+    batch = _batch(cfg, 2, 16, seed=3)
+    want = None
+    for kw in ({}, {"mesh": mesh}, {"rules": {}}, {
+            "mesh": mesh, "param_shardings": tree_shardings(
+                TM.model_specs(cfg), mesh)}):
+        params = init_params(TM.model_specs(cfg), seed=0, device="cpu")
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        state, m = TS.make_train_step(cfg, opt, **kw)(state, batch)
+        got = (float(m["loss"]), float(m["grad_norm"]),
+               [p.clone() for _, p in iter_leaves(state["params"])])
+        if want is None:
+            want = got
+        assert got[:2] == want[:2]
+        assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+    with pytest.raises(ValueError, match="param_shardings"):
+        TS.make_train_step(cfg, opt, mesh=mesh, param_shardings={})
 
 
 def test_lm_train_state_from_reference_keeps_shapes_and_dtypes():
