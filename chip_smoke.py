@@ -136,6 +136,14 @@ Phases (each prints its own lines; any failure exits non-zero):
       (its resume demo, 200 steps) (their ``main()``) on the card with
       their asserts; the fits and the Dynasor and all-reduce baseline
       times (CUDA events, 8 workers on one card);
+  20b. ``[dryrun]`` (ROADMAP A15 (3) (d3)): ``repro_torch.launch.dryrun``
+      on meta tensors, no card memory (``memory_allocated`` equal before
+      and after): predicted FLOPs, bytes, peaks and roofline bounds of
+      ``[serve]``'s and ``[train]``'s steps on the host mesh, printed
+      beside what those phases measure once they have run; and the
+      production 16 x 16 grid's ``decode_32k`` / ``long_500k`` cells in
+      ``DRYRUN_PROCESSES`` processes, every runnable one ``ok`` and every
+      skip with the reference's reason;
   21. ``[serve]`` (ROADMAP A15, slice 1): the LM serving path at full
       width: phi3-mini-3.8b with every published field (32 layers,
       d_model 3072, 32 heads of 96, d_ff 8192, vocab 32064; fp32
@@ -281,10 +289,17 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) FLOP/s, at the full 700 W power limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+
+
+def hw_peak(key: str) -> float:
+    """One of the H100 SXM's published peaks (NVIDIA data sheet, at the
+    full 700 W power limit) in ``repro_torch.launch.mesh.HW``: ``hbm_bw``
+    (HBM3 bytes/s), ``peak_flops_bf16`` (dense bf16 tensor-core FLOP/s),
+    ``peak_flops_fp32`` (fp32 without tensor cores)."""
+    from repro_torch.launch.mesh import HW
+    return HW[key]
+
+
 # The card's L2 read rate (bytes/s), measured by phase_build.
 L2_BYTES_PER_S = None
 # Host ms of each sweep of [main]'s static auto run (phase_main).
@@ -314,8 +329,6 @@ SERVE_TOL_PREFILL, SERVE_TOL_DECODE = 2e-2, 3e-2
 # [serve-ssm] at fp32 activations, where decode and forward run every
 # operation in one dtype: max abs err / max|logits| at most this.
 SERVE_TOL_FP32 = 1e-4
-# Published H100 SXM dense bf16 tensor-core peak (FLOP/s), at 700 W.
-BF16_FLOPS_PER_S = 989e12
 # [serve-moe] / [serve-ssm]: the MoE and SSM families' serving paths at
 # their published widths and full depth, with [serve]'s traffic and checks.
 SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
@@ -464,15 +477,15 @@ def kernel_bound_ms(operands, *, rows_cap: int, tile_rows: int,
     nbytes += sum(s.numel() * s.element_size() for s in scheds)
     nbytes += (rows_cap // tile_rows + 1) * 4 + rows_cap * rank * 4
     flops = nnz * rank * (k + 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / hw_peak("hbm_bw") * 1e3
+    t_ops = flops / hw_peak("peak_flops_fp32") * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     """max(bytes / HBM rate, flops / fp32 peak) in ms, and which bounds."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / hw_peak("hbm_bw") * 1e3
+    t_ops = flops / hw_peak("peak_flops_fp32") * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -696,7 +709,7 @@ def phase_l2_rate(dev, gpu: str):
     L2_BYTES_PER_S = best
     log(f"[gpu] L2 read rate {best / 1e12:.3f} TB/s (16 MiB buffer, "
         f"{passes} passes per launch, best of 3 grids; HBM peak "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)  [{gpu}]")
+        f"{hw_peak('hbm_bw') / 1e12:.2f} TB/s)  [{gpu}]")
 
 
 def random_stream(rng, k: int, rank: int, cap: int, rows_cap: int, dev):
@@ -3122,6 +3135,136 @@ def phase_examples(gpu: str) -> dict:
     return launched
 
 
+# [dryrun] (d): the production grid's cells run here, each in its own
+# process, DRYRUN_PROCESSES at once. The whole 16 x 16 grid takes 2 h of
+# CPU (PERF.md §5: a prefill_32k or dense train_4k cell 0.5-4 min, an
+# MoE train_4k cell 18-44 min), so the phase runs the cells that take
+# seconds: every decode_32k and long_500k cell (the skipped ones
+# included, whose reasons are gated), within ~120 s.
+DRYRUN_PROCESSES = 8
+DRYRUN_GRID_SHAPES = ("decode_32k", "long_500k")
+
+
+def dryrun_predict(cfg, shape, grad_accum=None) -> dict:
+    """The dry-run's prediction for ``cfg`` at ``shape`` on the host mesh
+    (one card): ``launch.dryrun.count_step`` (the step built as the
+    dry-run builds it, run on meta tensors under ``launch.flops``), its
+    counts, the bytes of its arguments, the peak of the bytes it creates,
+    and ``launch.roofline``'s terms on the H100's published constants."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import summarize_cell
+    counted = D.count_step(cfg, shape, make_host_mesh(),
+                           grad_accum=grad_accum)
+    costs, arg_bytes = counted["costs"], counted["argument_bytes"]
+    terms = summarize_cell(costs, {}, counted["workers"])["roofline"]
+    return dict(costs, argument_bytes=arg_bytes,
+                predicted_peak_bytes=arg_bytes + costs["peak_bytes"],
+                bound_ms=terms["bound_s"] * 1e3,
+                dominant=terms["dominant"])
+
+
+def phase_dryrun(gpu: str) -> dict:
+    """The dry-run tools (``repro_torch.launch.dryrun``, ``flops``,
+    ``roofline``) on the card's host: (a) predictions for [serve]'s and
+    [train]'s steps on the host mesh (1, 1), the same ``ShapeSpec``-level
+    inputs the phases take; (b) nothing is allocated on the card while
+    they run; (d) the production 16 x 16 grid's cells of
+    DRYRUN_GRID_SHAPES, every runnable one ``ok`` and every skipped one
+    with ``configs.skip_reason``'s reason. (c), the predictions against
+    what [serve] and [train] measure, is :func:`dryrun_vs_measured`."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, skip_reason
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import HW
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    serve_cfg, train_cfg = get_config(SERVE_ARCH), get_config(TRAIN_ARCH)
+    b, lp, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    t0 = time.perf_counter()
+    pred = {
+        "prefill": dryrun_predict(serve_cfg, ShapeSpec(
+            "serve_prefill", lp, b, "prefill")),
+        # A decode step over the session's cache of lp + n + 1 slots.
+        "decode": dryrun_predict(serve_cfg, ShapeSpec(
+            "serve_decode", lp + n + 1, b, "decode")),
+        "train": dryrun_predict(train_cfg, ShapeSpec(
+            "train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            grad_accum=TRAIN_ACCUM),
+    }
+    pred_s = time.perf_counter() - t0
+    for what, p in pred.items():
+        log(f"[dryrun] {what} predicted on the host mesh (1, 1): FLOPs "
+            f"{p['flops']} (bf16 {p['flops_bf16']}, fp32 "
+            f"{p['flops_fp32']}), modeled bytes {p['hbm_bytes_model']} "
+            f"(products {p['dot_bytes']}, gathers {p['gather_bytes']}); "
+            f"arguments {p['argument_bytes']} B + peak {p['peak_bytes']} B "
+            f"= {p['predicted_peak_bytes'] / 1e9:.3f} GB; roofline bound "
+            f"{p['bound_ms']:.3f} ms ({p['dominant']}, H100 data sheet)  "
+            f"[{gpu}]")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"[dryrun] predictions took {pred_s:.1f} s; device memory "
+        f"allocated before {before} B, after {after} B")
+    require(after == before, f"[dryrun] the dry-runs allocated "
+            f"{after - before} B on the card")
+
+    t0 = time.perf_counter()
+    jobs = [(arch, shape, False, None, None, HW, None)
+            for arch in ARCHS for shape in DRYRUN_GRID_SHAPES]
+    cells = {}
+    for text, info in D.run_cells(jobs, DRYRUN_PROCESSES):
+        log(f"{text}  [{gpu}]")
+        cells[(info["arch"], info["shape"])] = info
+    grid_s = time.perf_counter() - t0
+    bad = []
+    for (arch, shape), info in sorted(cells.items()):
+        reason = skip_reason(get_config(arch), SHAPES[shape])
+        want = "skipped" if reason else "ok"
+        if info["status"] != want or info.get("reason") != reason:
+            bad.append((arch, shape, info["status"]))
+    n_ok = sum(i["status"] == "ok" for i in cells.values())
+    log(f"[dryrun] 16x16 grid, shapes {DRYRUN_GRID_SHAPES}: {n_ok} ok, "
+        f"{len(cells) - n_ok} skipped with the reference's reasons, in "
+        f"{grid_s:.1f} s ({DRYRUN_PROCESSES} processes)")
+    require(len(cells) == len(jobs) and not bad,
+            f"[dryrun] grid cells not as expected: {bad}")
+    require(torch.cuda.memory_allocated() == before,
+            "[dryrun] the grid allocated on the card")
+    return {"predictions": pred, "predict_s": pred_s, "grid_s": grid_s,
+            "grid": {f"{a}__{s}": {k: i.get(k) for k in (
+                "status", "reason", "flops_per_chip", "roofline",
+                "memory_analysis", "analytic_hbm_gb", "analytic_fits",
+                "cell_s")} for (a, s), i in sorted(cells.items())}}
+
+
+def dryrun_vs_measured(dry: dict, serve: dict, train: dict,
+                       gpu: str) -> dict:
+    """(c) of [dryrun]: [serve]'s and [train]'s measured peaks and times
+    beside the dry-run's predictions, as ratios (findings, not gates).
+    Serving's peak is held against the larger of the prefill's and the
+    decode step's predicted peaks."""
+    p = dry["predictions"]
+    rows = {
+        "serve_peak": (serve["peak_bytes"], max(
+            p["prefill"]["predicted_peak_bytes"],
+            p["decode"]["predicted_peak_bytes"])),
+        "prefill_ms": (serve["prefill_ms"], p["prefill"]["bound_ms"]),
+        "decode_step_ms": (serve["decode_step_ms"],
+                           p["decode"]["bound_ms"]),
+        "train_peak": (train["peak_bytes"],
+                       p["train"]["predicted_peak_bytes"]),
+        "train_step_ms": (train["step_ms"], p["train"]["bound_ms"]),
+    }
+    out = {}
+    for what, (got, want) in rows.items():
+        out[what] = {"measured": got, "predicted": want,
+                     "ratio": got / want if want else None}
+        log(f"[dryrun] {what}: measured {got:.6g}, predicted {want:.6g}, "
+            f"measured / predicted {got / want:.4f}  [{gpu}]")
+    return out
+
+
 def lm_forward_work(cfg, batch: int, seq: int, mem_len: int = 0, *,
                     unembed_rows: int | None = None) -> dict:
     """What one forward of ``batch`` x ``seq`` tokens needs, counting the
@@ -3142,7 +3285,21 @@ def lm_forward_work(cfg, batch: int, seq: int, mem_len: int = 0, *,
     the memory needs (encoder, frontend projections, the cross-attention
     K/V projections); ``kv_bytes`` / ``cross_bytes`` / ``ssm_bytes``:
     per cache slot of K/V, the whole cross-attention caches and the SSM
-    state, bf16 / fp32, as a decode step reads them."""
+    state, bf16 / fp32, as a decode step reads them.
+
+    ``mm_recompute`` / ``fp32_recompute``: what a train step's backward
+    recomputes under remat. ``model.forward`` checkpoints each repeat
+    group of layers (non-reentrant), and each layer inside a group of more
+    than two; the encoder's groups, not their layers. A checkpoint's
+    recompute stops once every tensor its backward saved is back, before
+    the last product of its function (the down projection of the MLP or
+    of the shared experts, mamba's ``out_proj``), whose output nothing
+    saves; an MoE layer without shared experts ends in the combine, which
+    saves its routed products' output, so it recomputes whole. So a group
+    recomputes its layers but that last product, and a nested group its
+    layers but the last in full (their own checkpoints run whole inside
+    it) and then each layer but its last product. The unembedding and the
+    frontend projections lie outside every checkpoint."""
     d, tok, mtok = cfg.d_model, batch * seq, batch * mem_len
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.d_state
     h, p = cfg.ssm_heads, cfg.ssm_headdim
@@ -3152,9 +3309,13 @@ def lm_forward_work(cfg, batch: int, seq: int, mem_len: int = 0, *,
     rows = tok if unembed_rows is None else unembed_rows
     out = {"mm": 2 * rows * cfg.vocab_padded * d, "fp32": 0,
            "weights": cfg.vocab_padded * d, "enc_weights": 0,
-           "kv_bytes": 0, "cross_bytes": 0, "ssm_bytes": 0}
+           "kv_bytes": 0, "cross_bytes": 0, "ssm_bytes": 0,
+           "mm_recompute": 0, "fp32_recompute": 0}
 
     def layer(kind, tokens, length, mode):
+        """Adds one layer's work; returns its ``(mm, fp32, last)``, with
+        ``last`` the FLOPs of its last product."""
+        mm0, fp0 = out["mm"], out["fp32"]
         mixer, _, ffn = kind.partition("+")
         if mixer == "mamba":
             w = d * (2 * di + 2 * g * n + h) + di * d
@@ -3186,15 +3347,25 @@ def lm_forward_work(cfg, batch: int, seq: int, mem_len: int = 0, *,
             out["mm"] += 2 * tokens * (cfg.top_k * 3 * d * f + shared)
             out["fp32"] += 2 * tokens * d * cfg.n_experts_padded
             out[mode] += shared
+        last = {"mlp": cfg.d_ff, "moe": cfg.n_shared_experts * f}.get(
+            ffn, di)
+        return out["mm"] - mm0, out["fp32"] - fp0, 2 * tokens * last * d
 
-    for kind in list(cfg.pattern) * cfg.n_repeats:
-        layer(kind, tok, seq, "weights")
+    def groups(pattern, reps, tokens, length, mode, nested):
+        for _ in range(reps):
+            per = [layer(kind, tokens, length, mode) for kind in pattern]
+            cut = [(mm - last, fp32) for mm, fp32, last in per]
+            runs = per[:-1] + (cut if nested else cut[-1:])
+            out["mm_recompute"] += sum(r[0] for r in runs)
+            out["fp32_recompute"] += sum(r[1] for r in runs)
+
+    groups(cfg.pattern, cfg.n_repeats, tok, seq, "weights",
+           nested=len(cfg.pattern) > 2)
     if cfg.family == "encdec":
         out["mm"] += 2 * mtok * (cfg.d_frontend or d) * d
         out["enc_weights"] += (cfg.d_frontend or d) * d
-        reps = cfg.n_enc_layers // len(cfg.enc_pattern)
-        for kind in list(cfg.enc_pattern) * reps:
-            layer(kind, mtok, mem_len, "enc_weights")
+        groups(cfg.enc_pattern, cfg.n_enc_layers // len(cfg.enc_pattern),
+               mtok, mem_len, "enc_weights", nested=False)
     if cfg.family == "vlm":
         out["mm"] += 2 * mtok * (cfg.d_frontend or d) * d
         out["enc_weights"] += (cfg.d_frontend or d) * d
@@ -3224,11 +3395,11 @@ def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int, *,
     router = 4 * cfg.d_model * cfg.n_experts_padded
     n_moe = sum("+moe" in k for k in cfg.pattern) * cfg.n_repeats
     fixed = work["weights"] * pb + n_moe * router
-    t_ops = (work["mm"] / BF16_FLOPS_PER_S
-             + work["fp32"] / FP32_FLOPS_PER_S) * 1e3
+    t_ops = (work["mm"] / hw_peak("peak_flops_bf16")
+             + work["fp32"] / hw_peak("peak_flops_fp32")) * 1e3
     pre_bytes = fixed + work["enc_weights"] * pb \
         + expert * sum(routed_prefill)
-    t_bytes = pre_bytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = pre_bytes / hw_peak("hbm_bw") * 1e3
     dec_bytes = fixed + expert * sum(routed_decode) \
         + work["kv_bytes"] * cache_len + work["cross_bytes"] \
         + work["ssm_bytes"]
@@ -3238,7 +3409,7 @@ def serve_bound_ms(cfg, batch: int, prompt: int, cache_len: int, *,
             "prefill_bf16_flops": work["mm"],
             "prefill_fp32_flops": work["fp32"],
             "prefill_bytes": pre_bytes, "decode_step_bytes": dec_bytes,
-            "decode_step_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3}
+            "decode_step_bound_ms": dec_bytes / hw_peak("hbm_bw") * 1e3}
 
 
 class MoeProbe:
@@ -3604,7 +3775,7 @@ def phase_serve(gpu: str, arch: str = SERVE_ARCH, tag: str = "[serve]",
                             routed_prefill=check["routed_prefill"],
                             routed_decode=check["routed_decode"],
                             mem_len=mem_len)
-    cast_bound = cast_bytes / HBM_BYTES_PER_S * 1e3
+    cast_bound = cast_bytes / hw_peak("hbm_bw") * 1e3
     log(f"{tag} decode step {step_ms:.3f} ms (CUDA events, 5 steps); bound "
         f"{bounds['decode_step_bound_ms']:.3f} ms "
         f"({bounds['decode_step_bytes']} B: the weight matrices a step "
@@ -4155,10 +4326,11 @@ def train_bound_ms(cfg, tokens: int, seq: int, param_bytes: int,
     ``serve_bound_ms``'s method (:func:`lm_forward_work` of ``tokens`` in
     sequences of ``seq``, the memory ``mem_len`` long). Forward +
     backward: the weight products (2 FLOP per weight and token forward, 4
-    backward, 2 more for the forward recomputed under remat) at the bf16
-    tensor-core peak, and the fp32 products (attention's squares computed
-    whole, as the recurrence does, the router, the SSD: forward,
-    recompute, and a backward of twice the forward) at the fp32 peak.
+    backward, and under remat what the backward recomputes,
+    ``lm_forward_work``'s ``mm_recompute``) at the bf16 tensor-core peak,
+    and the fp32 products (attention's squares computed whole, as the
+    recurrence does, the router, the SSD: forward, ``fp32_recompute``,
+    and a backward of twice the forward) at the fp32 peak.
     Clip: the gradients read for their norm, then read and written once
     scaled, at the HBM rate. Optimizer (AdamW): its bytes at the HBM rate
     (parameters, gradients and both moments read once, parameters and
@@ -4166,14 +4338,14 @@ def train_bound_ms(cfg, tokens: int, seq: int, param_bytes: int,
     counts the step without the recompute: 6 FLOP per weight and token,
     and the fp32 products' forward and backward."""
     work = lm_forward_work(cfg, tokens // seq, seq, mem_len)
-    mm_flops = work["mm"] * (4 if remat else 3)
-    fp32_flops = work["fp32"] * (4 if remat else 3)
-    fwd_bwd = (mm_flops / BF16_FLOPS_PER_S
-               + fp32_flops / FP32_FLOPS_PER_S) * 1e3
+    mm_flops = 3 * work["mm"] + remat * work["mm_recompute"]
+    fp32_flops = 3 * work["fp32"] + remat * work["fp32_recompute"]
+    fwd_bwd = (mm_flops / hw_peak("peak_flops_bf16")
+               + fp32_flops / hw_peak("peak_flops_fp32")) * 1e3
     clip_bytes = 3 * param_bytes              # g read twice, written once
-    clip = clip_bytes / HBM_BYTES_PER_S * 1e3
+    clip = clip_bytes / hw_peak("hbm_bw") * 1e3
     opt_bytes = 7 * param_bytes               # p, g, m, v read; p, m, v
-    opt = opt_bytes / HBM_BYTES_PER_S * 1e3
+    opt = opt_bytes / hw_peak("hbm_bw") * 1e3
     return {"mm_flops": mm_flops, "fp32_flops": fp32_flops,
             "fwd_bwd_bound_ms": fwd_bwd, "clip_bytes": clip_bytes,
             "clip_bound_ms": clip, "opt_bytes": opt_bytes,
@@ -4733,7 +4905,8 @@ def phase_train(gpu: str, arch: str = TRAIN_ARCH, tag: str = "[train]",
     step_ms = float(np.mean([r["step_ms"] for r in steady]))
     mem_len = {"encdec": l, "vlm": cfg.n_img_tokens}.get(cfg.family, 0)
     bound = train_bound_ms(cfg, b * l, l, param_bytes, mem_len=mem_len)
-    mfu = bound["model_flops"] / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    mfu = (bound["model_flops"] / (step_ms / 1e3)
+           / hw_peak("peak_flops_bf16"))
     log(f"{tag} steady step {step_ms:.3f} ms (mean of steps 1..{n - 1}),"
         f" {b * l / (step_ms / 1e3):.1f} tokens/s; bound "
         f"{bound['step_bound_ms']:.3f} ms (forward+backward "
@@ -4896,6 +5069,8 @@ def main() -> int:
     cli_launches = phase_cli()
     examples_launches = phase_examples(gpu)
     lap("[cli] [examples]")
+    dry = phase_dryrun(gpu)
+    lap("[dryrun]")
     serve = phase_serve(gpu, keep_params=True)
     serve_int8 = phase_serve_int8(gpu, serve.pop("params"))
     lap("[serve] [serve-int8]")
@@ -4909,6 +5084,7 @@ def main() -> int:
     train["checks_2_layers"] = train_checks_2_layers(TRAIN_ARCH, "[train]")
     train.update(train_resume_check("[train]"))
     lap("[train]")
+    dry["measured"] = dryrun_vs_measured(dry, serve, train, gpu)
     lm = phase_other_families(gpu)
     kernels = []
     for name, (launches, rows) in main_rows.items():
@@ -4958,6 +5134,7 @@ def main() -> int:
     print(json.dumps({"moe_owner": moe_owner}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"dryrun": dry}))
     for key, result in lm.items():
         print(json.dumps({key: result}))
     print(json.dumps({"kernels": kernels}))

@@ -18,17 +18,22 @@ one interface; per-worker tensors carry a leading axis over the workers
   ``all_to_all_single``, ``all_gather_into_tensor`` and ``all_reduce``.
 
 Both count the bytes handed to each collective (:attr:`sent_bytes`; an
-all_to_all's self-buckets included, a psum's inputs), the traffic the
-paper's comparison (Fig. 9) is about.
+all_to_all's self-buckets included, a psum's inputs) and the calls
+(:attr:`sent_counts`), the traffic the paper's comparison (Fig. 9) is
+about. Within :func:`tally_into` every collective of any workers object
+is also counted into one more: the dry-run's tally of a whole step, whose
+MoE layers make their own workers (``models.moe.moe_apply_owner``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as tdist
 
 from ..runtime.device import resolve_device
 
-__all__ = ["LocalWorkers", "GroupWorkers"]
+__all__ = ["LocalWorkers", "GroupWorkers", "tally_into"]
 
 # torch 2.13 renamed all_gather_into_tensor (same arguments) and warns on
 # the old name; earlier releases have only the old one.
@@ -45,13 +50,17 @@ class _Workers:
 
     def __init__(self):
         self.sent_bytes: dict[str, int] = {}
+        self.sent_counts: dict[str, int] = {}
 
     def _count(self, op: str, *xs) -> None:
         n = sum(x.numel() * x.element_size() for x in xs)
-        self.sent_bytes[op] = self.sent_bytes.get(op, 0) + n
+        for w in [self] + [t for t in _TALLIES if t is not self]:
+            w.sent_bytes[op] = w.sent_bytes.get(op, 0) + n
+            w.sent_counts[op] = w.sent_counts.get(op, 0) + 1
 
     def reset_bytes(self) -> None:
         self.sent_bytes = {}
+        self.sent_counts = {}
 
     @property
     def spread(self) -> bool:
@@ -64,6 +73,21 @@ class _Workers:
     def broadcast_int(self, value: int) -> int:
         """Rank 0's ``value`` on every process (one process: ``value``)."""
         return value
+
+
+_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def tally_into(workers):
+    """Within the block, every collective any workers object runs is also
+    counted in ``workers``' ``sent_bytes`` / ``sent_counts`` (from any
+    thread: a checkpoint's recompute may run in autograd's)."""
+    _TALLIES.append(workers)
+    try:
+        yield workers
+    finally:
+        _TALLIES.remove(workers)
 
 
 class LocalWorkers(_Workers):

@@ -14,10 +14,20 @@ the reference's entry for entry:
 * ``make_host_mesh()``: the devices this process runs on along
   ``"data"``: ``(1, 1)``, one card.
 
-:data:`HW` holds the card's published constants for the roofline terms
-of the dry-run tools (ROADMAP A15 (3) (d3)); nothing reads them yet.
-What the card reports about itself (its name, its memory) is read at run
-time by :func:`device_hw`.
+:data:`HW` holds the card's published constants, read by the dry-run
+tools: ``launch.roofline.roofline_terms`` (its compute, memory and
+collective terms) and ``launch.dryrun`` (whether a cell fits the card's
+``hbm_bytes``). They are the data sheet's, so a dry-run gives the same
+numbers on any host. What a card reports about itself (its name, its
+memory) is read at run time by :func:`device_hw` (``python -m
+repro_torch.launch.dryrun --device cuda``).
+
+The collective term prices every collective byte at ``nvlink_bw``, the
+rate of one NVLink domain (the GPUs of one NVLink 4 switch fabric, 8 in
+an HGX H100 node). The production meshes (256 and 512 devices) span many
+domains: off one domain a byte crosses the network (InfiniBand NDR, 400
+Gb/s = 50 GB/s per GPU), at about a ninth of that rate, so the term is a
+lower bound there.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ HW = {
     "peak_flops_bf16": 989e12,      # FLOP/s, dense bf16 tensor cores
     "peak_flops_fp32": 67e12,       # FLOP/s, fp32 without tensor cores
     "hbm_bw": 3.35e12,              # bytes/s, HBM3
+    "hbm_bytes": 80e9,              # bytes, HBM3 ("80GB")
     "nvlink_bw": 450e9,             # bytes/s each way (NVLink 4, 18 links)
 }
 

@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMSNorm, RoPE, SwiGLU MLP.
+"""Shared layer primitives: RMSNorm, RoPE, SwiGLU MLP, and the port's
+``einsum``.
 
 Port of ``repro/models/layers.py``. RMSNorm and RoPE compute in float32
 and cast back to the input's dtype; SwiGLU casts each weight to the
@@ -7,6 +8,9 @@ makes that cast a copy on every call (XLA may fuse it into the product).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
@@ -14,8 +18,42 @@ from .params import ParamSpec
 
 __all__ = [
     "rms_norm", "rope_freqs", "apply_rope", "swiglu", "mlp_specs", "mlp_apply",
-    "norm_spec",
+    "norm_spec", "einsum", "watch_einsums", "einsum_watchers",
 ]
+
+_EINSUM_WATCHERS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_einsum_watchers", default=())
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum``, seen by the watchers of :func:`watch_einsums`.
+
+    An einsum is composite: below autograd only its ``bmm`` / ``mul``
+    remain, and a pair with nothing summed (an outer product) becomes a
+    ``mul`` that a product counter cannot tell from elementwise work. The
+    cost counter (``launch.flops.CostMode``) watches this function to count
+    such pairs as the reference's ``dot_general`` does."""
+    out = torch.einsum(equation, *operands)
+    for watch in _EINSUM_WATCHERS.get():
+        watch(equation, operands, out)
+    return out
+
+
+@contextlib.contextmanager
+def watch_einsums(watchers):
+    """Within the block, each of ``watchers`` (callables ``(equation,
+    operands, out)``) sees every :func:`einsum`; the empty tuple clears
+    them."""
+    token = _EINSUM_WATCHERS.set(tuple(watchers))
+    try:
+        yield
+    finally:
+        _EINSUM_WATCHERS.reset(token)
+
+
+def einsum_watchers() -> tuple:
+    """The active watchers of :func:`einsum`."""
+    return _EINSUM_WATCHERS.get()
 
 
 def norm_spec(d: int, dtype=torch.float32) -> ParamSpec:

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from . import blocks as blk
-from .layers import norm_spec, rms_norm
+from .layers import einsum_watchers, norm_spec, rms_norm, watch_einsums
 from .params import ParamSpec, torch_dtype
 from .sharding import active_mesh_rules, shard, use_mesh_rules
 
@@ -158,11 +158,14 @@ def _checkpointed(cfg, fn):
     def run(*args):
         # The backward's recompute runs where autograd runs it (on CUDA,
         # the engine's device thread), outside the caller's mesh context:
-        # it re-enters the forward's, so both take the same MoE path.
+        # it re-enters the forward's, so both take the same MoE path, and
+        # the forward's einsum watchers, so a cost counter sees the
+        # recompute's einsums.
         mesh_rules = active_mesh_rules() or (None, None)
+        watchers = einsum_watchers()
 
         def in_context(*a):
-            with use_mesh_rules(*mesh_rules):
+            with use_mesh_rules(*mesh_rules), watch_einsums(watchers):
                 return fn(*a)
 
         return checkpoint(in_context, *args, use_reentrant=False,

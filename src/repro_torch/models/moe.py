@@ -86,9 +86,14 @@ def router_assign(xf, router_w, n_real: int, top_k: int):
     probs_full = torch.softmax(logits, dim=-1)
     probs, ids = torch.topk(probs_full, top_k, dim=-1)
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance aux loss over real experts.
-    density = torch.bincount(ids.reshape(-1), minlength=E_pad).float() / (
-        T * top_k)
+    # Switch-style load-balance aux loss over real experts. The counts
+    # are a scatter of ones into E_pad zeros (exact integers, so any add
+    # order gives them): bincount's would do, but it has no meta kernel,
+    # and the dry-run (launch.dryrun) runs this on meta tensors.
+    flat = ids.reshape(-1)
+    counts = torch.zeros(E_pad, dtype=flat.dtype, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    density = counts.float() / (T * top_k)
     mean_prob = probs_full.mean(0)
     aux = n_real * torch.sum(density * mean_prob)
     return probs, ids.to(torch.int32), aux

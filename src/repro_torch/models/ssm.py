@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import rms_norm
+from .layers import einsum, rms_norm
 from .params import ParamSpec
 from .sharding import shard
 
@@ -101,13 +101,13 @@ def _ssd(xdt, dA, B, C, chunk: int):
     seg = A_cs[..., :, None] - A_cs[..., None, :]             # (b,h,nc,c,c)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xdt.device))
     L = torch.exp(torch.where(tri, seg, float("-inf")))
-    CB = torch.einsum("bzlhn,bzshn->bhzls", Cc, Bc)
+    CB = einsum("bzlhn,bzshn->bhzls", Cc, Bc)
     M = (CB * L).to(xdt.dtype)
-    y = torch.einsum("bhzls,bzshp->bzlhp", M, xc)
+    y = einsum("bhzls,bzshp->bzlhp", M, xc)
 
     # 2. per-chunk end states
     decay_to_end = torch.exp(A_cs[..., -1:] - A_cs)           # (b,h,nc,c)
-    states = torch.einsum("bzlhn,bhzl,bzlhp->bzhpn", Bc, decay_to_end, xc)
+    states = einsum("bzlhn,bhzl,bzlhp->bzhpn", Bc, decay_to_end, xc)
 
     # 3. inter-chunk recurrence (the reference's scan over chunks)
     chunk_decay = torch.exp(A_cs[..., -1]).permute(0, 2, 1)   # (b,nc,h)
@@ -120,8 +120,8 @@ def _ssd(xdt, dA, B, C, chunk: int):
 
     # 4. state → output within a chunk
     decay_from_start = torch.exp(A_cs).permute(0, 2, 3, 1)    # (b,nc,c,h)
-    y_off = torch.einsum("bzlhn,bzhpn,bzlh->bzlhp", Cc, S_in.float(),
-                         decay_from_start)
+    y_off = einsum("bzlhn,bzhpn,bzlh->bzlhp", Cc, S_in.float(),
+                   decay_from_start)
     return (y + y_off).reshape(b, l, h, p), S
 
 
@@ -211,16 +211,16 @@ def mamba_decode(params, x, cache, cfg):
     # conv over (state ++ new), promoted to float32 as in the reference
     window = torch.cat([cache["conv"], xBC.float()], dim=1)  # (b, dc, ch)
     w = params["conv_w"].to(x.dtype).float()
-    conv_out = torch.einsum("btc,tc->bc", window, w) \
+    conv_out = einsum("btc,tc->bc", window, w) \
         + params["conv_b"].to(x.dtype).float()
     xs, B, C = _split_xbc(F.silu(conv_out)[:, None, :], cfg)  # (b,1,h,·)
     dt = _dt(params, dt)[:, 0]                                # (b,h)
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt * A[None, :])                           # (b,h)
     xdt = xs[:, 0] * dt[..., None]                            # (b,h,p)
-    S = cache["ssd"] * dA[..., None, None] + torch.einsum(
+    S = cache["ssd"] * dA[..., None, None] + einsum(
         "bhp,bhn->bhpn", xdt, B[:, 0])
-    y = torch.einsum("bhn,bhpn->bhp", C[:, 0], S)
+    y = einsum("bhn,bhpn->bhp", C[:, 0], S)
     y = y + params["D"][None, :, None] * xs[:, 0]
     out = _finish(params, y[:, None].to(x.dtype), z, cfg)
     return out, {"conv": window[:, 1:], "ssd": S}

@@ -13,13 +13,14 @@ Design rules, as in the reference:
 * **Closed namespace.** Every counter's base name must be a member of
   :data:`NAMESPACES`; an undocumented counter is a ``ValueError`` at the
   emit site. The port's namespace holds what it emits: the reference's
-  names, less those of layers it does not have yet. Left out, each with
-  what brings it: ``execution.*`` and ``resilience.interpret_fallbacks``
-  (the port has no interpreter to resolve or fall back to; a CUDA tensor
-  runs the kernel, a CPU tensor its plain version) and ``dryrun.*`` (the
-  LM multi-pod dry run ``repro/launch/dryrun.py``: LM scaffolding,
-  ROADMAP A15, slice 3). ``serve.*`` is emitted by
-  ``launch.serve.ServeSession.generate``, as in the reference.
+  names, less those of a layer it has no counterpart of: ``execution.*``
+  and ``resilience.interpret_fallbacks`` (the port has no interpreter to
+  resolve or fall back to; a CUDA tensor runs the kernel, a CPU tensor
+  its plain version). ``serve.*`` is
+  emitted by ``launch.serve.ServeSession.generate``, as in the
+  reference; ``dryrun.lower_s`` / ``dryrun.compile_s`` by
+  ``launch.dryrun.dryrun_cell`` (building the step, and running it on
+  meta tensors: the port's counterparts of lowering and compiling).
 * **A TPU fact translated.** The reference's ``planner.vmem.plan_bytes``
   is the one VMEM budget of its ladder. The Hopper ladder has two
   (``oocore.planner.plan_residency``): shared memory per CTA and the L2
@@ -67,6 +68,8 @@ NAMESPACES = (
     "cpals.sweep_s",
     "cpals.sweeps",
     "dispatch.backend",
+    "dryrun.compile_s",
+    "dryrun.lower_s",
     "oocore.chunks",
     "oocore.dma.distinct_bytes",
     "oocore.dma.index_stream_bytes",

@@ -8,7 +8,9 @@ device an entry point runs on:
 
 * :func:`resolve_device` — ``None`` means CUDA; with no CUDA device it
   raises instead of quietly running on the CPU. The tests pass
-  ``device="cpu"`` explicitly.
+  ``device="cpu"`` explicitly. ``"meta"`` (shapes, no data) is taken as
+  given: the dry-run (``launch.dryrun``) runs the LM steps on it to count
+  their work.
 * :func:`require_sm90` — the kernels are built for ``sm_90a`` (Hopper)
   and refuse any other card.
 
@@ -53,9 +55,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}: expected 'cuda' "
-                         "or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: expected 'cuda', "
+                         "'cpu' or 'meta'")
     return dev
 
 

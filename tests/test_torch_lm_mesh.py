@@ -233,7 +233,9 @@ def test_hw_holds_the_cards_constants_not_a_tpus():
     assert TMesh.HW["power_limit_w"] == 700.0
     assert TMesh.HW["hbm_bw"] == 3.35e12
     assert TMesh.HW["peak_flops_bf16"] == 989e12
-    assert "hbm_bytes" not in TMesh.HW       # the card reports its own
+    # The data sheet's 80 GB, not the TPU's 16 GiB; a card's own figure
+    # comes from device_hw.
+    assert TMesh.HW["hbm_bytes"] == 80e9
 
 
 def _rule_sets():

@@ -319,3 +319,24 @@ def test_dropped_pairs_get_no_gradient(top_k):
         all_dropped = drop.all(axis=1)
         assert all_dropped.any()
         assert (g["x"].reshape(48, D)[all_dropped] == 0).all()
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 4])
+def test_router_density_is_bincounts(top_k):
+    """The router's expert counts (a scatter of ones, which has a meta
+    kernel) equal ``torch.bincount``'s on seeded routes, so ``aux`` is
+    the bincount form's bit for bit; and the router runs on meta."""
+    _, tp = _params(8, 0, n_real=6, seed=3)
+    _, tx = _x((96, D), 3)
+    probs, ids, aux = TMoE.router_assign(tx, tp["router"], 6, top_k)
+    logits = torch.where(torch.arange(8) < 6, tx.float() @ tp["router"],
+                         -1e30)
+    probs_full = torch.softmax(logits, dim=-1)
+    density = torch.bincount(ids.long().reshape(-1), minlength=8).float() \
+        / (96 * top_k)
+    want = 6 * torch.sum(density * probs_full.mean(0))
+    assert torch.equal(aux, want)
+    meta = TMoE.router_assign(tx.to("meta"), tp["router"].to("meta"), 6,
+                              top_k)
+    assert [tuple(t.shape) for t in meta] == [(96, top_k), (96, top_k), ()]
+    assert all(t.is_meta for t in meta)

@@ -72,7 +72,8 @@ def test_registry_add_get_total_reset_and_rejects_unknown():
     reg.reset()
     assert len(reg) == 0 and snap["cpals.sweeps"] == 1
     with pytest.raises(ValueError, match="NAMESPACES"):
-        reg.add("dryrun.compile_s", 1)   # the LM dry run: not ported
+        reg.add("execution.fallback", 1)   # no interpreter to fall back
+    reg.add("dryrun.compile_s", 1)         # the LM dry run, ported
 
 
 def test_use_registry_scopes_and_restores():

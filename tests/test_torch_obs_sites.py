@@ -47,8 +47,6 @@ EXCLUDED = {
     "execution.fallback": "no interpreter: a CUDA tensor runs the kernel",
     "execution.resolve": "no interpreter to resolve",
     "resilience.interpret_fallbacks": "no interpreter to fall back to",
-    "dryrun.compile_s": "LM scaffolding, ROADMAP A15",
-    "dryrun.lower_s": "LM scaffolding, ROADMAP A15",
 }
 # The reference's one VMEM plan budget -> the Hopper ladder's two.
 TRANSLATED = {"planner.vmem.plan_bytes": ("planner.smem.plan_bytes",
@@ -84,7 +82,6 @@ def test_excluded_names_are_rejected(name):
 REFERENCE_OWNER = {
     "src/repro/runtime/execution.py": "interpreter",
     "src/repro/resilience/policy.py": "interpreter",
-    "src/repro/launch/": "LM scaffolding, ROADMAP A15",
 }
 
 
@@ -116,6 +113,27 @@ def test_exclusion_reason_names_the_emitting_modules_item(name):
                   if module.startswith(prefix)]
         assert owners, f"{module} (emits {name}) has no owner listed"
         assert owners[0] in EXCLUDED[name], (name, module, EXCLUDED[name])
+
+
+@pytest.mark.parametrize("name", ["dryrun.compile_s", "dryrun.lower_s"])
+def test_dryrun_names_are_emitted_as_the_reference_emits_them(name):
+    """``launch.dryrun.dryrun_cell`` emits both, once a cell, labelled by
+    arch and shape as ``repro/launch/dryrun.py`` labels them."""
+    import os
+    import re
+    from repro_torch.launch import dryrun as tdry
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(root, "src", "repro", "launch", "dryrun.py"),
+               encoding="utf-8").read()
+    call = re.search(r'add\(\s*"' + re.escape(name) + r'",[^)]*\)', src)
+    assert call and re.findall(r"(\w+)=", call.group(0)) == ["arch",
+                                                             "shape"]
+    with ocnt.use_registry() as reg:
+        tdry.dryrun_cell("mamba2-370m", "long_500k")
+    keys = [k for k in reg.snapshot() if ocnt.split_key(k)[0] == name]
+    assert keys == [ocnt.counter_key(name, {"arch": "mamba2-370m",
+                                            "shape": "long_500k"})]
+    assert reg.get(name, arch="mamba2-370m", shape="long_500k") > 0
 
 
 @pytest.mark.parametrize("name", ["resilience.table_fallbacks",
