@@ -28,7 +28,18 @@ a bf16 row at R=16; 64 B: an fp32 one) and by the width each lane loads
 (2 B: a bf16 column a lane, as B1-bf16; 4 B: an fp32 column a lane, as
 B1; 16 B: as the bf16 16-byte row loads), with 8 rows a lane in flight,
 CTAs of 256 threads, 4, 8 or 16 an SM (`gather` lines: G rows/s and
-TB/s). The kernels below are measurements, not part of the port.
+TB/s).
+
+Then the rows-in-flight ceiling for B1-bf16 at R=16 (`rows` lines): random
+32-byte rows (a bf16 row at R=16), two lanes a row, 16 bytes a lane, read
+out of L2 (a 4 MiB buffer; row ids from a hash, so no id stream competes),
+either into registers (`ld.global.nc`, as gather_mttkrp_narrow_kernel
+loads them) or into shared memory with `cp.async` (what a ring of staged
+rows would do), in rounds: a CTA issues all of a round's rows, then waits
+for them. CTAs of 1, 2, 4, 8 or 16 an SM, 640 to 4096 rows in flight an SM
+(the CTA's warps times 16 rows times P rows a lane pair; a combination no
+CTA shape gives is skipped). Prints G rows/s and TB/s per configuration.
+The kernels below are measurements, not part of the port.
 """
 from __future__ import annotations
 
@@ -154,6 +165,72 @@ __global__ void gather_kernel(const void* src, const int* ids, int rb,
   }
   if (acc == 0x12345678u) sink[0] = 1.0f;
 }
+// Random 32-byte rows, two lanes a row (16 bytes each), P rows a lane pair
+// per round: into registers (mode 0) or into shared memory by cp.async
+// (mode 1); `rounds` rounds, each waited for before the next. Row ids are
+// a hash of (CTA, round, row) over `nrows` rows.
+template <int P>
+__global__ void rows_kernel(int mode, const uint4* __restrict__ src,
+                            int nrows, int rounds, float* sink) {
+  extern __shared__ uint4 rs[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = lane & 1, r16 = lane >> 1;
+  const int per_cta = blockDim.x / 2 * P;
+  unsigned acc = 0;
+  for (int r = 0; r < rounds; ++r) {
+    unsigned id[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      unsigned h = (blockIdx.x * 0x9e3779b1u) ^ (r * 0x85ebca77u) ^
+                   (((warp * P + u) * 16 + r16) * 0xc2b2ae3du);
+      h ^= h >> 15;
+      h *= 0x2c1b3c6du;
+      h ^= h >> 12;
+      id[u] = h % (unsigned)nrows;
+    }
+    if (mode == 0) {
+      uint4 x[P];
+#pragma unroll
+      for (int u = 0; u < P; ++u) x[u] = __ldg(src + (size_t)id[u] * 2 + half);
+#pragma unroll
+      for (int u = 0; u < P; ++u) acc ^= x[u].x ^ x[u].w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int row = (warp * P + u) * 16 + r16;
+        cp_async16(rs + row * 2 + half, src + (size_t)id[u] * 2 + half);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+      acc ^= reinterpret_cast<const unsigned*>(
+          rs)[(warp * P * 16 * 8 + lane * 7 + r) % (per_cta * 8)];
+      __syncwarp();
+    }
+  }
+  if (acc == 0x12345678u) sink[0] = 1.0f;
+}
+extern "C" int rows_run(int mode, int p, const void* src, int nrows,
+                        int rounds, int ctas, int threads, void* sink) {
+  const size_t smem = mode == 1 ? (size_t)threads / 2 * p * 32 : 0;
+  const uint4* s = static_cast<const uint4*>(src);
+  float* k = static_cast<float*>(sink);
+#define ROWS(PP)                                                          \
+  cudaFuncSetAttribute(rows_kernel<PP>,                                   \
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,       \
+                       (int)smem);                                        \
+  rows_kernel<PP><<<ctas, threads, smem>>>(mode, s, nrows, rounds, k);
+  switch (p) {
+    case 1: ROWS(1) break;
+    case 2: ROWS(2) break;
+    case 4: ROWS(4) break;
+    case 8: ROWS(8) break;
+    case 16: ROWS(16) break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ROWS
+  return cudaGetLastError();
+}
 extern "C" int gather_run(int w, const void* src, const void* ids, int rb,
                           int nslots, int iters, int ctas, int threads,
                           void* sink) {
@@ -271,7 +348,49 @@ def main() -> int:
                   f"{rows / ms / 1e6:.3f} G rows/s, "
                   f"{rows * rb / ms / 1e9:.3f} TB/s  [{gpu}]", flush=True)
             del ids
+    rrun = lib.rows_run
+    rrun.argtypes = [I, I, P, I, I, I, I, P]
+    rrun.restype = I
+    rounds, nrows = 64, buf.numel() * 2 // 32
+    for in_flight in (640, 1024, 2048, 4096):
+        for per_sm in (1, 2, 4, 8, 16):
+            shape = _rows_shape(in_flight // per_sm)
+            if shape is None or in_flight % per_sm:
+                print(f"[rows] {in_flight} rows in flight an SM, {per_sm} "
+                      "CTA/SM: no CTA shape gives it, skipped", flush=True)
+                continue
+            warps, p = shape
+            for mode, name in ((0, "registers"), (1, "cp.async to smem")):
+                ctas = sms * per_sm
+                args = (mode, p, buf.data_ptr(), nrows, rounds, ctas,
+                        32 * warps, sink.data_ptr())
+                if rrun(*args) != 0:
+                    print(f"copy_rate: rows launch failed ({name}, {warps} "
+                          f"warps, P={p})", file=sys.stderr)
+                    return 1
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                rrun(*args)
+                b.record()
+                b.synchronize()
+                ms = a.elapsed_time(b)
+                rows = ctas * rounds * 16 * warps * p
+                print(f"[rows] random 32 B rows into {name}: {in_flight} "
+                      f"in flight an SM, {per_sm} CTA/SM ({warps} warps x "
+                      f"16 rows x {p}): {rows / ms / 1e6:.3f} G rows/s, "
+                      f"{rows * 32 / ms / 1e9:.3f} TB/s  [{gpu}]", flush=True)
     return 0
+
+
+def _rows_shape(per_cta: int):
+    """``(warps, P)`` of a CTA holding ``per_cta`` rows in flight (16 a
+    warp per P), the most rows a lane pair first; ``None`` if none."""
+    for p in (16, 8, 4, 2, 1):
+        if per_cta % (16 * p) == 0 and 1 <= per_cta // (16 * p) <= 32:
+            return per_cta // (16 * p), p
+    return None
 
 
 if __name__ == "__main__":

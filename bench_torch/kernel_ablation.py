@@ -9,18 +9,25 @@ with one design choice undone by a text edit, built with the port's nvcc
 flags into ``build/ablation/`` (all sources compiled at once) and launched
 through the port's own wrapper, on a device-made stream of the nell-2
 stand-in's shape (12100 x 9200 x 28800, 76,899,057 uniform nonzeros, seed
-0, sorted by the output mode): B1 at blk=512, R=16 (modes 0 and 2) and B2
-at R=256; B6 at blk=64, R=16 under Morton order (mode 0), also with the
+0, sorted by the output mode): B1 at blk=512, R=16 (modes 0 and 2; also at
+K=3, with a fourth mode of 2000 rows, mode 0), each beside its live-end
+launch alone, and B2 at R=256; B6 at blk=64, R=16 under Morton order (mode 0), also with the
 ring's stages and mapper warps forced; each of B1, B2 and B6 also on
 the same factors in bf16 (``-bf16`` cases); B3 at blk=512, R=16 on rows
 pre-gathered in fp32 (modes 0, 1, 2) and bf16 (modes 0, 2), and B4 at
 R=32 in two 16-column slabs (modes 0, 2), also with the ring's stages and
 slots per stage forced, and B4 at R=16 (one slab) on the same rows; beside
 each, B3/B4's first design, kept as source text in
-``bench_torch/fused_mttkrp_direct.cu``. Every variant's
+``bench_torch/fused_mttkrp_direct.cu``. The variants of bf16 B1/B2's
+narrow-slab kernel (and the first bf16 kernel at narrow slabs, and the
+narrow design on float factors) edit
+``bench_torch/gather_mttkrp_designs.cu``, which keeps that kernel's
+alternatives as source text, instead of the port's. Every variant's
 output must equal the unmodified kernel's bitwise, but for B6's
 copies-without-adds and adds-without-copies, whose output must be zeros.
-``--cases REGEX`` runs only the cases whose label matches. Prints one line per
+``--cases REGEX`` runs only the cases whose label matches, ``--variants
+REGEX`` builds and runs only the variants whose name matches (and each
+unmodified kernel). Prints one line per
 variant with its CUDA-event mean time (B3/B4 lines also the HBM TB/s
 their bytes take at that time), the mode-2 gap (mode 2 minus mode 0) of
 every B3/B4 variant, and the card's name and power limit.
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import os
 import re
 import subprocess
@@ -93,6 +101,10 @@ CP_ASYNC_COPY = """\
           if (lane32 == 0) mbar_arrive(&full[s]);
 """
 B1 = "gather_mttkrp.cu"
+# The narrow bf16 kernel's design space (its alternatives behind
+# compile-time switches, the first bf16 kernel at every slab, the narrow
+# design on float factors): kept as source text beside this script.
+DESIGNS = os.path.join(ROOT, "bench_torch/gather_mttkrp_designs.cu")
 B6 = "gather_stream_mttkrp.cu"
 B3 = "fused_mttkrp.cu"
 # B3/B4's first design (one CTA per tile, rows loaded element by element).
@@ -111,8 +123,8 @@ VARIANTS = {
     "b1": ("gather_mttkrp", B1, []),
     "b1 tiles in launch order (no last-tile-first)": (
         "gather_mttkrp", B1,
-        [("const int t = gridDim.x - 1 - blockIdx.x;",
-          "const int t = blockIdx.x;")]),
+        [("  return gridDim.x - 1 - blockIdx.x;",
+          "  return blockIdx.x;")]),
     "b1 64-bit row offsets": (
         "gather_mttkrp", B1,
         [("int at[kUnroll][K];", "long long at[kUnroll][K];"),
@@ -197,17 +209,109 @@ VARIANTS = {
 # the bf16 cases only): each undoes or varies one choice; the first bf16
 # designs undo all. Some also set a wrapper function for their run
 # (PATCHES) or force B6's ring (B6_RINGS).
+_NARROW_LAUNCH = ("    return DESIGN(Rows::kNarrow, "
+                  "gather_mttkrp_narrow_kernel);")
+_COLUMN_LAUNCH = "    return DESIGN(Rows::kColumn, gather_mttkrp_kernel);"
+# The first bf16 kernel at narrow bf16 slabs (a column a lane, 2 x
+# 1024-slot staging), which the narrow kernel replaced there. These and
+# the narrow kernel's variants edit DESIGNS, not the port's source.
+_COLUMN_NARROW = [(_NARROW_LAUNCH, _COLUMN_LAUNCH)]
 _NO_VEC_ROWS = [("constexpr int kVecMinSlab = 64;",
-                 "constexpr int kVecMinSlab = 1 << 30;")]
+                 "constexpr int kVecMinSlab = 1 << 30;")] + _COLUMN_NARROW
+COLUMN_NARROW = "b1 bf16 first kernel at narrow slabs (a column a lane)"
+FP32_NARROW = "b1 fp32 narrow design (16-byte rows, 4 columns a lane)"
+NO_LIVE_END = "b1 no live-end launch (uncut walk)"
+
+
+def _narrow(old: str, new: str):
+    """One constant of the narrow bf16 kernel changed."""
+    return ("gather_mttkrp", DESIGNS, [(old, new)])
+
+
+_NARROW_CHUNK = "constexpr int kNarrowChunk = 256;"
+_NARROW_BUFFERS = "constexpr int kNarrowBuffers = 2;"
+_NARROW_UNROLL = "constexpr int kNarrowUnroll = 8;"
+_NARROW_SWIZZLE = "constexpr bool kNarrowSwizzle = true;"
+_NARROW_RING = "constexpr int kNarrowRing = 0;"
+_NARROW_CARVEOUT = "constexpr int kNarrowCarveout = -1;"
+
+
+def _NARROW_MAXNREG(n):  # noqa: N802 (an edit pair, as the constants)
+    """The narrow kernel compiled to at most n registers a thread."""
+    return ("__global__ void gather_mttkrp_narrow_kernel(",
+            f"__global__ void __maxnreg__({n}) gather_mttkrp_narrow_kernel(")
+_STAGED = ("constexpr bool kNarrowStaged = false;",
+           "constexpr bool kNarrowStaged = true;")
+NARROW_FIRST = ("b1 bf16 narrow as first built (staged 2 x 256, one batch of "
+                "16 / K slots, padded rows)")
 _COLUMN_READS = [("  constexpr bool kPairReads = sizeof(T) == 2;",
                   "  constexpr bool kPairReads = false;")]
 FIRST_B6 = "b6 bf16 first design (a column a lane, 16 lanes, deepest ring)"
 VARIANTS.update({
     "b1 bf16 first design (a column a lane at every slab)": (
-        "gather_mttkrp", B1, _NO_VEC_ROWS),
+        "gather_mttkrp", DESIGNS, _NO_VEC_ROWS),
+    COLUMN_NARROW: ("gather_mttkrp", DESIGNS, _COLUMN_NARROW),
     "b1 bf16 16-byte rows at every slab": (
         "gather_mttkrp", B1, [("constexpr int kVecMinSlab = 64;",
                                "constexpr int kVecMinSlab = 16;")]),
+    "b1 bf16 narrow ring of 2 batches": _narrow(
+        _NARROW_RING, "constexpr int kNarrowRing = 2;"),
+    "b1 bf16 narrow ring of 4 batches": _narrow(
+        _NARROW_RING, "constexpr int kNarrowRing = 4;"),
+    "b1 bf16 narrow ring of 4 batches of 4 / K slots": (
+        "gather_mttkrp", DESIGNS,
+        [(_NARROW_RING, "constexpr int kNarrowRing = 4;"),
+         (_NARROW_UNROLL, "constexpr int kNarrowUnroll = 4;")]),
+    "b1 bf16 narrow carveout 50%": _narrow(
+        _NARROW_CARVEOUT, "constexpr int kNarrowCarveout = 50;"),
+    "b1 bf16 narrow carveout 100%": _narrow(
+        _NARROW_CARVEOUT, "constexpr int kNarrowCarveout = 100;"),
+    "b1 bf16 narrow at most 128 registers": _narrow(*_NARROW_MAXNREG(128)),
+    "b1 bf16 narrow at most 96 registers": _narrow(*_NARROW_MAXNREG(96)),
+    "b1 bf16 narrow kNarrowUnroll 4": _narrow(
+        _NARROW_UNROLL, "constexpr int kNarrowUnroll = 4;"),
+    "b1 bf16 narrow kNarrowUnroll 16": _narrow(
+        _NARROW_UNROLL, "constexpr int kNarrowUnroll = 16;"),
+    "b1 bf16 narrow padded partial rows (no swizzle)": _narrow(
+        _NARROW_SWIZZLE, "constexpr bool kNarrowSwizzle = false;"),
+    "b1 bf16 narrow plain partial rows (bank conflicts)": _narrow(
+        "  if (!kNarrowSwizzle) return 0;\n  return lanes",
+        "  return 0;\n  return lanes"),
+    # The stream staged in shared memory (chunks of kNarrowChunk slots in
+    # kNarrowBuffers buffers, a barrier and a padding vote a chunk), as the
+    # wide kernels stage it, instead of read into registers.
+    "b1 bf16 narrow staged 2 x 256 slots": _narrow(*_STAGED),
+    "b1 bf16 narrow staged 2 x 128 slots": (
+        "gather_mttkrp", DESIGNS, [_STAGED, (_NARROW_CHUNK,
+                                        "constexpr int kNarrowChunk = 128;")]),
+    "b1 bf16 narrow staged 2 x 512 slots": (
+        "gather_mttkrp", DESIGNS, [_STAGED, (_NARROW_CHUNK,
+                                        "constexpr int kNarrowChunk = 512;")]),
+    "b1 bf16 narrow staged 4 x 128 slots": (
+        "gather_mttkrp", DESIGNS, [_STAGED, (_NARROW_CHUNK,
+                                        "constexpr int kNarrowChunk = 128;"),
+                              (_NARROW_BUFFERS,
+                               "constexpr int kNarrowBuffers = 4;")]),
+    # The narrow kernel as first built: staged 2 x 256, one batch of 16 / K
+    # slots at a time, padded partial rows.
+    NARROW_FIRST: ("gather_mttkrp", DESIGNS, [
+        _STAGED, (_NARROW_UNROLL, "constexpr int kNarrowUnroll = 16;"),
+        ("constexpr bool kNarrowPipelined = true;",
+         "constexpr bool kNarrowPipelined = false;"),
+        (_NARROW_SWIZZLE, "constexpr bool kNarrowSwizzle = false;")]),
+    # The narrow design on float factors (a finding: the port keeps a
+    # column a lane for them): 16-byte row loads of 4 columns a lane.
+    FP32_NARROW: ("gather_mttkrp", DESIGNS,
+                  [(_COLUMN_LAUNCH, _NARROW_LAUNCH)]),
+    # The tail cut undone (PATCHES): the cut starts at the stream's last
+    # block, so min(run end, cut) is the run's end, as before the cut.
+    "b1 no tail cut": ("gather_mttkrp", B1, []),
+    # The same without the live-end launch: the parent's launch and walk
+    # (but run_end's code); against "b1 no tail cut", the launch's cost.
+    NO_LIVE_END: ("gather_mttkrp", B1, [(
+        "  e = mttkrp_common::launch_live_end(vals, blk_start, num_tiles, "
+        "blk, n_pad,\n                                     stream);\n",
+        "  (void)n_pad;\n")]),
     "b1 bf16 16-byte rows at every slab, kUnrollBf16 16": (
         "gather_mttkrp", B1, [("constexpr int kVecMinSlab = 64;",
                                "constexpr int kVecMinSlab = 16;"),
@@ -226,13 +330,31 @@ VARIANTS.update({
     "b6 bf16 8 issuer warps": (
         "gather_stream_mttkrp", B6, [("constexpr int kIssuerWarps = 4;",
                                       "constexpr int kIssuerWarps = 8;")]),
+    "b6 no tail cut": ("gather_stream_mttkrp", B6, []),
 })
+
 _COLUMN_LANES = {"_stream_lanes": lambda slab, gather_itemsize=4:
                  K._lanes(slab)}
 _VEC_EVERYWHERE = {"BF16_VEC_MIN_SLAB": 16}
+_COLUMN_DESIGN = {"_gather_design": lambda slab, gi: (
+    "vec" if gi == 2 and slab >= 64 else "column")}
+_NO_CUT = {"_cut_tile_starts": functools.partial(K._cut_tile_starts,
+                                                  cut=False)}
+_REAL_LANES = K._gather_lanes
+_FP32_NARROW = {
+    "_gather_design": lambda slab, gi: (
+        "narrow" if slab < 64 else "vec" if gi == 2 else "column"),
+    "_gather_lanes": lambda slab, gi=4: (
+        slab // 4 if gi == 4 and slab < 64 else _REAL_LANES(slab, gi))}
 PATCHES = {
     "b1 bf16 first design (a column a lane at every slab)": {
-        "BF16_VEC_MIN_SLAB": 1 << 30},
+        "BF16_VEC_MIN_SLAB": 1 << 30, "_gather_design":
+        lambda slab, gi: "column"},
+    COLUMN_NARROW: _COLUMN_DESIGN,
+    "b1 no tail cut": _NO_CUT,
+    NO_LIVE_END: _NO_CUT,
+    FP32_NARROW: _FP32_NARROW,
+    "b6 no tail cut": _NO_CUT,
     "b1 bf16 16-byte rows at every slab": _VEC_EVERYWHERE,
     "b1 bf16 16-byte rows at every slab, kUnrollBf16 16": _VEC_EVERYWHERE,
     FIRST_B6: _COLUMN_LANES,
@@ -267,11 +389,16 @@ FUSED_VARIANT_RINGS = {"b3": FUSED_RINGS,
                        "b3 meta chunks of 512 slots": [(2, 256), (4, 256)]}
 
 
-def build_variants():
+def build_variants(wanted=None):
+    """Build every variant (``wanted``: those whose name it matches, and
+    the unmodified kernels) at once; ``{name: library handle}``."""
     os.makedirs(OUT, exist_ok=True)
     inc = '#include "mttkrp_common.cuh"'
     procs = {}
     for i, (name, (lib, src, pairs, *hdr)) in enumerate(VARIANTS.items()):
+        if wanted is not None and name not in ("b1", "b3", "b6") \
+                and not wanted.search(name):
+            continue
         header = os.path.join(OUT, f"v{i}_common.cuh")
         open(header, "w").write(edit("mttkrp_common.cuh",
                                      hdr[0] if hdr else []))
@@ -361,8 +488,13 @@ def main() -> int:
     parser.add_argument("--cases", default="",
                         help="regular expression: run only the cases whose "
                         "label it matches (e.g. 'bf16')")
-    wanted = re.compile(parser.parse_args().cases)
-    libs = build_variants()
+    parser.add_argument("--variants", default="",
+                        help="regular expression: build and run only the "
+                        "variants whose name it matches, beside the "
+                        "unmodified kernels")
+    args = parser.parse_args()
+    wanted = re.compile(args.cases)
+    libs = build_variants(re.compile(args.variants))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     idx = torch.stack([torch.randint(0, d, (NNZ,), generator=g, device=dev,
@@ -394,6 +526,8 @@ def main() -> int:
             if only is not None and name not in only:
                 continue
             if " bf16 " in name and "bf16" not in label:
+                continue
+            if " fp32 " in name and "bf16" in label:
                 continue
             if name in SLAB_ONLY and (fused is None
                                       or fused[5] == fused[1][0].shape[1]):
@@ -478,6 +612,17 @@ def main() -> int:
                     return False
         return True
 
+    def live_end_alone(label, operands, kw):
+        """The live-end launch alone on a B1 case's stream
+        (``kernel.live_tile_starts``, the unmodified library)."""
+        if not wanted.search(label):
+            return
+        build.load = lambda name, h=libs["b1"]: h
+        ms = cuda_ms(lambda: K.live_tile_starts(operands[0], operands[4],
+                                                **kw), 5)
+        print(f"[ablation] {label}: the live-end launch alone "
+              f"(kernel.live_tile_starts): {ms:.4f} ms  [{gpu}]", flush=True)
+
     ok = True
     for mode in (0, 1, 2):
         order = torch.sort(idx[:, mode], stable=True).indices
@@ -491,9 +636,25 @@ def main() -> int:
             ok &= run_case(f"B1 mode {mode}", "b1",
                            lambda o=o16, kw=kw:
                            K.fused_mttkrp_nmode_gather(*o, **kw))
-            ok &= run_case(f"B1-bf16 mode {mode}", "b1",
-                           lambda o=bf16_operands(o16), kw=kw:
+            live_end_alone(f"B1 mode {mode}", o16, kw)
+        if mode == 0 and wanted.search("B1 K=3 mode 0"):
+            # B1 at K=3: a fourth mode of 2000 rows, drawn uniformly, beside
+            # the stand-in's three (the same stream order and padding).
+            extra = torch.randint(0, 2000, (NNZ, 1), generator=g,
+                                  device=dev, dtype=torch.int32)
+            o4 = ops.gather_operands(
+                torch.cat([si, extra], 1), sv, valid,
+                f16 + [torch.randn(2000, 16, generator=g, device=dev)],
+                mode=0, row_offset=0, slab=16, **kw)
+            del extra
+            ok &= run_case("B1 K=3 mode 0", "b1",
+                           lambda o=o4, kw=kw:
                            K.fused_mttkrp_nmode_gather(*o, **kw))
+            live_end_alone("B1 K=3 mode 0", o4, kw)
+            del o4
+        ok &= run_case(f"B1-bf16 mode {mode}", "b1",
+                       lambda o=bf16_operands(o16), kw=kw:
+                       K.fused_mttkrp_nmode_gather(*o, **kw))
         # B3 on rows pre-gathered in fp32 (every mode) and bf16.
         vals, ia, fm, rows, tob = o16
         for dtype in (torch.float32, torch.bfloat16):

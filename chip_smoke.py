@@ -59,7 +59,14 @@ Phases (each prints its own lines; any failure exits non-zero):
       against its
       plain version and the bf16 B1 bitwise, timed beside the fp32
       kernel on the same inputs, with HBM and L2 bounds at bf16 bytes;
-      a profiled bf16 sweep;
+      for B1-bf16 also the design that ran (the narrow kernel at R=16),
+      its factor rows in flight an SM as reckoned from the launch shape
+      (not measured; the log line only), the first bf16 kernel (a column
+      a lane, built from ``bench_torch/gather_mttkrp_designs.cu``) timed
+      in turns with it on the same inputs (bitwise equal),
+      and the slots the last tile's CTA walks before and after the cut
+      at its last live block (the card's cut == the plain one, within
+      one block of the run's last live slot); a profiled bf16 sweep;
   12. ``[bf16-fit]``: CP-ALS (B1, seed 1, tol 0) in fp32 and in bf16 on a
       generated low-rank tensor: both fit traces and their gaps;
   13. ``[dist-main]``, Dynasor on D=4 workers in one process
@@ -106,8 +113,9 @@ Phases (each prints its own lines; any failure exits non-zero):
       flickr's mode sizes (power-law, 20 M draws), whose factors exceed
       L2, must take the stream rung (B6) on every mode, counted by
       ``dispatch.backend`` exactly as launched, with factors and fits
-      bitwise the forced-B1 run's, sweep ms on CUDA events, B6 ms per
-      launch and peak memory;
+      bitwise the forced-B1 run's, sweep ms on CUDA events, beside the
+      same run with the last tile's walk not cut (bitwise equal), B6 ms
+      per launch and peak memory;
   17. ``[tune]`` (ROADMAP A12): ``repro_torch.tune.calibrate`` over the
       port's quick grid on the card (every backend, the hand-written
       kernels among them, each case's trailing all-padding blocks
@@ -276,6 +284,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -622,15 +631,50 @@ def compare(out, plain, what: str) -> float:
     return err
 
 
+# The first bf16 kernel (a column a lane, the fp32 kernel's staging) at a
+# narrow slab, the yardstick [bf16-main] times the port's narrow kernel
+# against, is built from this file, which keeps the narrow kernel's design
+# space as source text; the port does not export it.
+DESIGNS_SRC = os.path.join(ROOT, "bench_torch", "gather_mttkrp_designs.cu")
+DESIGNS_LIB = os.path.join(ROOT, "build", "designs",
+                           "gather_mttkrp_designs.so")
+_DESIGNS = {}
+
+
 def phase_build():
+    """The port's libraries, and beside them (one more nvcc, started
+    first) the design-space library of ``DESIGNS_SRC``."""
+    import ctypes
     from repro_torch.kernels.mttkrp import build
     t0 = time.perf_counter()
-    built = build.build()
-    for name in built:
-        build.load(name)
+    os.makedirs(os.path.dirname(DESIGNS_LIB), exist_ok=True)
+    designs = subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+         str(build.SOURCES["gather_mttkrp"].parent), "-o", DESIGNS_LIB,
+         DESIGNS_SRC], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        built = build.build()
+        for name in built:
+            build.load(name)
+    finally:
+        report, _ = designs.communicate()
+    require(designs.returncode == 0,
+            f"nvcc failed for {DESIGNS_SRC}:\n{report}")
+    lib = ctypes.CDLL(DESIGNS_LIB)
+    argtypes = build._LAUNCH_ARGTYPES["gather_mttkrp"]
+    for fn, args in {**argtypes, "gather_mttkrp_bf16_column_launch":
+                     argtypes["gather_mttkrp_bf16_launch"]}.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.gather_mttkrp_error_string.argtypes = [ctypes.c_int]
+    lib.gather_mttkrp_error_string.restype = ctypes.c_char_p
+    _DESIGNS["lib"] = lib
     secs = time.perf_counter() - t0
     log(f"[build] {len(built)} libraries in {secs:.2f} s (one nvcc per "
-        "source, in parallel)")
+        "source, in parallel), and "
+        f"{os.path.relpath(DESIGNS_LIB, ROOT)} beside them (the yardstick "
+        "of [bf16-main])")
     for name, (path, report) in built.items():
         log(f"[build] {os.path.relpath(path, ROOT)}")
         for ln in report.splitlines():
@@ -794,7 +838,8 @@ def phase_fused_kernels(dev):
         vals, idx_al, fmats, rows, tob = ops_
         what = f"K={k} R={rank}"
         # B1 at the whole rank, or B2 (== B1) where B1 does not fit.
-        b1_fits = K.gather_smem_bytes(k, rank, TILE_ROWS) \
+        b1_fits = K.gather_smem_bytes(
+            k, rank, TILE_ROWS, gather_itemsize=fmats[0].element_size()) \
             <= K.SMEM_LIMIT_BYTES
         b1 = (K.fused_mttkrp_nmode_gather(*ops_, **kw) if b1_fits else
               K.fused_mttkrp_nmode_gather_tiled(*ops_, rank_slab=slab, **kw))
@@ -1606,6 +1651,82 @@ def bf16_path_rows(kern, plain, args, kw, *, what, reps=5, l2_bytes,
                      bound_by=bound[1], l2_bytes=l2_bytes)
 
 
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """``module``'s attributes set to ``attrs`` inside the block."""
+    saved = {a: getattr(module, a) for a in attrs}
+    for a, v in attrs.items():
+        setattr(module, a, v)
+    try:
+        yield
+    finally:
+        for a, v in saved.items():
+            setattr(module, a, v)
+
+
+def column_b1_bf16(args, kw):
+    """The first bf16 kernel at a narrow slab (a column a lane,
+    ``gather_mttkrp_bf16_column_launch`` of ``DESIGNS_SRC``, built by
+    phase_build) on B1's inputs: the wrapper's launch with that library
+    and entry point and that kernel's lane count and shared memory."""
+    from repro_torch.kernels.mttkrp import build, kernel as K
+    with patched(build, load=lambda name: _DESIGNS["lib"]), \
+            patched(K, _entry=lambda lib, mats: f"{lib}_bf16_column_launch",
+                    _gather_design=lambda slab, gi: "column"):
+        return K.fused_mttkrp_nmode_gather(*args, **kw)
+
+
+def tail_walk(b1_ops, *, rows_cap: int, blk: int, tile_rows: int) -> dict:
+    """The last tile's walk before and after the cut (S1): the slots of
+    its run, and of the run up to the live end ``live_end_kernel``
+    computes on the card (``kernel.live_tile_starts``), which must equal
+    the plain reckoning and end within one block of the run's last live
+    slot."""
+    from repro_torch.kernels.mttkrp import kernel as K
+    vals, tob = b1_ops[0], b1_ops[4]
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=tile_rows)
+    s = K.live_tile_starts(vals, tob, **kw).tolist()
+    b0, b1, cut = s[-2], s[-1], s[0]
+    plain = K.live_end_plain(vals, tob, **kw)
+    require(cut == plain, f"live end {cut} on the card, {plain} plain")
+    live = torch.nonzero(vals[b0 * blk:b1 * blk]).flatten()
+    last = int(live[-1]) if live.numel() else -1
+    after = (max(b0, cut) - b0) * blk
+    require(after - 1 - last < blk and after > last,
+            f"the cut walk ends at slot {after} of the run, its last live "
+            f"slot is {last}")
+    return dict(before=(b1 - b0) * blk, after=after, last_live=last)
+
+
+def narrow_launch_shape(k: int, rank: int, tile_rows: int, num_tiles: int,
+                        dev) -> dict:
+    """B1-bf16's narrow kernel at these inputs: threads and shared memory
+    a CTA, its ptxas registers, the CTAs one SM holds (the least of the
+    32-block, 2048-thread, 64 Ki-register and shared-memory limits) and
+    those the grid gives it (tiles over SMs), and the factor rows it can
+    keep in flight an SM, reckoned from that launch shape (not measured):
+    resident CTAs x groups x two batches of slots x K."""
+    from repro_torch.kernels.mttkrp import build, kernel as K, lowering
+    groups, lanes = K._groups(tile_rows), K._gather_lanes(rank, 2)
+    threads = groups * lanes
+    smem = K.gather_smem_bytes(k, rank, tile_rows, gather_itemsize=2)
+    want = f"gather_mttkrp_narrow_kernel<{k}, bf16>"
+    regs = [r["registers"] for name, r in lowering.parse_ptxas_report(
+        build.build()["gather_mttkrp"][1]).items()
+        if lowering.kernel_label(name) == want]
+    require(len(regs) == 1, f"no ptxas line for {want}")
+    warps = -(-threads // 32)
+    per_sm = min(32, 64 // warps,
+                 65536 // (warps * 32 * (-(-regs[0] // 8) * 8)),
+                 K.SM_SMEM_BYTES // (smem + K.CTA_SMEM_RESERVED))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = min(per_sm, -(-num_tiles // sms))
+    batch = max(1, K.NARROW_UNROLL // k)
+    return dict(threads=threads, smem=smem, registers=regs[0],
+                ctas_per_sm=per_sm, resident=resident,
+                rows_in_flight=resident * groups * 2 * batch * k)
+
+
 def phase_bf16_main(ft, dev, gpu: str):
     """The bf16 main path on the nell-2 stand-in that phase_main built, at
     R=16: ``cp_als_distributed`` with ``pallas_fused_gather_bf16`` (the
@@ -1723,6 +1844,32 @@ def phase_bf16_main(ft, dev, gpu: str):
         require(torch.equal(b1[:, :rank], sweep.mttkrp[n][0]),
                 f"mode {n}: rebuilt inputs do not reproduce the bf16 sweep")
         rows["fused_mttkrp_nmode_gather" + BF16].append(row)
+        # The first bf16 kernel on the same inputs, in the same run:
+        # bitwise the narrow kernel, timed in turns with it.
+        require(torch.equal(column_b1_bf16(b1_ops, kw), b1),
+                f"mode {n}: the column B1-bf16 differs from the narrow "
+                "kernel")
+        t_old = cuda_ms(lambda: column_b1_bf16(b1_ops, kw), 5)
+        t_new = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*b1_ops, **kw),
+                        5)
+        walk = tail_walk(b1_ops, **kw)
+        shape = narrow_launch_shape(k, rank, tile_rows, rows_cap // tile_rows,
+                                    dev)
+        row.update(design=K._gather_design(rank, 2), column_ms=t_old)
+        log(f"[bf16-main] B1-bf16 mode {n}: design "
+            f"{K._gather_design(rank, 2)} (gather_mttkrp_narrow_kernel<{k}, "
+            f"bf16>: {shape['threads']} threads, {shape['smem']} B shared "
+            f"memory, {shape['registers']} registers a thread; "
+            f"{shape['ctas_per_sm']} CTAs fit an SM, the grid's "
+            f"{rows_cap // tile_rows} tiles give it {shape['resident']}: "
+            f"{shape['rows_in_flight']} factor rows in flight an SM, "
+            f"reckoned from this launch shape, not measured); "
+            f"{row['ms']:.3f} ms, then {t_new:.3f} ms after the first bf16 "
+            f"kernel (a column a lane) {t_old:.3f} ms on the same inputs, "
+            f"bitwise "
+            f"equal; the last tile's CTA walks {walk['before']} slots "
+            f"before the cut, {walk['after']} after it (its last live slot "
+            f"{walk['last_live']} of the run)  [{gpu}]")
         f32_ops = ops.gather_operands(*cur, facs, slab=rank, **okw)
         t_f32 = cuda_ms(lambda: K.fused_mttkrp_nmode_gather(*f32_ops, **kw), 5)
         log(f"[bf16-main] B1-bf16 mode {n}: {nnz} nnz, kernel "
@@ -2766,6 +2913,19 @@ def phase_auto_stream(dev, gpu: str) -> dict:
             f"mode: {decisions}")
     require_only(launched, b6, chosen, "[auto-stream] auto (B6 per mode)")
     require(all(np.isfinite(res.fits)), f"fits {res.fits}")
+    # The same run with the last tile's walk not cut (S1), as before it.
+    with patched(K, _cut_tile_starts=functools.partial(K._cut_tile_starts,
+                                                       cut=False)), \
+            _SweepEvents() as ev_uncut:
+        res_uncut = cpals.cp_als_distributed(ft, rank, backend="auto", **kw)
+    require(res_uncut.fits == res.fits
+            and all(np.array_equal(a, b)
+                    for a, b in zip(res.factors, res_uncut.factors)),
+            "[auto-stream] the uncut walk's fits differ from the cut one's")
+    log(f"[auto-stream] sweep ms on CUDA events with the last tile's walk "
+        f"cut at its last live block {ev.ms()}, not cut {ev_uncut.ms()} "
+        f"(same run, bitwise equal)  [{gpu}]")
+    del res_uncut
 
     # --- comparisons (launches here are not counted) ---
     res_b1 = cpals.cp_als_distributed(ft, rank,
@@ -5108,6 +5268,11 @@ def main() -> int:
             / L2_BYTES_PER_S * 1e3,
             "library_ms": (float(np.mean([r["library_ms"] for r in rows]))
                            if "library_ms" in rows[0] else None),
+            # B1-bf16: the design that ran and the first bf16 kernel (a
+            # column a lane) on the same inputs, both measured in this run.
+            **({"design": rows[0]["design"],
+                "column_ms": float(np.mean([r["column_ms"] for r in rows]))}
+               if "design" in rows[0] else {}),
         })
     # The six fp32 kernels and the five bf16 variants, each launched.
     require(len(kernels) == len(SOURCE) == 11

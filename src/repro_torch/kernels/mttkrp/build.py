@@ -43,6 +43,7 @@ _GATHER_ARGS = (
     + [_P]            # out
     + [_I] * 9        # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
                       # slab, groups, lanes
+    + [_L]            # n_pad
     + [_P])           # stream
 _STREAM_ARGS = (
     [_P] * 4          # vals, idx, local rows, block starts
@@ -54,6 +55,7 @@ _STREAM_ARGS = (
     + [_I] * 15       # num_in, num_tiles, num_slabs, blk, tile_rows, ld,
                       # slab, groups, lanes, frow, stages, mappers,
                       # carry_in_tile, carry_in_phase, carry_out_tile
+    + [_L]            # n_pad
     + [_P])           # stream
 _FUSED_ARGS = (
     [_P]              # vals
@@ -67,7 +69,12 @@ _FUSED_ARGS = (
 # type); their arguments are the same.
 _LAUNCH_ARGTYPES = {
     "gather_mttkrp": {"gather_mttkrp_launch": _GATHER_ARGS,
-                      "gather_mttkrp_bf16_launch": _GATHER_ARGS},
+                      "gather_mttkrp_bf16_launch": _GATHER_ARGS,
+                      "gather_mttkrp_live_end_launch": (
+                          [_P, _P]    # vals, block starts
+                          + [_I, _I]  # num_tiles, blk
+                          + [_L]      # n_pad
+                          + [_P])},   # stream
     "gather_stream_mttkrp": {
         "gather_stream_mttkrp_launch": _STREAM_ARGS,
         "gather_stream_mttkrp_bf16_launch": _STREAM_ARGS},

@@ -81,7 +81,12 @@
 //    blocks i+1 ... i+stages-1 and the planning of the blocks after.
 //  * One CTA owns one output tile and walks its contiguous run of blocks
 //    (as in B1), the last tile first: the padding blocks clipped onto the
-//    last tile make its run the longest.
+//    last tile make its run the longest. That walk ends at the run's last
+//    live block (live_end_kernel and run_end, mttkrp_common.cuh, as in
+//    B1): the blocks of padding behind it were planned, staged and
+//    released one by one by a single CTA. A chunk whose part of the run
+//    is all padding walks no block but still hands its carried partials
+//    on or reduces them into the output.
 //  * Accumulation is B1's: `groups` groups of `lanes` threads, group g
 //    takes the slots whose index in the tile's run is g mod groups, in
 //    order, its lanes split the columns, and it adds with __fmul_rn /
@@ -194,9 +199,11 @@ __global__ void gather_stream_mttkrp_kernel(
   const int t = gridDim.x - 1 - blockIdx.x;  // the last tile first
   const int col0 = blockIdx.y * slab;
   const int b0 = blk_start[t];
-  const int b1 = blk_start[t + 1];
-  if (b0 == b1) return;  // no block maps here: the tile keeps out_init
-  const int nblk = b1 - b0;
+  if (b0 == blk_start[t + 1]) return;  // no block maps here: out_init stays
+  // The last tile's walk ends at its last live block (S1). A chunk whose
+  // part of that run is all padding then walks no block, but still hands
+  // on or reduces the partials it was given (carry_in) below.
+  const int nblk = mttkrp_common::run_end(blk_start, t, gridDim.x) - b0;
   const int consumers = consumer_threads(groups, lanes);
   const unsigned consumer_warps = consumers / 32;
   const int mappers0 = consumers;                    // first mapper thread
@@ -476,13 +483,13 @@ __global__ void gather_stream_mttkrp_kernel(
 
 template <int K, typename T>
 cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
-                     const int* blk_start, const FactorSet<T>& fs,
+                     int* blk_start, const FactorSet<T>& fs,
                      const ScheduleSet& ss, float* out, const float* carry_in,
                      float* carry_out, int num_tiles, int num_slabs, int blk,
                      int tile_rows, int ld, int slab, int groups, int lanes,
                      int frow, int stages, int mappers, int carry_in_tile,
                      int carry_in_phase, int carry_out_tile,
-                     cudaStream_t stream) {
+                     long long n_pad, cudaStream_t stream) {
   int wsum = 0;
   for (int w = 0; w < K; ++w) wsum += ss.width[w];
   const size_t smem =
@@ -492,8 +499,11 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
       sizeof(T) * (size_t)stages * wsum * frow * slab +
       sizeof(Barrier) *
           (2 * (size_t)stages + 3 * (size_t)meta_slots(stages, mappers));
-  const cudaError_t e =
+  cudaError_t e =
       mttkrp_common::allow_smem(gather_stream_mttkrp_kernel<K, T>, smem);
+  if (e != cudaSuccess) return e;
+  e = mttkrp_common::launch_live_end(vals, blk_start, num_tiles, blk, n_pad,
+                                     stream);
   if (e != cudaSuccess) return e;
   const dim3 grid(num_tiles, num_slabs);
   const int threads = consumer_threads(groups, lanes) +
@@ -507,7 +517,7 @@ cudaError_t launch_k(const float* vals, const int* idx, const int* lrow,
 
 template <typename T>
 int launch(const void* vals, const void* idx, const void* lrow,
-           const void* blk_start, const void* f0, const void* f1,
+           void* blk_start, const void* f0, const void* f1,
            const void* f2, const void* f3, int rows0, int rows1, int rows2,
            int rows3, const void* s0, const void* s1, const void* s2,
            const void* s3, int width0, int width1, int width2, int width3,
@@ -515,7 +525,7 @@ int launch(const void* vals, const void* idx, const void* lrow,
            int num_tiles, int num_slabs, int blk, int tile_rows, int ld,
            int slab, int groups, int lanes, int frow, int stages,
            int mappers, int carry_in_tile, int carry_in_phase,
-           int carry_out_tile, void* stream) {
+           int carry_out_tile, long long n_pad, void* stream) {
   const FactorSet<T> fs = mttkrp_common::make_factor_set<T>(
       f0, f1, f2, f3, rows0, rows1, rows2, rows3);
   ScheduleSet ss;
@@ -529,7 +539,7 @@ int launch(const void* vals, const void* idx, const void* lrow,
   const float* v = static_cast<const float*>(vals);
   const int* ix = static_cast<const int*>(idx);
   const int* lr = static_cast<const int*>(lrow);
-  const int* bs = static_cast<const int*>(blk_start);
+  int* bs = static_cast<int*>(blk_start);
   float* o = static_cast<float*>(out);
   const float* ci = static_cast<const float*>(carry_in);
   float* co = static_cast<float*>(carry_out);
@@ -538,7 +548,7 @@ int launch(const void* vals, const void* idx, const void* lrow,
   launch_k<KK, T>(v, ix, lr, bs, fs, ss, o, ci, co, num_tiles, num_slabs,   \
                   blk, tile_rows, ld, slab, groups, lanes, frow, stages,    \
                   mappers, carry_in_tile, carry_in_phase, carry_out_tile,   \
-                  st)
+                  n_pad, st)
   switch (num_in) {
     case 1:
       return LAUNCH_K(1);
@@ -561,10 +571,12 @@ int launch(const void* vals, const void* idx, const void* lrow,
 // may be null when carry_in_tile / carry_out_tile is -1. The factors are
 // float (gather_stream_mttkrp_launch) or bf16
 // (gather_stream_mttkrp_bf16_launch, `lanes` = slab / 2 up to 32); every
-// other argument is the same.
+// other argument is the same. `blk_start` and `n_pad` as for
+// gather_mttkrp_launch: blk_start[-1] holds 0 and receives the live end of
+// the last tile's run.
 #define STREAM_ARGS                                                         \
   const void *vals, const void *idx, const void *lrow,                      \
-      const void *blk_start, const void *f0, const void *f1,                \
+      void *blk_start, const void *f0, const void *f1,                      \
       const void *f2, const void *f3, int rows0, int rows1, int rows2,      \
       int rows3, const void *s0, const void *s1, const void *s2,            \
       const void *s3, int width0, int width1, int width2, int width3,       \
@@ -572,13 +584,13 @@ int launch(const void* vals, const void* idx, const void* lrow,
       int num_tiles, int num_slabs, int blk, int tile_rows, int ld,         \
       int slab, int groups, int lanes, int frow, int stages, int mappers,   \
       int carry_in_tile, int carry_in_phase, int carry_out_tile,            \
-      void *stream
+      long long n_pad, void *stream
 #define STREAM_PASS                                                         \
   vals, idx, lrow, blk_start, f0, f1, f2, f3, rows0, rows1, rows2, rows3,   \
       s0, s1, s2, s3, width0, width1, width2, width3, out, carry_in,        \
       carry_out, num_in, num_tiles, num_slabs, blk, tile_rows, ld, slab,    \
       groups, lanes, frow, stages, mappers, carry_in_tile, carry_in_phase,  \
-      carry_out_tile, stream
+      carry_out_tile, n_pad, stream
 
 extern "C" int gather_stream_mttkrp_launch(STREAM_ARGS) {
   return launch<float>(STREAM_PASS);

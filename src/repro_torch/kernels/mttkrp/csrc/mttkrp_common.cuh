@@ -4,7 +4,9 @@
 // into fp32, the per-group product-and-add of a batch of slots, the
 // fixed-order reduction of a CTA's private partial tiles (and its variant
 // for warp-specialized CTAs, which clears them), cp.async, bulk copies and
-// mbarriers, and the opt-in to more than 48 KB of dynamic shared memory.
+// mbarriers, the opt-in to more than 48 KB of dynamic shared memory, and
+// the end of the last tile's live run that B1, B2 and B6 stop at
+// (live_end_kernel, run_end).
 // Every kernel
 // adds in one order and ends with the same epilogue, so B1 == B2 == B3 ==
 // B4 == B5 == B6 bitwise on one aligned stream, and likewise the bf16
@@ -269,6 +271,64 @@ __device__ __forceinline__ void bulk_g2s(void* smem_dst, const void* gmem_src,
 // async-proxy (bulk copy) writes to the same bytes.
 __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The end of the last tile's live run (S1). The aligned stream gives every
+// output tile blk slots of slack, and the blocks of padding that are left
+// over are clipped onto the last tile, so its run holds about
+// num_tiles x blk / 2 slots of padding after its last nonzero. Rather than
+// stage and vote over all of them in one CTA, the wrapper first runs
+// live_end_kernel over that run with the whole card: blk_start[-1] (set to
+// 0 by the wrapper) becomes one past the last block of the run that holds
+// a nonzero value (atomicMax: integers, so the result is exact), and the
+// last tile's CTA stops there (run_end). Any block of the run may hold a
+// nonzero, so every slot of it is read, 16 bytes at a time; only the
+// blocks after the last live one are cut, which moves no live slot to
+// another group, so every sum is bitwise the uncut walk's.
+__global__ void live_end_kernel(const float* __restrict__ vals,
+                                int* __restrict__ blk_start, int num_tiles,
+                                int blk) {
+  const long long first = (long long)blk_start[num_tiles - 1] * blk;
+  const long long n4 = ((long long)blk_start[num_tiles] * blk - first) / 4;
+  const float4* v4 = reinterpret_cast<const float4*>(vals + first);
+  long long last = -1;  // the last 16-byte piece holding a nonzero
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       p < n4; p += (long long)gridDim.x * blockDim.x) {
+    const float4 v = __ldcs(v4 + p);
+    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) last = p;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  if ((threadIdx.x & 31) == 0 && last >= 0)
+    atomicMax(blk_start - 1, (int)((first + 4 * last) / blk) + 1);
+}
+
+// Launch live_end_kernel for a stream of n_pad slots (blk_start points at
+// the tile starts, blk_start[-1] at the cut, which must hold 0).
+inline cudaError_t launch_live_end(const float* vals, int* blk_start,
+                                   int num_tiles, int blk, long long n_pad,
+                                   cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  constexpr int kThreads = 256;
+  const long long pieces = (n_pad / 4 + kThreads - 1) / kThreads;
+  const int grid = (int)(pieces < 4LL * sms ? (pieces > 0 ? pieces : 1)
+                                            : 4LL * sms);
+  live_end_kernel<<<grid, kThreads, 0, stream>>>(vals, blk_start, num_tiles,
+                                                 blk);
+  return cudaGetLastError();
+}
+
+// The block at which tile t's walk ends: its run's end, but for the last
+// tile the end of its live run (live_end_kernel), never before its start.
+__device__ __forceinline__ int run_end(const int* blk_start, int t,
+                                       int num_tiles) {
+  const int b1 = blk_start[t + 1];
+  return t == num_tiles - 1 ? max(blk_start[t], min(b1, blk_start[-1])) : b1;
 }
 
 // A launch above 48 KB of dynamic shared memory needs this opt-in first.

@@ -20,6 +20,14 @@ the fp32 ones do. The plain versions upcast the gathered bf16 rows before
 the Hadamard product, as the reference's type promotion does. B5 takes
 fp32 only: its contribution is made in fp32 on every path.
 
+B1, B2 and B6 end the last output tile's walk at its last live block:
+the aligned stream clips its blocks of padding onto the last tile, and
+their launch first runs ``live_end_kernel`` over that run with the whole
+card (:func:`_cut_tile_starts`, :func:`live_tile_starts`). On bf16
+factors at a slab under :data:`BF16_VEC_MIN_SLAB` (R=16 on the main path)
+B1/B2 run ``gather_mttkrp_narrow_kernel`` (16-byte row loads, the stream
+read into registers two batches ahead, no staging).
+
 Each wrapper counts its kernel launches in its ``launches`` attribute,
 and those of its bf16 variant in ``launches_bf16``. Where a wrapper picks
 its route (kernel or plain version) it calls the ``execution.resolve``
@@ -125,9 +133,14 @@ STREAM_BACKEND_NAME = "pallas_fused_gather_stream"
 # in gather_mttkrp.cu).
 STAGE_SLOTS = 2048
 STAGE_BUFFERS = 2
-# B1/B2 on bf16 factors load rows 16 bytes (8 columns) a lane at slabs of
-# this many columns or more (kVecMinSlab in gather_mttkrp.cu).
+# B1/B2 on bf16 factors load rows 16 bytes (8 columns) a lane. At slabs of
+# this many columns or more they stage as the fp32 kernel does
+# (gather_mttkrp_vec_kernel; kVecMinSlab in gather_mttkrp.cu); at narrower
+# ones (R=16 on the main path) gather_mttkrp_narrow_kernel stages nothing
+# (its shared memory is its partial tiles) and keeps two batches of
+# NARROW_UNROLL // K slots' rows in flight a lane (kNarrowUnroll).
 BF16_VEC_MIN_SLAB = 64
+NARROW_UNROLL = 8
 # B3/B4's ring (fused_mttkrp.cu; kernel.fused_ring picks it): stages of a
 # power of two of slots, FUSED_MIN_SLOTS to FUSED_STAGE_SLOTS, holding at
 # most FUSED_STAGE_BYTES of rows; FUSED_STAGES of them when a stage's rows
@@ -199,10 +212,20 @@ def _lanes(slab: int) -> int:
     return 32 if slab % 32 == 0 else 16
 
 
+def _gather_design(slab: int, gather_itemsize: int) -> str:
+    """The kernel B1/B2 launch (``csrc/gather_mttkrp.cu``): ``"column"``
+    (``gather_mttkrp_kernel``, float32 factors, a column a lane), ``"vec"``
+    (``gather_mttkrp_vec_kernel``, bf16 at a slab of
+    :data:`BF16_VEC_MIN_SLAB` or more) or ``"narrow"``
+    (``gather_mttkrp_narrow_kernel``, bf16 below it)."""
+    if gather_itemsize != 2:
+        return "column"
+    return "vec" if slab >= BF16_VEC_MIN_SLAB else "narrow"
+
+
 def _vec_rows(slab: int, gather_itemsize: int) -> bool:
-    """Does B1/B2 load rows 16 bytes a lane (``gather_mttkrp_vec_kernel``):
-    bf16 factors at a slab of :data:`BF16_VEC_MIN_SLAB` or more."""
-    return gather_itemsize == 2 and slab >= BF16_VEC_MIN_SLAB
+    """Does B1/B2 load rows 16 bytes a lane: bf16 factors, at any slab."""
+    return _gather_design(slab, gather_itemsize) != "column"
 
 
 def _gather_lanes(slab: int, gather_itemsize: int = 4) -> int:
@@ -231,6 +254,61 @@ def _tile_starts(tile_of_block, num_tiles: int):
         out_int32=True)
 
 
+def _cut_tile_starts(tile_of_block, num_tiles: int, *, cut: bool = True):
+    """``(num_tiles + 2,)`` int32: 0, then :func:`_tile_starts` (the query
+    -1 finds block 0). B1, B2 and B6 get a pointer to element 1; their
+    launch first writes into element 0 the live end of the last tile's run
+    (one past its last block holding a nonzero value, 0 when none does),
+    where that tile's walk stops (``live_end_kernel`` in
+    ``csrc/mttkrp_common.cuh``). No host read, one search as before.
+
+    ``cut=False`` puts the stream's block count in element 0 instead: the
+    live end written there never lowers it, so the last tile walks its
+    whole run, as before the cut (for measurement)."""
+    queries = torch.arange(-1, num_tiles + 1, dtype=torch.int32,
+                           device=tile_of_block.device)
+    if not cut:
+        queries[0] = num_tiles
+    return torch.searchsorted(tile_of_block, queries, out_int32=True)
+
+
+def live_tile_starts(vals, tile_of_block, *, rows_cap: int, blk: int,
+                     tile_rows: int):
+    """The cut B1, B2 and B6 make, computed alone on a CUDA stream:
+    :func:`_cut_tile_starts` after ``live_end_kernel`` has written element
+    0. The last tile's CTA walks blocks ``[s[-2], max(s[-2], s[0]))`` of
+    its run ``[s[-2], s[-1])``. For measurement and tests; the wrappers
+    launch the same kernel themselves. On a CPU tensor element 0 comes
+    from :func:`live_end_plain`."""
+    num_tiles = rows_cap // tile_rows
+    starts = _cut_tile_starts(tile_of_block, num_tiles)
+    if vals.device.type == "cpu":
+        starts[0] = live_end_plain(vals, tile_of_block, rows_cap=rows_cap,
+                                   blk=blk, tile_rows=tile_rows)
+        return starts
+    require_sm90(vals.device)
+    _check_async_operands(blk, vals=vals)
+    lib = _build.load("gather_mttkrp")
+    err = lib.gather_mttkrp_live_end_launch(
+        vals.data_ptr(), starts.data_ptr() + 4, num_tiles, blk,
+        vals.shape[0], torch.cuda.current_stream(vals.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "gather_mttkrp_live_end launch failed: "
+            f"{lib.gather_mttkrp_error_string(err).decode()} ({err})")
+    return starts
+
+
+def live_end_plain(vals, tile_of_block, *, rows_cap: int, blk: int,
+                   tile_rows: int) -> int:
+    """Plain version of the cut (a host read): one past the last block of
+    the last tile's run that holds a nonzero value, 0 when none does."""
+    starts = _tile_starts(tile_of_block, rows_cap // tile_rows)
+    b0, b1 = int(starts[-2]), int(starts[-1])
+    live = torch.nonzero(vals[b0 * blk:b1 * blk] != 0)
+    return b0 + int(live[-1]) // blk + 1 if live.numel() else 0
+
+
 def _out_start(out_init, rows_cap: int, rank: int, dev):
     """The kernels' output buffer: a copy of ``out_init``, or zeros."""
     if out_init is None:
@@ -239,7 +317,8 @@ def _out_start(out_init, rows_cap: int, rank: int, dev):
 
 
 def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
-                      rank_slab: int | None = None) -> int:
+                      rank_slab: int | None = None,
+                      gather_itemsize: int = 4) -> int:
     """Shared memory of one CTA of the in-kernel-gather kernels (B1, B2).
 
     The ``groups`` partial output tiles, one slab wide (the padded rank for
@@ -249,10 +328,14 @@ def gather_smem_bytes(num_in_modes: int, rank_padded: int, tile_rows: int,
     while chunk c gathers from the other). The factors are not held: they
     are read from device memory (L2). The layout is
     ``csrc/gather_mttkrp.cu``'s; the launch check and the residency planner
-    read this one number. It holds no factor element, so it is the same
-    for float32 and bf16 factors.
+    read this one number. bf16 factors (``gather_itemsize=2``) at a slab
+    under :data:`BF16_VEC_MIN_SLAB` run the narrow kernel: its partial
+    tiles alone (their rows swizzled, not padded); it stages no stream (it
+    reads it into registers).
     """
     slab = rank_padded if rank_slab is None else min(rank_padded, rank_slab)
+    if _gather_design(slab, gather_itemsize) == "narrow":
+        return 4 * _groups(tile_rows) * tile_rows * slab
     chunk = STAGE_SLOTS // STAGE_BUFFERS
     return 4 * (_groups(tile_rows) * tile_rows * slab
                 + STAGE_BUFFERS * chunk * (2 + num_in_modes))
@@ -385,7 +468,8 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     rank, itemsize = factors[0].shape[1], factors[0].element_size()
     groups = _groups(tile_rows)
     lanes = _gather_lanes(slab, itemsize)
-    smem = gather_smem_bytes(len(factors), rank, tile_rows, rank_slab=slab)
+    smem = gather_smem_bytes(len(factors), rank, tile_rows, rank_slab=slab,
+                             gather_itemsize=itemsize)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"a {tile_rows} x {slab} output tile with {groups} partials needs "
@@ -404,7 +488,7 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
         raise ValueError("a factor matrix of 2**31 or more elements: the "
                          "kernel keeps 32-bit row offsets")
     num_tiles = rows_cap // tile_rows
-    blk_start = _tile_starts(tile_of_block, num_tiles)
+    starts = _cut_tile_starts(tile_of_block, num_tiles)
     out = _out_start(out_init, rows_cap, rank, dev)
     ptrs = [f.data_ptr() for f in factors] + [0] * (MAX_IN_MODES
                                                      - len(factors))
@@ -413,9 +497,9 @@ def _launch(vals, idx_stream, factors, local_row_in_tile, tile_of_block, *,
     lib = _build.load("gather_mttkrp")
     err = getattr(lib, _entry("gather_mttkrp", factors))(
         vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
-        blk_start.data_ptr(), *ptrs, *nrows, out.data_ptr(), len(factors),
+        starts.data_ptr() + 4, *ptrs, *nrows, out.data_ptr(), len(factors),
         num_tiles, rank // slab, blk, tile_rows, rank, slab, groups, lanes,
-        torch.cuda.current_stream(dev).cuda_stream)
+        vals.shape[0], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "gather_mttkrp launch failed: "
@@ -763,7 +847,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
                               or not carry.partials.is_contiguous()):
         raise ValueError(f"carry partials must be {part_shape} float32 on "
                          f"{dev}")
-    blk_start = _tile_starts(tile_of_block, num_tiles)
+    starts = _cut_tile_starts(tile_of_block, num_tiles)
     out = _out_start(out_init, rows_cap, rank, dev)
     carry_out = (torch.empty(part_shape, dtype=torch.float32, device=dev)
                  if tail is not None else None)
@@ -771,7 +855,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
     lib = _build.load("gather_stream_mttkrp")
     err = getattr(lib, _entry("gather_stream_mttkrp", factors))(
         vals.data_ptr(), idx_stream.data_ptr(), local_row_in_tile.data_ptr(),
-        blk_start.data_ptr(), *[f.data_ptr() for f in factors], *pad,
+        starts.data_ptr() + 4, *[f.data_ptr() for f in factors], *pad,
         *[f.shape[0] for f in factors], *pad,
         *[s.data_ptr() for s in scheds], *pad, *windows, *pad,
         out.data_ptr(),
@@ -781,7 +865,7 @@ def _launch_stream(vals, idx_stream, factors, local_row_in_tile,
         frow_tile, stages, mappers,
         carry.tile if carry is not None else -1,
         carry.slots % groups if carry is not None else 0,
-        tail[0] if tail is not None else -1,
+        tail[0] if tail is not None else -1, vals.shape[0],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -79,9 +79,11 @@ MAX_GRID_Y = 65535
 MAX_GRID_X = 2**31 - 1
 # The stream kernel's issuer warps (kIssuerWarps in gather_stream_mttkrp.cu).
 _STREAM_ISSUER_WARPS = 4
-# B1/B2's kernel for bf16 factors at slabs of kernel.BF16_VEC_MIN_SLAB or
-# more (16-byte row loads).
-_GATHER_VEC_KERNEL = "gather_mttkrp_vec_kernel"
+# B1/B2's kernels for bf16 factors (16-byte row loads), by
+# kernel._gather_design: at slabs of kernel.BF16_VEC_MIN_SLAB or more, and
+# below it.
+_GATHER_BF16_KERNELS = {"vec": "gather_mttkrp_vec_kernel",
+                        "narrow": "gather_mttkrp_narrow_kernel"}
 
 # Per kernel backend: its library, its kernel (the name in the source),
 # its launch function and its factor element bytes.
@@ -225,10 +227,11 @@ def _smem_at_ladder(backend: str, geom: Geometry) -> int:
     slab, _ = _slabs(backend, geom.rank)
     gi = _BACKEND_KERNEL[backend][3]
     if backend in ("pallas_fused_gather", "pallas_fused_gather_bf16"):
-        return _kernel.gather_smem_bytes(k, rpad, geom.tile_rows)
+        return _kernel.gather_smem_bytes(k, rpad, geom.tile_rows,
+                                         gather_itemsize=gi)
     if backend == "pallas_fused_gather_tiled":
         return _kernel.gather_smem_bytes(k, rpad, geom.tile_rows,
-                                         rank_slab=slab)
+                                         rank_slab=slab, gather_itemsize=gi)
     if backend == _ops.STREAM_BACKEND:
         return _kernel.gather_stream_smem_bytes(
             k, rpad, geom.blk, geom.tile_rows, geom.window_tiles(),
@@ -294,7 +297,8 @@ def launch_plan(backend: str, geom: Geometry) -> LaunchPlan | None:
         rcols = _kernel.padded_rank(geom.rank, slab)
         return LaunchPlan(grid, groups * _kernel._gather_lanes(slab, gi),
                           _kernel.gather_smem_bytes(k, rcols, tr,
-                                                    rank_slab=slab))
+                                                    rank_slab=slab,
+                                                    gather_itemsize=gi))
     if backend == _ops.STREAM_BACKEND:
         windows = (geom.window_tiles(),) * k
         stages, mappers = _kernel.stream_ring(k, rpad, geom.blk, tr, windows,
@@ -393,8 +397,9 @@ def kernel_label(mangled: str) -> str:
     """``gather_mttkrp_kernel<3, bf16>`` for the mangled name of one of
     this package's kernels (``mangled`` itself for any other)."""
     kernels = {kern for _, kern, _, _ in _BACKEND_KERNEL.values()} \
-        | {_GATHER_VEC_KERNEL}
-    for kern in sorted(kernels | {"l2_read_kernel"}, key=len, reverse=True):
+        | set(_GATHER_BF16_KERNELS.values())
+    for kern in sorted(kernels | {"l2_read_kernel", "live_end_kernel"},
+                       key=len, reverse=True):
         base = f"{len(kern)}{kern}"
         if base in mangled:
             m = _TEMPLATE_ARGS.match(mangled.split(base, 1)[1])
@@ -451,7 +456,9 @@ def lower_backend(backend: str, geom: Geometry) -> LoweringResult:
         library, kernel, entry, itemsize = _BACKEND_KERNEL[backend]
         if kernel == "gather_mttkrp_kernel" and _kernel._vec_rows(
                 _slabs(backend, geom.rank)[0], itemsize):
-            kernel = _GATHER_VEC_KERNEL   # what the wrapper launches there
+            # What the wrapper launches there.
+            kernel = _GATHER_BF16_KERNELS[_kernel._gather_design(
+                _slabs(backend, geom.rank)[0], itemsize)]
         path, report = _build.build()[library]
         lib = ctypes.CDLL(str(path))
         if not hasattr(lib, entry) \

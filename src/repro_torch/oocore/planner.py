@@ -207,11 +207,12 @@ def _rung_cost(backend: str, *, k: int, rpad: int, tile_rows: int, blk: int,
     holds none."""
     slab = min(rpad, _kernel.RANK_SLAB)
     if backend == "pallas_fused_gather":
-        return (_kernel.gather_smem_bytes(k, rpad, tile_rows),
+        return (_kernel.gather_smem_bytes(k, rpad, tile_rows,
+                                          gather_itemsize=gi),
                 total * rpad * gi, ())
     if backend == "pallas_fused_gather_tiled":
         return (_kernel.gather_smem_bytes(k, rpad, tile_rows,
-                                          rank_slab=slab),
+                                          rank_slab=slab, gather_itemsize=gi),
                 total * slab * gi, ())
     if backend == STREAM_BACKEND:
         rows = per_mode if per_mode is not None else (total,) * k

@@ -1812,3 +1812,139 @@ def test_lm_int8_and_mesh_sessions_on_card(cuda):
     assert torch.equal(M.prefill(cfg8, card, toks)[0],
                        M.prefill(dataclasses.replace(
                            cfg8, kv_cache_dtype="bfloat16"), card, toks)[0])
+
+
+# ---------------------------------------------------------------------------
+# The last tile's walk cut at its last live block (S1), and the narrow bf16
+# B1/B2 (gather_mttkrp_narrow_kernel, slabs under BF16_VEC_MIN_SLAB)
+# ---------------------------------------------------------------------------
+
+def _narrow_case(case, k):
+    """``(runs, pad_blocks, blk, zero_from)`` of a narrow-kernel case:
+    ``zero_from`` zeroes every slot from there on (a last nonzero just
+    before, at or after a batch edge, padding behind it). A group's batch
+    is NARROW_UNROLL // K slots; the CTA's two batches in flight cover
+    ``edge`` slots of the run."""
+    edge = 2 * K._groups(TILE) * max(1, K.NARROW_UNROLL // k)
+    if case == "last tile all padding":
+        return [5, 3, 40], range(8, 48), BLK, None
+    if case == "padding blocks between live ones":
+        return [10, 12, 6, 30], (3, 11, 12, 13, 27, 30, 31, 50, 51, 52), \
+            BLK, 56 * BLK - 7
+    if case == "single block":
+        return [1], (), BLK, None
+    runs = [edge // 4 - 1, edge // 4, edge // 4 + 1, 3 * edge // 4 + 3]
+    start = sum(runs[:3]) * 4
+    if case.startswith("batch edge"):
+        last = {"-1": edge - 1, "0": edge, "+1": edge + 1}[case[11:]]
+        return runs, (), 4, start + last
+    # The pipeline's depth: runs of 1, 2, 3 and 5 batches of every group.
+    return [c * edge // 8 for c in (1, 2, 3, 5)], (), 4, None
+
+
+NARROW_CASES = ["last tile all padding", "padding blocks between live ones",
+                "single block", "batch edge -1", "batch edge 0",
+                "batch edge +1", "pipeline depth"]
+
+
+def _check_cut(args, rows_cap, blk):
+    """The cut the kernels make (live_end_kernel) equals the plain one, and
+    ends the last tile's walk within one block of its last live slot."""
+    vals, _, _, _, tob = args
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=TILE)
+    starts = K.live_tile_starts(vals, tob, **kw)
+    want = K.live_end_plain(vals, tob, **kw)
+    assert int(starts[0]) == want
+    b0, b1 = int(starts[-2]), int(starts[-1])
+    live = torch.nonzero(vals[b0 * blk:b1 * blk]).flatten()
+    if live.numel():
+        assert (want - b0) * blk - int(live[-1]) <= blk
+    else:
+        assert want == 0
+
+
+@pytest.mark.parametrize("case", NARROW_CASES)
+@pytest.mark.parametrize("rank", [16, 32, 48])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_bf16_narrow_gather_edges(cuda, k, rank, case):
+    """The narrow bf16 B1 (and B2 over 16-column slabs) against its plain
+    version, and bitwise against B3-bf16, B4-bf16 and B6-bf16 on the same
+    stream: a last tile whose run is all padding, padding blocks between
+    live ones, a single block, a last nonzero at a batch edge +-1, and
+    runs of 1, 2, 3 and 5 batches around the pipeline's two; with the tail
+    cut held to the plain one."""
+    runs, pads, blk, zero_from = _narrow_case(case, k)
+    args, rows_cap = _runs_operands(cuda, k, rank, runs, blk=blk,
+                                    seed=300 + 10 * k + rank,
+                                    pad_blocks=pads)
+    if zero_from is not None:
+        args[0][zero_from:] = 0.0
+    args = _to_bf16(args)
+    assert K._gather_design(rank, 2) == "narrow"
+    _check_cut(args, rows_cap, blk)
+    kw = dict(rows_cap=rows_cap, blk=blk, tile_rows=TILE)
+    n = K.fused_mttkrp_nmode_gather.launches_bf16
+    b1 = K.fused_mttkrp_nmode_gather(*args, **kw)
+    assert K.fused_mttkrp_nmode_gather.launches_bf16 == n + 1
+    plain = K.fused_mttkrp_nmode_gather_plain(*args, **kw)
+    scale = max(float(plain.abs().max()), 1e-30)
+    assert torch.allclose(b1, plain, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(b1, K.fused_mttkrp_nmode_gather(*args, **kw))
+    assert torch.equal(b1, K.fused_mttkrp_nmode_gather_tiled(
+        *args, rank_slab=16, **kw))
+    vals, idx, fm, rows, tob = args
+    pre = ops.pregathered_rows(idx, fm)
+    assert torch.equal(b1, K.fused_mttkrp_nmode(vals, pre, rows, tob, **kw))
+    assert torch.equal(b1, K.fused_mttkrp_nmode_tiled(
+        vals, pre, rows, tob, rank_slab=16, **kw))
+    if blk == BLK:
+        s_args, _ = _b6_args(args)
+        assert torch.equal(b1, K.fused_mttkrp_nmode_gather_stream(
+            *s_args, rank_slab=16, **kw))
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_stream_chunk_of_trailing_padding_only(cuda, k, dtype, carry):
+    """B6 chunks whose part of the last tile's run is trailing padding
+    only: with a carry (the chunk starts inside that run, after its live
+    blocks) the carried partials still reach ``out``; without one (the
+    chunk starts at the run, all padding) the tile keeps ``out_init``.
+    Chunked == single pass bitwise, and == B1."""
+    pads = range(45, 62) if carry else range(42, 62)
+    args, rows_cap = _runs_operands(cuda, k, 16, [2, 40, 20],
+                                    seed=400 + k, pad_blocks=pads)
+    if dtype == torch.bfloat16:
+        args = _to_bf16(args)
+    args6, _ = _b6_args(args)
+    single = _check_b6(args6, rows_cap)
+    _check_cut(args, rows_cap, BLK)
+    vals, idx, fm, rows, tob, scheds = args6
+    kw = dict(rows_cap=rows_cap, blk=BLK, tile_rows=TILE)
+    cut = 47 if carry else 42
+    a, b = slice(0, cut * BLK), slice(cut * BLK, tob.shape[0] * BLK)
+    out, held = K.fused_mttkrp_nmode_gather_stream_chunk(
+        vals[a], idx[a], fm, rows[a], tob[:cut],
+        tuple(x[:cut].contiguous() for x in scheds), split_tail=carry, **kw)
+    assert (held is not None) == carry
+    out, held = K.fused_mttkrp_nmode_gather_stream_chunk(
+        vals[b], idx[b], fm, rows[b], tob[cut:],
+        tuple(x[cut:].contiguous() for x in scheds), out_init=out,
+        carry=held, **kw)
+    assert held is None
+    assert torch.equal(out, single)
+
+
+@pytest.mark.parametrize("rank", [16, 256])
+def test_fp32_gather_tail_cut_matches_plain(cuda, rank):
+    """fp32 B1/B2 with the aligned stream's own trailing padding (the
+    blocks clipped onto the last tile): the cut equals the plain one, and
+    the kernels still equal their plain version and each other."""
+    args = _operands(cuda, 3, rank, ops.tiled_rank_slab(rank), cap=20_000,
+                     rows_cap=256, seed=rank)
+    _check_cut(args, 256, BLK)
+    starts = K.live_tile_starts(args[0], args[4], rows_cap=256, blk=BLK,
+                                tile_rows=TILE)
+    assert int(starts[-1]) - int(starts[0]) > 8   # blocks cut
+    _check_b1_b2(args, 256, rank, blk=BLK)

@@ -176,25 +176,28 @@ def test_gather_smem_bytes_equal_the_cu_layout(k, rank, slab):
 
 @pytest.mark.parametrize("slab", [16, 32, 48, 64, 128, 256, 512])
 def test_gather_bf16_lanes_own_16_byte_column_blocks(slab):
-    """bf16 B1/B2 at a slab of kVecMinSlab (BF16_VEC_MIN_SLAB) or more: a
-    lane per kVec = 8 columns (one 16-byte read of a bf16 row), at most
-    32; below it, and for float32, _lanes. A CTA stays within 512
-    threads, and the staging is the float32 kernel's (one byte count)."""
+    """bf16 B1/B2 at every slab: a lane per kVec = 8 columns (one 16-byte
+    read of a bf16 row), at most 32: gather_mttkrp_vec_kernel at a slab
+    of kVecMinSlab (BF16_VEC_MIN_SLAB) or more, gather_mttkrp_narrow_kernel
+    below it; for float32, _lanes. A CTA stays within 512 threads, and
+    every design launches groups * lanes threads."""
     vec = _cu_int("gather_mttkrp.cu", "kVec")
     assert vec * 2 == 16
     assert _cu_int("gather_mttkrp.cu", "kVecMinSlab") \
         == tk.BF16_VEC_MIN_SLAB
     lanes = tk._gather_lanes(slab, 2)
-    if slab >= tk.BF16_VEC_MIN_SLAB:
-        assert lanes == min(32, slab // vec)
-    else:
-        assert lanes == tk._lanes(slab)
+    assert lanes == min(32, slab // vec)
+    assert tk._gather_design(slab, 2) == (
+        "vec" if slab >= tk.BF16_VEC_MIN_SLAB else "narrow")
+    assert tk._gather_design(slab, 4) == "column"
     assert tk._gather_lanes(slab) == tk._lanes(slab)
     for tile_rows in (1, 8, 128):
         assert tk._groups(tile_rows) * lanes <= 512
     text = (CSRC / "gather_mttkrp.cu").read_text()
-    assert "gather_mttkrp_vec_kernel<K, T><<<grid, groups * lanes, smem" \
+    assert "kernel<<<dim3(num_tiles, num_slabs), groups * lanes, smem" \
         in text
+    assert "return LAUNCH(gather_mttkrp_vec_kernel, staged);" in text
+    assert "return LAUNCH(gather_mttkrp_narrow_kernel, partials);" in text
 
 
 def test_stream_bf16_consumers_fit_a_block():
@@ -244,19 +247,27 @@ def test_bf16_ring_lets_two_ctas_share_an_sm(k, rank, blk, windows):
 
 
 def test_ladder_asks_the_fp32_gather_bytes_for_bf16():
-    """The ladder's gather rungs cost B1/B2's CTA for bf16 gathers as for
-    float32 ones (the same staging and partial tiles, byte for byte), so
-    its choices and plan_bytes do not move."""
-    for k, rpad, tr in ((2, 16, 8), (3, 256, 8), (2, 512, 128)):
+    """The ladder's gather rungs cost B1/B2's CTA as the kernel that runs
+    lays it out: for bf16 gathers at a slab of BF16_VEC_MIN_SLAB or more
+    the float32 bytes (the same staging and partial tiles, byte for
+    byte); at a narrower slab the narrow kernel's own, which are fewer."""
+    for k, rpad, tr in ((2, 16, 8), (3, 256, 8), (2, 512, 128),
+                        (3, 32, 8), (1, 48, 16)):
         for backend in ("pallas_fused_gather", "pallas_fused_gather_tiled"):
             slab = None if backend == "pallas_fused_gather" else \
                 min(rpad, tk.RANK_SLAB)
-            want = tk.gather_smem_bytes(k, rpad, tr, rank_slab=slab)
+            f32 = tk.gather_smem_bytes(k, rpad, tr, rank_slab=slab)
             for gi in (4, 2):
                 smem, _, _ = planner._rung_cost(
                     backend, k=k, rpad=rpad, tile_rows=tr, blk=128,
                     per_mode=None, total=1000, gi=gi)
-                assert smem == want, (backend, gi)
+                assert smem == tk.gather_smem_bytes(
+                    k, rpad, tr, rank_slab=slab, gather_itemsize=gi)
+                width = rpad if slab is None else slab
+                if gi == 4 or width >= tk.BF16_VEC_MIN_SLAB:
+                    assert smem == f32, (backend, gi)
+                else:
+                    assert smem < f32, (backend, gi)
 
 
 @pytest.mark.parametrize("k,rank,blk,windows", SMOKE_STREAMS)

@@ -226,7 +226,8 @@ def _fake_build(monkeypatch, tmp_path, *, drop_k=None):
     instantiation (less ``drop_k`` input modes) and libraries that export
     every launch function; nothing is compiled."""
     names = {"gather_mttkrp": ["gather_mttkrp_kernel",
-                               "gather_mttkrp_vec_kernel"],
+                               "gather_mttkrp_vec_kernel",
+                               "gather_mttkrp_narrow_kernel"],
              "gather_stream_mttkrp": ["gather_stream_mttkrp_kernel"],
              "fused_mttkrp": ["fused_mttkrp_kernel",
                               "segment_accumulate_kernel"]}
